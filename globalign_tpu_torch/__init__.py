@@ -3,11 +3,12 @@
 Optimal global (Needleman-Wunsch) alignment with affine gap penalties via
 the Gotoh three-level recurrence in cost space, on an NVIDIA GPU: the DP
 fill is a hand-written CUDA kernel (``csrc/gotoh_fill.cu``, built on first
-use), the traceback walks its move codes on the host.  The JAX package
-``globalign_tpu`` stays the reference; this package never imports it or JAX,
-and gives identical alignments, costs, scores and reports.
+use); the traceback walks its move codes on the host, or, past the moves
+budget, block by block on the card (``csrc/walk_block.cu``).  The JAX
+package ``globalign_tpu`` stays the reference; this package never imports
+it or JAX, and gives identical alignments, costs, scores and reports.
 
-This slice ports the single-pair path::
+The single-pair path is ported, long pairs included::
 
     find_global_alignment(..., device="cuda")   # reference-parity entry point
     GotohAligner(scheme, device="cuda")          # align / cost / dp_planes

@@ -7,14 +7,16 @@ The port of ``globalign_tpu/models/gotoh.py``.  For one pair:
              -> host traceback over move codes (ops.traceback)
              -> final cost->score transform (ops.transforms)
 
-plus cost-only and planes-debug entry points.
+Past the moves budget ``align`` runs the blocked linear-space traceback
+instead (``ops.linear_tb.align_blocked``: checkpoint fills, then block
+replays walked on the device), bit-identical to the full-matrix route.
+``cost`` runs the meet-in-the-middle split (``ops.fill_split``) from
+``SPLIT_MIN_ROWS`` rows and one cost-only fill below; ``dp_planes`` is a
+debug view.
 
 The device is explicit: ``device="cuda"`` (the default) raises when no GPU
 is present, and the CPU engine runs only when ``device="cpu"`` is passed.
-The kernel takes true lengths at run time, so inputs are not padded.
-Past the moves budget the JAX package switches to the blocked linear-space
-traceback (``ops/linear_tb.align_blocked``); that path is not ported yet,
-and ``align`` refuses such pairs instead of doing anything else.
+The kernels take true lengths at run time, so inputs are not padded.
 """
 
 from __future__ import annotations
@@ -27,18 +29,28 @@ import torch
 from torch import nn
 
 from ..config import ResolvedScheme
-from ..ops import fill_cuda, fill_rows
+from ..ops import fill_cuda, fill_rows, linear_tb
+from ..ops.fill_split import split_fill_cost
 from ..ops.traceback import traceback_moves
 from ..ops.transforms import final_cost_to_score
 
-# Above this many bytes of move codes, (m+1)*(n+1), align() would need the
-# blocked linear-space traceback (64 MiB ~ 8k x 8k pairs).  The default
+# Above this many bytes of move codes, (m+1)*(n+1), align() switches to the
+# blocked linear-space traceback (64 MiB ~ 8k x 8k pairs), whose blocks of
+# codes then stay within it (down to 512 rows a block).  The default
 # bounds both the device buffer and the host copy of the move plane;
 # raise it per-aligner (moves_budget_bytes=...) or process-wide via
 # GLOBALIGN_MOVES_BUDGET_BYTES.
 DEFAULT_MOVES_BUDGET_BYTES = int(
     _os.environ.get("GLOBALIGN_MOVES_BUDGET_BYTES", 64 * 1024 * 1024)
 )
+
+# cost() runs the meet-in-the-middle split from this many rows of seq_1 up
+# and one direct cost-only fill below it.  The split adds 0.3-1.2 ms of
+# gathers, a 2-pair launch and the join, and saves m/2 waves.  On an H100
+# (m 24..8192 x n 64..20 000) it lost below 1024 rows at every width, and
+# from 1024 rows lost at most 0.25 ms (narrow pairs) while winning up to 2x
+# (see PERF.md, the split grid).
+SPLIT_MIN_ROWS = 1024
 
 
 @dataclass(frozen=True)
@@ -130,28 +142,45 @@ class GotohAligner(nn.Module):
         )
 
     def cost(self, seq_1: str, seq_2: str) -> int:
-        """Optimal alignment cost only (O(m+n) device memory on the card)."""
+        """Optimal alignment cost only (O(m+n) device memory on the card):
+        the meet-in-the-middle split from ``SPLIT_MIN_ROWS`` rows, one
+        cost-only fill below."""
+        if len(seq_1) >= SPLIT_MIN_ROWS:
+            return int(
+                split_fill_cost(
+                    self._encode(seq_1),
+                    self._encode(seq_2),
+                    self.cost_mat,
+                    self.gap_id,
+                    self.gap_open,
+                )
+            )
         final3, _ = self._batch_fill(seq_1, seq_2, want_moves=False)
         return int(final3.min())
 
     def align(self, seq_1: str, seq_2: str) -> GotohAlignment:
-        """Full alignment with deterministic traceback."""
+        """Full alignment with deterministic traceback: from the full move
+        matrix up to the moves budget, blocked past it."""
         m, n = len(seq_1), len(seq_2)
-        moves_bytes = (m + 1) * (n + 1)
-        if moves_bytes > self.moves_budget_bytes:
-            raise NotImplementedError(
-                f"a {m} x {n} pair needs {moves_bytes} bytes of "
-                f"move codes, over the {self.moves_budget_bytes}-byte moves "
-                "budget; the blocked linear-space traceback that aligns such "
-                "pairs is not yet ported (ROADMAP A6)"
+        if (m + 1) * (n + 1) > self.moves_budget_bytes:
+            tb = linear_tb.align_blocked(
+                self._encode(seq_1),
+                self._encode(seq_2),
+                self.cost_mat,
+                self.gap_id,
+                self.gap_open,
+                seq_1,
+                seq_2,
+                block_moves_bytes=self.moves_budget_bytes,
             )
-        final3, moves = self._batch_fill(seq_1, seq_2, want_moves=True)
-        tb = traceback_moves(
-            moves[0].cpu().numpy(),
-            seq_1,
-            seq_2,
-            final3[0].cpu().numpy(),
-        )
+        else:
+            final3, moves = self._batch_fill(seq_1, seq_2, want_moves=True)
+            tb = traceback_moves(
+                moves[0].cpu().numpy(),
+                seq_1,
+                seq_2,
+                final3[0].cpu().numpy(),
+            )
         score = final_cost_to_score(
             cost=tb.cost,
             m=m,

@@ -1,16 +1,32 @@
-"""Batched Gotoh fill with move codes — the CUDA kernel and its plain version.
+"""Batched Gotoh fills — the CUDA kernel and its plain version.
 
-``batch_moves`` is the counterpart of ``globalign_tpu/ops/fill_pallas.py:
-batch_moves``: final3 and row-major move codes for B pairs.  On CUDA
-tensors it launches the hand-written kernel ``csrc/gotoh_fill.cu`` (one
-block per pair; see the note at the head of that file), on CPU tensors it
-runs the plain version, the row scan of ``ops.fill_rows``, pair by pair.
-There is no other route: a CUDA tensor that the kernel cannot take raises.
+Two wrappers of one kernel, ``csrc/gotoh_fill.cu`` (one block per pair;
+see the note at the head of that file):
+
+  * ``batch_moves`` — final3 and row-major move codes for B pairs, the
+    counterpart of ``globalign_tpu/ops/fill_pallas.py:batch_moves`` and,
+    with ``row0`` / ``col0y_top``, of the injected ``lanes_batch_moves`` /
+    ``stacked_fill_with_moves`` that the blocked traceback replays with;
+  * ``batch_last_rows`` — the full last DP row of B pairs, the counterpart
+    of ``lanes_batch_last_rows`` (optionally injected),
+    ``stacked_fill_last_rows`` and ``row_fill_last_rows``: the blocked
+    traceback's checkpoint fill and the cost split's 2-pair fill.
+
+On CUDA tensors each launches the kernel; on CPU tensors each runs the
+plain version, the row scan of ``ops.fill_rows``, pair by pair.  There is
+no other route: a CUDA tensor that the kernel cannot take raises.
 
 Unlike the TPU path there is no skewed layout and no host unskew
 (``fill_lanes.lanes_moves_to_row``): the kernel writes ``moves[b, i, j]``
 directly.  Codes are defined at real cells 1 <= i <= m_true[b],
-1 <= j <= n_true[b]; every other byte is 0 on both routes.
+1 <= j <= n_true[b]; every other byte is 0 on both routes.  Last rows are
+defined at columns 0..n_true[b]; the columns past it are BIG on both.
+
+Boundary injection: ``row0`` (B, 3, N+1) int32 replaces row 0 (its column
+0 is the diagonal seed of cell (1, 1)) and ``col0y_top`` (B,) int32
+replaces the ``gap_open`` that starts the column-0 Iy sum, so
+Iy(i, 0) = col0y_top + icost(a_1) + ... + icost(a_i).  Row-1 codes then
+point at the injected row's argmins.  Either may be given alone.
 """
 
 from __future__ import annotations
@@ -18,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from .fill_rows import row_fill
+from .fill_scan import BIG
 
 MAX_THREADS = 1024  # the kernel's __launch_bounds__
 
@@ -40,21 +57,138 @@ def _lengths(lengths, batch: int, cap: int, name: str) -> torch.Tensor:
     return out
 
 
-def _plain(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, want_moves):
+def _check(tok_a, tok_b, cost_mat, gap_id, m_true, n_true, row0, col0y_top):
+    """Validate a fill's arguments; returns the host-side lengths."""
+    if tok_a.dim() != 2 or tok_b.dim() != 2 or tok_a.shape[0] != tok_b.shape[0]:
+        raise ValueError("tok_a / tok_b must be (B, M+1) / (B, N+1)")
+    batch, m1 = tok_a.shape
+    n1 = tok_b.shape[1]
+    if batch < 1 or m1 < 1 or n1 < 1:
+        raise ValueError("empty token buffers")
+    num = cost_mat.shape[0]
+    if cost_mat.dim() != 2 or cost_mat.shape[1] != num:
+        raise ValueError("cost_mat must be square (A, A)")
+    if not 0 <= int(gap_id) < num:
+        raise ValueError(f"gap_id {gap_id} outside the alphabet of {num}")
+    tensors = [("tok_a", tok_a), ("tok_b", tok_b), ("cost_mat", cost_mat)]
+    if row0 is not None:
+        if tuple(row0.shape) != (batch, 3, n1):
+            raise ValueError(
+                f"row0 must be ({batch}, 3, {n1}), got {tuple(row0.shape)}"
+            )
+        tensors.append(("row0", row0))
+    if col0y_top is not None:
+        if tuple(col0y_top.shape) != (batch,):
+            raise ValueError(
+                f"col0y_top must be ({batch},), got {tuple(col0y_top.shape)}"
+            )
+        tensors.append(("col0y_top", col0y_top))
+    for name, x in tensors:
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != tok_a.device:
+            raise ValueError(f"{name} is on {x.device}, tok_a on {tok_a.device}")
+    return (
+        _lengths(m_true, batch, m1 - 1, "m_true"),
+        _lengths(n_true, batch, n1 - 1, "n_true"),
+    )
+
+
+def _col0(tok_a, cost_mat, gap_id, top: int) -> torch.Tensor:
+    """(3, m+1) column-0 boundary whose Iy lane starts its sum at ``top``
+    (the other lanes and entry 0 are never read by ``row_fill``)."""
+    steps = cost_mat[tok_a, gap_id].clone()
+    steps[0] = 0
+    iy = top + torch.cumsum(steps, 0, dtype=torch.int32)
+    big = torch.full_like(iy, BIG)
+    return torch.stack([big, big, iy])
+
+
+def _plain(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
+           col0y_top, want_moves, want_last):
+    """The kernel's plain version: ``row_fill`` pair by pair (CPU)."""
     batch, m1 = tok_a.shape
     n1 = tok_b.shape[1]
     final3 = torch.empty((batch, 3), dtype=torch.int32)
     moves = torch.zeros((batch, m1, n1), dtype=torch.uint8) if want_moves else None
+    last = torch.full((batch, 3, n1), BIG, dtype=torch.int32) if want_last else None
     for b in range(batch):
         m, n = int(m_true[b]), int(n_true[b])
+        ta, tb = tok_a[b, : m + 1], tok_b[b, : n + 1]
         res = row_fill(
-            tok_a[b, : m + 1], tok_b[b, : n + 1], cost_mat, gap_id, gap_open,
+            ta, tb, cost_mat, gap_id, gap_open,
+            row0=None if row0 is None else row0[b, :, : n + 1],
+            col0=(
+                None if col0y_top is None
+                else _col0(ta, cost_mat, gap_id, int(col0y_top[b]))
+            ),
             want_moves=want_moves,
         )
         final3[b] = res.final3
         if want_moves:
             moves[b, 1 : m + 1, 1 : n + 1] = res.moves[1:, 1:]
-    return final3, moves
+        if want_last:
+            last[b, :, : n + 1] = res.last3
+    return final3, moves, last
+
+
+def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
+          col0y_top, want_moves, want_last, counter):
+    """Route one fill: the plain version on CPU tensors, else the kernel."""
+    m_true, n_true = _check(
+        tok_a, tok_b, cost_mat, gap_id, m_true, n_true, row0, col0y_top
+    )
+    device = tok_a.device
+    if device.type == "cpu":
+        return _plain(
+            tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
+            col0y_top, want_moves, want_last,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"no gotoh_fill route for device {device}")
+
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    batch, m1 = tok_a.shape
+    n1 = tok_b.shape[1]
+    threads, width = _plan(n1 - 1)
+    final3 = torch.empty((batch, 3), dtype=torch.int32, device=device)
+    moves = (
+        torch.empty((batch, m1, n1), dtype=torch.uint8, device=device)
+        if want_moves
+        else None
+    )
+    last = (
+        torch.empty((batch, 3, n1), dtype=torch.int32, device=device)
+        if want_last
+        else None
+    )
+    scratch = torch.empty(
+        (batch, 4, width * threads), dtype=torch.int32, device=device
+    )
+    m_dev = m_true.pin_memory().to(device, non_blocking=True)
+    n_dev = n_true.pin_memory().to(device, non_blocking=True)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        counter.launches += 1
+        err = lib.gotoh_fill_launch(
+            tok_a.data_ptr(), tok_b.data_ptr(), cost_mat.data_ptr(),
+            m_dev.data_ptr(), n_dev.data_ptr(), ptr(row0), ptr(col0y_top),
+            final3.data_ptr(), ptr(moves), ptr(last), scratch.data_ptr(),
+            batch, m1 - 1, n1 - 1, cost_mat.shape[0], int(gap_id),
+            int(gap_open), threads, width, stream,
+        )
+    if err != 0:
+        msg = lib.gotoh_fill_error_string(err).decode()
+        raise RuntimeError(f"gotoh_fill launch failed: CUDA error {err} ({msg})")
+    return final3, moves, last
 
 
 def batch_moves(
@@ -67,6 +201,8 @@ def batch_moves(
     n_true,
     *,
     want_moves: bool = True,
+    row0: torch.Tensor | None = None,
+    col0y_top: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Fill B pairs: ``(final3 (B, 3) int32, moves (B, M+1, N+1) uint8)``.
 
@@ -76,69 +212,46 @@ def batch_moves(
         cost_mat: (A, A) int32 contiguous costing matrix on the same device.
         gap_id / gap_open: the gap token and the gap-open cost.
         m_true / n_true: (B,) true lengths, host-side.
-        want_moves: False skips the codes (``moves`` is None) — the cost-only
-            mode used by ``GotohAligner.cost``.
+        want_moves: False skips the codes (``moves`` is None) — the direct
+            cost-only fill.
+        row0 / col0y_top: optional boundary injection (module docstring),
+            on the tokens' device.
 
     ``batch_moves.launches`` counts kernel launches.
     """
-    if tok_a.dim() != 2 or tok_b.dim() != 2 or tok_a.shape[0] != tok_b.shape[0]:
-        raise ValueError("tok_a / tok_b must be (B, M+1) / (B, N+1)")
-    batch, m1 = tok_a.shape
-    n1 = tok_b.shape[1]
-    if batch < 1 or m1 < 1 or n1 < 1:
-        raise ValueError("empty token buffers")
-    num = cost_mat.shape[0]
-    if cost_mat.dim() != 2 or cost_mat.shape[1] != num:
-        raise ValueError("cost_mat must be square (A, A)")
-    if not 0 <= int(gap_id) < num:
-        raise ValueError(f"gap_id {gap_id} outside the alphabet of {num}")
-    for name, x in (("tok_a", tok_a), ("tok_b", tok_b), ("cost_mat", cost_mat)):
-        if x.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != tok_a.device:
-            raise ValueError(f"{name} is on {x.device}, tok_a on {tok_a.device}")
-    m_true = _lengths(m_true, batch, m1 - 1, "m_true")
-    n_true = _lengths(n_true, batch, n1 - 1, "n_true")
-
-    device = tok_a.device
-    if device.type == "cpu":
-        return _plain(
-            tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, want_moves
-        )
-    if device.type != "cuda":
-        raise ValueError(f"no gotoh_fill route for device {device}")
-
-    from ..utils import cuda_build
-
-    lib = cuda_build.load()
-    threads, width = _plan(n1 - 1)
-    final3 = torch.empty((batch, 3), dtype=torch.int32, device=device)
-    moves = (
-        torch.empty((batch, m1, n1), dtype=torch.uint8, device=device)
-        if want_moves
-        else None
+    final3, moves, _ = _fill(
+        tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
+        col0y_top, want_moves, False, batch_moves,
     )
-    scratch = torch.empty(
-        (batch, 4, width * threads), dtype=torch.int32, device=device
-    )
-    m_dev = m_true.pin_memory().to(device, non_blocking=True)
-    n_dev = n_true.pin_memory().to(device, non_blocking=True)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        batch_moves.launches += 1
-        err = lib.gotoh_fill_launch(
-            tok_a.data_ptr(), tok_b.data_ptr(), cost_mat.data_ptr(),
-            m_dev.data_ptr(), n_dev.data_ptr(), final3.data_ptr(),
-            moves.data_ptr() if want_moves else None, scratch.data_ptr(),
-            batch, m1 - 1, n1 - 1, num, int(gap_id), int(gap_open),
-            threads, width, stream,
-        )
-    if err != 0:
-        msg = lib.gotoh_fill_error_string(err).decode()
-        raise RuntimeError(f"gotoh_fill launch failed: CUDA error {err} ({msg})")
     return final3, moves
 
 
+def batch_last_rows(
+    tok_a: torch.Tensor,
+    tok_b: torch.Tensor,
+    cost_mat: torch.Tensor,
+    gap_id: int,
+    gap_open: int,
+    m_true,
+    n_true,
+    row0: torch.Tensor | None = None,
+    col0y_top: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Row ``m_true[b]`` of B pairs' DP: (B, 3, N+1) int32 (M, Ix, Iy).
+
+    Column 0 is (BIG, BIG, Iy(m, 0)) — or row 0's column 0 when
+    m_true[b] = 0 — and columns past n_true[b] are BIG: the contract of
+    ``ops.fill_rows.RowFillResult.last3`` per pair.  Arguments as in
+    :func:`batch_moves`; no move codes are written.
+
+    ``batch_last_rows.launches`` counts kernel launches.
+    """
+    _, _, last = _fill(
+        tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
+        col0y_top, False, True, batch_last_rows,
+    )
+    return last
+
+
 batch_moves.launches = 0
+batch_last_rows.launches = 0

@@ -70,6 +70,8 @@ def row_fill(
     m_true: int | None = None,
     n_true: int | None = None,
     *,
+    row0: torch.Tensor | None = None,
+    col0: torch.Tensor | None = None,
     want_moves: bool = True,
     want_planes: bool = False,
 ) -> RowFillResult:
@@ -82,6 +84,11 @@ def row_fill(
         gap_id / gap_open: the gap token and the gap-open cost.
         m_true / n_true: true lengths for padded buffers (default: the
             buffer lengths); ``final3`` is read at cell (m_true, n_true).
+        row0 / col0: optional (3, n+1) / (3, m+1) int32 boundary in place
+            of ``default_boundary``'s, each on its own — a block of rows of
+            a larger matrix, seeded from its checkpoint row.  Of ``col0``
+            only the Iy lane at rows 1..m is read (the matrix edge; the
+            JAX ``col0_full`` mode of a neighbour strip is not ported).
     """
     m = tok_a.shape[0] - 1
     n = tok_b.shape[0] - 1
@@ -95,7 +102,11 @@ def row_fill(
     go = int(gap_open)
     cost_mat = cost_mat.to(torch.int32)
 
-    row0, col0 = default_boundary(tok_a, tok_b, cost_mat, gap_id, go)
+    if row0 is None or col0 is None:
+        def_row0, def_col0 = default_boundary(tok_a, tok_b, cost_mat, gap_id, go)
+        row0 = def_row0 if row0 is None else row0
+        col0 = def_col0 if col0 is None else col0
+    row0 = row0.to(torch.int32)
 
     # One-time setup gathers outside the row loop: per-character
     # substitution rows over seq_2, horizontal gap steps + their prefix sum.

@@ -1,0 +1,309 @@
+"""Linear-space traceback: row checkpoints + block replay, in PyTorch.
+
+The port of ``globalign_tpu/ops/linear_tb.py`` (``align_blocked``,
+``_walk_block_impl``, ``assemble_from_tapes``).  A full traceback keeps
+(m+1)(n+1) bytes of move codes; past the aligner's moves budget this module
+aligns in O(n * (m/K + K)) device memory instead:
+
+1. **Checkpoint pass** — fill the DP in blocks of K rows with
+   ``fill_cuda.batch_last_rows``, each block seeded (``row0`` /
+   ``col0y_top``) from the last row of the block above; keep each block's
+   last row, (3, n+1).
+2. **Replay pass** — from (m, n) upward, block by block (last block
+   first): re-fill the block with move codes (``fill_cuda.batch_moves``,
+   same seeds), then walk them where they lie (``walk_block``), which
+   writes an op tape and hands its exit column and level to the next
+   block's walk as device tensors.
+
+Nothing syncs with the host between the first fill and the fetch of the
+tapes; the host then rebuilds the strings from the tapes alone
+(``assemble_from_tapes``).  Total fill work is 2x a plain fill; the path is
+bit-identical to the full-matrix traceback (same codes, tie order
+M > Ix > Iy).
+
+Routing is by device only: on CUDA tensors the kernels (``gotoh_fill``,
+``walk_block``), on CPU tensors their plain versions; anything else raises.
+Unlike the JAX module there is no backend ladder, no probe and no padding
+of n: the kernels take run-time lengths.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .fill_cuda import batch_last_rows, batch_moves
+from .fill_scan import default_boundary
+from .traceback import (
+    GAP_CHAR,
+    GAP_GLYPH,
+    MATCH_GLYPH,
+    MISMATCH_GLYPH,
+    Traceback,
+)
+
+DEFAULT_BLOCK_ROWS = 512
+
+# Adaptive block sizing cap: each replay block materializes (K+1) x (n+1)
+# move bytes on the device.  Growing K until one block's codes reach this
+# budget keeps the number of blocks (fills and walk launches) small at a
+# bounded memory cost.
+DEFAULT_BLOCK_MOVES_BYTES = 64 * 1024 * 1024
+
+# Backward-walk move ops (the per-step output of the walk; the host
+# rebuilds the aligned strings from these alone).
+OP_DIAG = 0  # consume one char of each sequence
+OP_LEFT = 1  # gap in seq_1 (consume seq_2[j-1])
+OP_UP = 2  # gap in seq_2 (consume seq_1[i-1])
+
+
+def _walk_plain(moves, i_entry, j_entry, level_entry):
+    """The walk kernel's plain version, over CPU tensors (Python loop)."""
+    batch, k1, n1 = moves.shape
+    length = k1 - 1 + n1 - 1
+    mv = moves.numpy()
+    ops = np.zeros((batch, length), np.uint8)
+    count = np.zeros(batch, np.int32)
+    j_exit = np.zeros(batch, np.int32)
+    level_exit = np.zeros(batch, np.int32)
+    for b in range(batch):
+        i, j, level = int(i_entry[b]), int(j_entry[b]), int(level_entry[b])
+        t = 0
+        while i > 0:
+            if j == 0:
+                op = OP_UP
+            else:
+                code = int(mv[b, i, j])
+                op = (OP_DIAG, OP_LEFT, OP_UP)[level]
+                level = (code >> (2 * level)) & 3
+            ops[b, t] = op
+            t += 1
+            i -= op != OP_LEFT
+            j -= op != OP_UP
+        count[b], j_exit[b], level_exit[b] = t, j, level
+    return tuple(
+        torch.from_numpy(x) for x in (ops, count, j_exit, level_exit)
+    )
+
+
+def walk_block(
+    moves: torch.Tensor,
+    i_entry,
+    j_entry: torch.Tensor,
+    level_entry: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Walk B pairs' move codes from row ``i_entry`` up to row 0.
+
+    Args:
+        moves: (B, K+1, N+1) uint8 row-major codes (``batch_moves``).
+        i_entry: (B,) host-side start rows in [0, K].
+        j_entry / level_entry: (B,) int32 start columns and levels, on the
+            moves' device — for a chain of blocks, the previous walk's
+            ``j_exit`` / ``level_exit``.
+
+    Returns ``(ops (B, K+N) uint8, count (B,), j_exit (B,), level_exit
+    (B,))``, int32 on the moves' device; ops past ``count`` are 0.  Column 0
+    forces up-moves without reading a code; the walk stops at row 0 and
+    leaves the row-0 left moves to the caller (``assemble_from_tapes``).
+
+    ``walk_block.launches`` counts kernel launches.
+    """
+    if moves.dim() != 3 or moves.dtype != torch.uint8:
+        raise ValueError("moves must be (B, K+1, N+1) uint8")
+    batch, k1, n1 = moves.shape
+    i_entry = torch.as_tensor(i_entry, dtype=torch.int32)
+    if i_entry.device.type != "cpu" or i_entry.shape != (batch,):
+        raise ValueError(f"i_entry must be host-side with shape ({batch},)")
+    if bool((i_entry < 0).any()) or bool((i_entry > k1 - 1).any()):
+        raise ValueError(f"i_entry must lie in [0, {k1 - 1}]")
+    for name, x in (("j_entry", j_entry), ("level_entry", level_entry)):
+        if x.dtype != torch.int32 or x.shape != (batch,):
+            raise ValueError(f"{name} must be ({batch},) int32")
+        if x.device != moves.device:
+            raise ValueError(f"{name} is on {x.device}, moves on {moves.device}")
+    if not moves.is_contiguous():
+        raise ValueError("moves must be contiguous")
+    device = moves.device
+    if device.type == "cpu":
+        return _walk_plain(moves, i_entry, j_entry, level_entry)
+    if device.type != "cuda":
+        raise ValueError(f"no walk_block route for device {device}")
+
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    length = k1 - 1 + n1 - 1
+    ops = torch.zeros((batch, length), dtype=torch.uint8, device=device)
+    count, j_exit, level_exit = (
+        torch.empty((batch,), dtype=torch.int32, device=device)
+        for _ in range(3)
+    )
+    i_dev = i_entry.pin_memory().to(device, non_blocking=True)
+    j_entry = j_entry.contiguous()
+    level_entry = level_entry.contiguous()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        walk_block.launches += 1
+        err = lib.walk_block_launch(
+            moves.data_ptr(), i_dev.data_ptr(), j_entry.data_ptr(),
+            level_entry.data_ptr(), ops.data_ptr(), count.data_ptr(),
+            j_exit.data_ptr(), level_exit.data_ptr(),
+            batch, k1 - 1, n1 - 1, length, stream,
+        )
+    if err != 0:
+        msg = lib.walk_block_error_string(err).decode()
+        raise RuntimeError(f"walk_block launch failed: CUDA error {err} ({msg})")
+    return ops, count, j_exit, level_exit
+
+
+walk_block.launches = 0
+
+
+def block_bounds(
+    m: int,
+    n: int,
+    block_rows: int | None = None,
+    block_moves_bytes: int = DEFAULT_BLOCK_MOVES_BYTES,
+) -> list[int]:
+    """Row bounds of the blocks: block b covers rows bounds[b]+1..bounds[b+1].
+
+    Default K: grow blocks until one block's codes reach
+    ``block_moves_bytes``, but never below ``DEFAULT_BLOCK_ROWS``.
+    """
+    if block_rows is None:
+        block_rows = max(
+            DEFAULT_BLOCK_ROWS, min(m, block_moves_bytes // (n + 1))
+        )
+    return list(range(0, m, max(1, block_rows))) + [m]
+
+
+def align_blocked(
+    tok_a: torch.Tensor,
+    tok_b: torch.Tensor,
+    cost_mat: torch.Tensor,
+    gap_id: int,
+    gap_open: int,
+    seq_1: str,
+    seq_2: str,
+    *,
+    block_rows: int | None = None,
+    block_moves_bytes: int = DEFAULT_BLOCK_MOVES_BYTES,
+    on_phase: Callable[[str], None] | None = None,
+) -> Traceback:
+    """Full alignment with O(n * (m/K + K)) memory (module docstring).
+
+    Args:
+        tok_a / tok_b: (m+1,) / (n+1,) int32 1-origin tokens on the device
+            the alignment runs on (CUDA: the kernels; CPU: their plain
+            versions); ``cost_mat`` (A, A) int32 on the same device.
+        gap_id / gap_open: the gap token and the gap-open cost.
+        seq_1 / seq_2: the strings (for emitting the aligned text).
+        block_rows / block_moves_bytes: the checkpoint interval K, or the
+            bytes of codes one block may hold (``block_bounds``).
+        on_phase: optional hook, called with "checkpoints" after the
+            checkpoint pass is queued, "fill" / "walk" after each replay
+            block's fill / walk is queued, "fetch" once the tapes are on the
+            host and "assembled" at the end — the points a timer marks.
+    """
+    mark = on_phase or (lambda _: None)
+    m, n = len(seq_1), len(seq_2)
+    go = int(gap_open)
+    row0, col0 = default_boundary(tok_a, tok_b, cost_mat, gap_id, go)
+    if m == 0 or n == 0:  # one boundary line: no fill, no codes to walk
+        final3 = row0[:, n] if m == 0 else col0[:, m]
+        cost = int(final3.min())
+        mark("fetch")
+        out = Traceback(*assemble_from_tapes([[OP_UP] * m], seq_1, seq_2), cost)
+        mark("assembled")
+        return out
+
+    # Column-0 Iy seed at each block's top row: the global column-0 value,
+    # except the top block, whose rows add their icost to gap_open (the
+    # corner col0[2, 0] is 0).
+    c0_top = col0[2].clone()
+    c0_top[0] = go
+    bounds = block_bounds(m, n, block_rows, block_moves_bytes)
+    nblocks = len(bounds) - 1
+    rows = [row0[None]]  # (1, 3, n+1) checkpoint row at each bounds[b]
+    for b in range(nblocks):
+        i0, i1 = bounds[b], bounds[b + 1]
+        rows.append(
+            batch_last_rows(
+                tok_a[None, i0 : i1 + 1], tok_b[None], cost_mat, gap_id, go,
+                [i1 - i0], [n], row0=rows[b], col0y_top=c0_top[i0 : i0 + 1],
+            )
+        )
+    mark("checkpoints")
+    final3 = rows[-1][0, :, n]
+
+    j = torch.full((1,), n, dtype=torch.int32, device=tok_a.device)
+    level = final3.argmin().to(torch.int32).reshape(1)
+    tapes = []  # (ops, count) per block, walk order (bottom block first)
+    for b in range(nblocks - 1, -1, -1):
+        i0, i1 = bounds[b], bounds[b + 1]
+        _, moves = batch_moves(
+            tok_a[None, i0 : i1 + 1], tok_b[None], cost_mat, gap_id, go,
+            [i1 - i0], [n], row0=rows[b], col0y_top=c0_top[i0 : i0 + 1],
+        )
+        mark("fill")
+        ops, count, j, level = walk_block(moves, [i1 - i0], j, level)
+        mark("walk")
+        tapes.append((ops[0], count))
+
+    # One sync: the costs and every tape come to the host together.
+    counts = torch.cat([c for _, c in tapes]).cpu().tolist()
+    ops_host = torch.cat([o for o, _ in tapes]).cpu().numpy()
+    cost = int(final3.min().cpu())
+    tapes_np, start = [], 0
+    for (ops, _), c in zip(tapes, counts):
+        tapes_np.append(ops_host[start : start + c])
+        start += ops.shape[0]
+    mark("fetch")
+    out = Traceback(*assemble_from_tapes(tapes_np, seq_1, seq_2), cost)
+    mark("assembled")
+    return out
+
+
+def assemble_from_tapes(
+    tapes_np, seq_1: str, seq_2: str
+) -> tuple[str, str, str]:
+    """Aligned strings from walked op tapes (walk order: from (m, n)
+    upward; any trailing row-0 LEFT moves are implicit — reference
+    globaligner.py:542-561)."""
+    out_1: list[str] = []
+    mid: list[str] = []
+    out_2: list[str] = []
+    i, j = len(seq_1), len(seq_2)
+    for ops_np in tapes_np:
+        for op in ops_np:
+            if op == OP_DIAG:
+                a, bch = seq_1[i - 1], seq_2[j - 1]
+                out_1.append(a)
+                mid.append(MATCH_GLYPH if a == bch else MISMATCH_GLYPH)
+                out_2.append(bch)
+                i -= 1
+                j -= 1
+            elif op == OP_LEFT:
+                out_1.append(GAP_CHAR)
+                mid.append(GAP_GLYPH)
+                out_2.append(seq_2[j - 1])
+                j -= 1
+            else:
+                out_1.append(seq_1[i - 1])
+                mid.append(GAP_GLYPH)
+                out_2.append(GAP_CHAR)
+                i -= 1
+
+    # Row 0: only horizontal moves remain (globaligner.py:542-561).
+    while j > 0:
+        out_1.append(GAP_CHAR)
+        mid.append(GAP_GLYPH)
+        out_2.append(seq_2[j - 1])
+        j -= 1
+
+    out_1.reverse()
+    mid.reverse()
+    out_2.reverse()
+    return "".join(out_1), "".join(mid), "".join(out_2)

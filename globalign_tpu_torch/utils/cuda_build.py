@@ -1,15 +1,15 @@
 """Build-on-demand for the port's CUDA kernels (``csrc/*.cu``).
 
-The counterpart of ``globalign_tpu/utils/native.py``: on first use the
-sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, named by a hash of the sources and flags,
-under ``build/globalign_tpu_torch/`` at the root of the checkout; a file
-lock keeps concurrent processes from building it twice.  The library is
-bound with ``ctypes``.
+The counterpart of ``globalign_tpu/utils/native.py``: on first use each
+source is compiled by its own ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface — all of them started together —
+named by a hash of the source and flags, under ``build/globalign_tpu_torch/``
+at the root of the checkout; a file lock keeps concurrent processes from
+building them twice.  The libraries are bound with ``ctypes``.
 
 There is no fallback: a missing toolkit or a failed compile raises, because
-only the plain PyTorch version runs without the card, and it runs only for
-tensors that lie on the CPU (``ops.fill_cuda``).
+only the plain PyTorch versions run without the card, and they run only for
+tensors that lie on the CPU (``ops.fill_cuda``, ``ops.linear_tb``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from types import SimpleNamespace
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "globalign_tpu_torch"
@@ -30,8 +31,34 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+_PTR = ctypes.c_void_p
+_I32 = ctypes.c_int
+# Per source: the C entry points and their (argtypes, restype).
+SIGNATURES = {
+    "gotoh_fill": {
+        "gotoh_fill_launch": (
+            # tok_a tok_b cost m n row0 col0y_top final3 moves last scratch
+            [_PTR] * 11
+            + [_I32] * 8  # B M N A gap go threads W
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "gotoh_fill_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "walk_block": {
+        "walk_block_launch": (
+            # moves i_entry j_entry level_entry ops count j_exit level_exit
+            [_PTR] * 8
+            + [_I32] * 4  # B K N L
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "walk_block_error_string": ([_I32], ctypes.c_char_p),
+    },
+}
+
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: SimpleNamespace | None = None
 
 
 def _nvcc() -> str:
@@ -52,57 +79,63 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256()
-    for src in sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
+def library_path(src: Path) -> Path:
+    """Where the library of one source, at the current flags, lives."""
+    digest = hashlib.sha256(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libglobalign_kernels-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels if this source hash has no library yet."""
-    so_path = library_path()
-    if so_path.exists():
-        return so_path
+def build() -> list[Path]:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    all running at once; returns the libraries in ``sources()`` order."""
+    paths = [library_path(src) for src in sources()]
+    if all(p.exists() for p in paths):
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         try:
-            if so_path.exists():  # built by another process meanwhile
-                return so_path
-            tmp = so_path.with_name(so_path.name + f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}"
+            jobs = []
+            for src, so_path in zip(sources(), paths):
+                if so_path.exists():  # built by another process meanwhile
+                    continue
+                tmp = so_path.with_name(so_path.name + f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                proc = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
                 )
-            os.replace(tmp, so_path)
+                jobs.append((cmd, proc, tmp, so_path))
+            failed = []
+            for cmd, proc, tmp, so_path in jobs:
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    failed.append(
+                        f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+                    )
+                else:
+                    os.replace(tmp, so_path)
+            if failed:
+                raise RuntimeError("\n".join(failed))
         finally:
             fcntl.flock(lock_file, fcntl.LOCK_UN)
-    return so_path
+    return paths
 
 
-def load() -> ctypes.CDLL:
-    """The bound kernel library, built first if needed."""
+def load() -> SimpleNamespace:
+    """The bound C entry points of every kernel, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ptr = ctypes.c_void_p
-            i32 = ctypes.c_int
-            lib.gotoh_fill_launch.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # tensors
-                i32, i32, i32, i32, i32, i32, i32, i32,  # B M N A gap go T W
-                ptr,  # stream
-            ]
-            lib.gotoh_fill_launch.restype = i32
-            lib.gotoh_fill_error_string.argtypes = [i32]
-            lib.gotoh_fill_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            funcs = {}
+            for src, so_path in zip(sources(), build()):
+                lib = ctypes.CDLL(str(so_path))
+                for name, (argtypes, restype) in SIGNATURES[src.stem].items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                    funcs[name] = fn
+            _lib = SimpleNamespace(**funcs)
         return _lib

@@ -260,6 +260,27 @@ def test_aligner_cost_and_planes_match_jax():
         assert got.dtype == want.dtype and (got == want).all()
 
 
+@pytest.mark.parametrize("below", [True, False])
+def test_cost_splits_from_split_min_rows(monkeypatch, below):
+    """``cost`` takes the meet-in-the-middle split from ``SPLIT_MIN_ROWS``
+    rows of seq_1 and the direct fill below; both give the JAX cost."""
+    rng = np.random.default_rng(78)
+    monkeypatch.setattr(torch_gotoh, "SPLIT_MIN_ROWS", 6)  # a small pair
+    m = 5 if below else 6
+    s1 = "".join(rng.choice(list("ACGT"), m))
+    s2 = "".join(rng.choice(list("ACGT"), 45))
+    split_calls = []
+    real = torch_gotoh.split_fill_cost
+    monkeypatch.setattr(
+        torch_gotoh, "split_fill_cost",
+        lambda *a, **k: split_calls.append(1) or real(*a, **k),
+    )
+    port = tga.GotohAligner(tga.resolve_scheme(s1, s2), device="cpu")
+    ref = JaxAligner(jga.resolve_scheme(s1, s2))
+    assert port.cost(s1, s2) == ref.cost(s1, s2)
+    assert split_calls == ([] if m < torch_gotoh.SPLIT_MIN_ROWS else [1])
+
+
 def test_aligner_is_a_module_with_an_int32_cost_buffer():
     scheme = tga.resolve_scheme("ACGT", "AGT")
     aligner = tga.GotohAligner(scheme, device="cpu")
@@ -270,16 +291,54 @@ def test_aligner_is_a_module_with_an_int32_cost_buffer():
     assert aligner.device == torch.device("cpu")
 
 
-def test_moves_budget_refuses_instead_of_falling_back():
+def test_past_the_moves_budget_align_is_blocked_and_equal(monkeypatch):
+    """Past the moves budget ``align`` takes the blocked traceback and
+    gives the same alignment as with a large budget (mirroring
+    tests/test_linear_tb.py:85-100)."""
     assert torch_gotoh.DEFAULT_MOVES_BUDGET_BYTES == int(
         os.environ.get("GLOBALIGN_MOVES_BUDGET_BYTES", 64 * 1024 * 1024)
     )
-    scheme = tga.resolve_scheme("ACGTACGT", "ACGTAC")
-    aligner = tga.GotohAligner(scheme, device="cpu", moves_budget_bytes=62)
-    assert aligner.align("ACGTACGT", "ACGTA").cost >= 0  # 9 * 6 = 54 bytes
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        aligner.align("ACGTACGT", "ACGTAC")  # 9 * 7 = 63 bytes
-    assert aligner.cost("ACGTACGT", "ACGTAC") >= 0  # cost-only needs no moves
+    rng = np.random.default_rng(9)
+    s1 = "".join(rng.choice(list("ACGT"), 150))
+    s2 = "".join(rng.choice(list("ACGT"), 140))
+    scheme = tga.resolve_scheme(s1, s2)
+    big = tga.GotohAligner(scheme, device="cpu")
+    small = tga.GotohAligner(scheme, device="cpu", moves_budget_bytes=64)
+    blocked = []
+    real = torch_gotoh.linear_tb.align_blocked
+    monkeypatch.setattr(
+        torch_gotoh.linear_tb, "align_blocked",
+        lambda *a, **k: blocked.append(a[5:7]) or real(*a, **k),
+    )
+    assert big.align(s1, s2) == small.align(s1, s2)
+    assert blocked == [(s1, s2)]  # only the small budget took the blocked path
+    assert small.cost(s1, s2) == big.align(s1, s2).cost
+
+
+def test_report_past_the_budget_matches_jax(monkeypatch, tmp_path):
+    """``find_global_alignment`` with a tiny moves budget in both packages:
+    both align blocked, and the reports are byte-identical."""
+    import functools
+
+    import globalign_tpu.api as jax_api
+    import globalign_tpu_torch.api as torch_api
+
+    monkeypatch.setattr(
+        jax_api, "GotohAligner",
+        functools.partial(JaxAligner, moves_budget_bytes=256),
+    )
+    monkeypatch.setattr(
+        torch_api, "GotohAligner",
+        functools.partial(tga.GotohAligner, moves_budget_bytes=256),
+    )
+    for k, (s1, s2) in enumerate(_pairs(31, PROTEIN, 2, 60, 120)):
+        got, want = _both(seq_1=s1, seq_2=s2, scoring_mat_name="BLOSUM62")
+        _assert_same(got, want)
+        got.write(file=tmp_path / f"port{k}.txt")
+        want.write(file=tmp_path / f"jax{k}.txt")
+        assert (tmp_path / f"port{k}.txt").read_bytes() == (
+            tmp_path / f"jax{k}.txt"
+        ).read_bytes()
 
 
 def test_cuda_request_without_a_gpu_raises(monkeypatch, capsys):

@@ -8,15 +8,16 @@ alone:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         tests/test_torch_cuda.py -q
 
-Tolerance 0: final3 and every move code are integers.
+Tolerance 0: final3, last rows, move codes, op tapes and costs are
+integers, and alignments are strings.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from globalign_tpu_torch import find_global_alignment, resolve_scheme
-from globalign_tpu_torch.ops import fill_cuda
+from globalign_tpu_torch import GotohAligner, find_global_alignment, resolve_scheme
+from globalign_tpu_torch.ops import fill_cuda, fill_split, linear_tb
 
 pytestmark = pytest.mark.cuda
 
@@ -122,3 +123,142 @@ def test_kernel_rejects_mixed_devices(cuda_device):
     ta, tb, cost, *rest = _on(cuda_device, args)
     with pytest.raises(ValueError, match="is on"):
         fill_cuda.batch_moves(ta, tb, cost.cpu(), *rest)
+
+
+def _checkpointed(args, split_rows):
+    """Cut each pair of ``args`` at row i0 = split_rows[b]: the rows below as
+    a block, seeded with the plain fill's last row i0 and Iy(i0, 0)."""
+    ta, tb, cost, gid, go, mt, nt = args
+    top = fill_cuda.batch_last_rows(ta, tb, cost, gid, go, split_rows, nt)
+    blk = torch.zeros_like(ta)
+    c0 = torch.empty(len(mt), dtype=torch.int32)
+    for b, i0 in enumerate(split_rows):
+        blk[b, 1 : mt[b] - i0 + 1] = ta[b, i0 + 1 : mt[b] + 1]
+        c0[b] = go if i0 == 0 else int(top[b, 2, 0])  # Iy(i0, 0)
+    rest = [m - i0 for m, i0 in zip(mt, split_rows)]
+    return (blk, tb, cost, gid, go, rest, nt), top, c0
+
+
+@pytest.mark.parametrize(
+    "letters,shapes,splits,scheme_kw",
+    [
+        ("ACGT", [(300, 257)], [150], {}),
+        ("ACGT", [(1, 40)], [0], {}),
+        ("ACGT", [(90, 70), (40, 3), (61, 128)], [30, 39, 0], {}),
+        ("ARNDCQEGHILKMFPSTWYV", [(200, 230)], [77], dict(scoring_mat_name="BLOSUM62")),
+        ("ACGT", [(150, 97)], [100], dict(match_score=3, mismatch_score=-2,
+                                           gap_open_score=-5, gap_extension_score=-1)),
+        # 20 000 columns: the strip state lives in global memory
+        ("ACGT", [(100, 20000)], [60], {}),
+    ],
+)
+def test_injected_fills_match_plain(cuda_device, letters, shapes, splits, scheme_kw):
+    """``batch_moves`` and ``batch_last_rows`` seeded from a real
+    checkpoint row: kernel == plain, codes, final3 and last rows."""
+    rng = np.random.default_rng(len(shapes) + shapes[0][0])
+    blk, top, c0 = _checkpointed(_case(rng, letters, shapes, **scheme_kw), splits)
+    inj = dict(row0=top, col0y_top=c0)
+    want3, want_mv = fill_cuda.batch_moves(*blk, **inj)
+    want_last = fill_cuda.batch_last_rows(*blk, **inj)
+    dev_inj = dict(row0=top.to(cuda_device), col0y_top=c0.to(cuda_device))
+    before = (fill_cuda.batch_moves.launches, fill_cuda.batch_last_rows.launches)
+    got3, got_mv = fill_cuda.batch_moves(*_on(cuda_device, blk), **dev_inj)
+    got_last = fill_cuda.batch_last_rows(*_on(cuda_device, blk), **dev_inj)
+    torch.cuda.synchronize()
+    assert (fill_cuda.batch_moves.launches, fill_cuda.batch_last_rows.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    assert torch.equal(got3.cpu(), want3)
+    assert torch.equal(got_mv.cpu(), want_mv)
+    assert torch.equal(got_last.cpu(), want_last)
+
+
+@pytest.mark.parametrize("alone", ["row0", "col0y_top"])
+def test_one_injected_input_alone_matches_plain(cuda_device, alone):
+    """``row0`` without ``col0y_top`` and the reverse: the kernel reads the
+    one given and keeps the default for the other, as the plain version."""
+    rng = np.random.default_rng(14)
+    blk, top, c0 = _checkpointed(_case(rng, "ACGT", [(120, 150)]), [50])
+    inj = dict(row0=top) if alone == "row0" else dict(col0y_top=c0)
+    want3, want_mv = fill_cuda.batch_moves(*blk, **inj)
+    want_last = fill_cuda.batch_last_rows(*blk, **inj)
+    dev_inj = {k: v.to(cuda_device) for k, v in inj.items()}
+    got3, got_mv = fill_cuda.batch_moves(*_on(cuda_device, blk), **dev_inj)
+    got_last = fill_cuda.batch_last_rows(*_on(cuda_device, blk), **dev_inj)
+    assert torch.equal(got3.cpu(), want3)
+    assert torch.equal(got_mv.cpu(), want_mv)
+    assert torch.equal(got_last.cpu(), want_last)
+
+
+@pytest.mark.parametrize("shapes", [[(0, 7)], [(7, 0)], [(0, 0)], [(1, 1)], [(5, 9), (0, 9), (3, 0)]])
+def test_last_rows_boundary_shapes_match_plain(cuda_device, shapes):
+    """Zero-row and zero-column pairs write their whole boundary row."""
+    args = _case(np.random.default_rng(3), "ACGT", shapes)
+    want = fill_cuda.batch_last_rows(*args)
+    got = fill_cuda.batch_last_rows(*_on(cuda_device, args))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_walk_block_matches_plain(cuda_device):
+    """B = 3 walks over one fill's codes, from ragged entries."""
+    args = _case(np.random.default_rng(12), "ACGT", [(120, 90), (64, 100), (7, 5)])
+    final3, moves = fill_cuda.batch_moves(*_on(cuda_device, args))
+    i_entry = [120, 50, 0]
+    j_entry = torch.tensor([90, 100, 5], dtype=torch.int32)
+    level = final3.argmin(-1).to(torch.int32).cpu()
+    want = linear_tb.walk_block(moves.cpu(), i_entry, j_entry, level)
+    before = linear_tb.walk_block.launches
+    got = linear_tb.walk_block(
+        moves, i_entry, j_entry.to(cuda_device), level.to(cuda_device)
+    )
+    torch.cuda.synchronize()
+    assert linear_tb.walk_block.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("m,n", [(0, 5), (1, 0), (1, 9), (2, 2), (301, 280), (500, 0)])
+def test_split_cost_matches_plain_and_direct(cuda_device, m, n):
+    rng = np.random.default_rng(m + n)
+    ta, tb, cost, gid, go, _, _ = _case(rng, "ACGT", [(m, n)])
+    want = fill_split.split_fill_cost(ta[0], tb[0], cost, gid, go)
+    before = fill_cuda.batch_last_rows.launches
+    got = fill_split.split_fill_cost(
+        ta[0].to(cuda_device), tb[0].to(cuda_device), cost.to(cuda_device), gid, go
+    )
+    assert fill_cuda.batch_last_rows.launches == before + 1
+    direct, _ = fill_cuda.batch_moves(
+        ta.to(cuda_device), tb.to(cuda_device), cost.to(cuda_device), gid, go,
+        [m], [n], want_moves=False,
+    )
+    assert int(got) == int(want) == int(direct.min())
+
+
+def test_blocked_align_matches_full_matrix(cuda_device):
+    """A few hundred rows past a small budget: the blocked route on the card
+    equals the full-matrix route and the CPU; so do 37-row blocks."""
+    rng = np.random.default_rng(13)
+    for letters, kw in (("ACGT", {}),
+                        ("ARNDCQEGHILKMFPSTWYV", dict(scoring_mat_name="BLOSUM62"))):
+        s1 = "".join(rng.choice(list(letters), 400))
+        s2 = "".join(rng.choice(list(letters), 350))
+        scheme = resolve_scheme(s1, s2, **kw)
+        full = GotohAligner(scheme, device="cuda").align(s1, s2)
+        small = GotohAligner(scheme, device="cuda", moves_budget_bytes=4096)
+        before = (fill_cuda.batch_last_rows.launches, linear_tb.walk_block.launches)
+        assert small.align(s1, s2) == full
+        assert (fill_cuda.batch_last_rows.launches, linear_tb.walk_block.launches) == (
+            before[0] + 1, before[1] + 1
+        )
+        assert GotohAligner(scheme, device="cpu", moves_budget_bytes=4096).align(
+            s1, s2
+        ) == full
+        enc = [small._encode(s) for s in (s1, s2)]
+        tb37 = linear_tb.align_blocked(
+            *enc, small.cost_mat, small.gap_id, small.gap_open, s1, s2,
+            block_rows=37,
+        )
+        assert (tb37.seq_1_aligned, tb37.middle_part, tb37.seq_2_aligned,
+                tb37.cost) == (full.seq_1_aligned, full.middle_part,
+                               full.seq_2_aligned, full.cost)
+        assert small.cost(s1, s2) == full.cost

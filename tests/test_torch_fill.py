@@ -258,3 +258,222 @@ def test_plan_covers_every_column():
         threads, width = fill_cuda._plan(n)
         assert threads % 32 == 0 and 32 <= threads <= fill_cuda.MAX_THREADS
         assert threads * width >= n and width >= 1
+
+
+# -- boundary injection and last rows (the blocked traceback's fills) -----
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_row_fill_injected_boundary_matches_jax_at_every_cell(seed):
+    """``row_fill(row0=, col0=)`` against the JAX row scan with the same
+    overrides: random boundaries (negative entries and BIG included), true
+    lengths below the buffers, zero lengths."""
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(4):
+        A = int(rng.integers(2, 9))
+        gid = int(rng.integers(0, A))
+        cm = rng.integers(-3, 10, (A, A)).astype(np.int32)
+        go = int(rng.integers(0, 7))
+        m, n = (int(x) for x in rng.integers(0, 25, 2))
+        ta = rng.integers(0, A, m + 1).astype(np.int32)
+        tb = rng.integers(0, A, n + 1).astype(np.int32)
+        mt, nt = int(rng.integers(0, m + 1)), int(rng.integers(0, n + 1))
+        row0 = rng.integers(-5, 60, (3, n + 1)).astype(np.int32)
+        row0[rng.random((3, n + 1)) < 0.2] = fill_scan.BIG
+        col0 = rng.integers(-5, 60, (3, m + 1)).astype(np.int32)
+        want = jax_rows.row_fill(
+            jnp.asarray(ta), jnp.asarray(tb), jnp.asarray(cm), jnp.int32(gid),
+            jnp.int32(go), jnp.asarray(row0), jnp.asarray(col0), mt, nt,
+            want_moves=True, want_planes=True,
+        )
+        got = fill_rows.row_fill(
+            _t(ta), _t(tb), _t(cm), gid, go, mt, nt, row0=_t(row0),
+            col0=_t(col0), want_moves=True, want_planes=True,
+        )
+        for field in ("final3", "moves", "planes", "last3"):
+            w = np.asarray(getattr(want, field))
+            g = getattr(got, field).numpy()
+            assert g.dtype == w.dtype and g.shape == w.shape, field
+            assert (g == w).all(), (seed, field, A, gid, m, n, mt, nt)
+
+
+def _uniform_pair(rng, m, n, go=4):
+    """A DNA-like pair under ``_uniform_costing(4, 0, 5, 3, 2)``, its full
+    plain fill (planes, moves) and the default column-0 boundary."""
+    cm, gid = _uniform_costing(4, 0, 5, 3, 2)
+    ta = np.zeros(m + 1, np.int32)
+    ta[1:] = rng.integers(1, 5, m)
+    tb = np.zeros(n + 1, np.int32)
+    tb[1:] = rng.integers(1, 5, n)
+    full = fill_rows.row_fill(
+        _t(ta), _t(tb), _t(cm), gid, go, want_moves=True, want_planes=True
+    )
+    _, col0 = fill_scan.default_boundary(_t(ta), _t(tb), _t(cm), gid, go)
+    return cm, gid, ta, tb, full.planes.numpy(), full.moves.numpy(), col0.numpy()
+
+
+def _block(ta, planes, col0, go, i0, i1):
+    """Rows i0+1..i1 as a block: its tokens, checkpoint row i0 and the
+    column-0 Iy seed (gap_open for the top block)."""
+    ta_blk = ta[i0 : i1 + 1].copy()
+    ta_blk[0] = 0
+    return ta_blk, planes[:, i0, :].copy(), go if i0 == 0 else int(col0[2, i0])
+
+
+def test_injected_block_reproduces_the_rows_of_the_full_fill():
+    """The plain injected fills of a block equal the full fill's rows:
+    ``batch_last_rows`` row i1 at every column, ``batch_moves`` codes at
+    every real cell and final3 — for blocks of one row up to all rows."""
+    rng = np.random.default_rng(41)
+    go = 4
+    cm, gid, ta, tb, planes, moves, col0 = _uniform_pair(rng, 30, 25, go)
+    n = 25
+    for i0, i1 in [(0, 1), (0, 13), (11, 30), (29, 30), (0, 30)]:
+        ta_blk, row0, c0 = _block(ta, planes, col0, go, i0, i1)
+        k = i1 - i0
+        inj = dict(row0=_t(row0)[None], col0y_top=torch.tensor([c0], dtype=torch.int32))
+        last = fill_cuda.batch_last_rows(
+            _t(ta_blk)[None], _t(tb)[None], _t(cm), gid, go, [k], [n], **inj
+        )
+        assert (last[0].numpy() == planes[:, i1, :]).all(), (i0, i1)
+        final3, mv = fill_cuda.batch_moves(
+            _t(ta_blk)[None], _t(tb)[None], _t(cm), gid, go, [k], [n], **inj
+        )
+        assert (final3[0].numpy() == planes[:, i1, n]).all()
+        assert (mv[0, 1:, 1:].numpy() == moves[i0 + 1 : i1 + 1, 1:]).all()
+        assert (mv[0, 0].numpy() == 0).all() and (mv[0, :, 0].numpy() == 0).all()
+
+
+def test_batch_last_rows_ragged_and_boundary_rows():
+    """A ragged batch: last rows equal the row scan's ``last3`` per pair up
+    to n_true, BIG past it; a zero-row pair gives its row 0 (corner
+    (0, 0, 0)), a zero-column pair its column-0 cell."""
+    rng = np.random.default_rng(43)
+    A = 7
+    gid = 3
+    cm = rng.integers(0, 9, (A, A)).astype(np.int32)
+    toks = [k for k in range(A) if k != gid]
+    ta, tb, _, _ = _ragged_batch(rng, 4, 20, 30, toks)
+    mt, nt = [20, 0, 7, 12], [17, 30, 0, 30]
+    last = fill_cuda.batch_last_rows(_t(ta), _t(tb), _t(cm), gid, 5, mt, nt)
+    assert last.shape == (4, 3, 31) and last.dtype == torch.int32
+    for b in range(4):
+        m, n = mt[b], nt[b]
+        want = fill_rows.row_fill(
+            _t(ta[b, : m + 1]), _t(tb[b, : n + 1]), _t(cm), gid, 5,
+            want_moves=False,
+        ).last3
+        assert torch.equal(last[b, :, : n + 1], want), b
+        assert (last[b, :, n + 1 :] == fill_scan.BIG).all(), b
+    assert last[1, :, 0].tolist() == [0, 0, 0]
+    assert last[2, :2, 0].tolist() == [fill_scan.BIG, fill_scan.BIG]
+
+
+@pytest.mark.parametrize(
+    "kernel",
+    ["row_fill_last_rows", "stacked_fill_with_moves", "lanes_batch_last_rows",
+     "lanes_batch_moves"],
+)
+def test_injected_fills_match_the_pallas_kernels(kernel):
+    """TPU kernels #6, #3, #4 (last rows) and #1 with a checkpoint row
+    injected, in interpret mode: last rows (every column they define) and
+    codes at real cells (lane codes unskewed with ``lanes_moves_to_row``)
+    equal the port's plain injected fills."""
+    rng = np.random.default_rng(17)
+    go, n, w = 4, 25, 4
+    cm, gid, ta, tb, planes, _, col0 = _uniform_pair(rng, 30, n, go)
+    for i0, i1 in [(0, 13), (11, 30)]:
+        ta_blk, row0, c0 = _block(ta, planes, col0, go, i0, i1)
+        k = i1 - i0
+        inj = dict(row0=_t(row0)[None], col0y_top=torch.tensor([c0], dtype=torch.int32))
+        last = fill_cuda.batch_last_rows(
+            _t(ta_blk)[None], _t(tb)[None], _t(cm), gid, go, [k], [n], **inj
+        )[0].numpy()
+        final3, mv = fill_cuda.batch_moves(
+            _t(ta_blk)[None], _t(tb)[None], _t(cm), gid, go, [k], [n], **inj
+        )
+        mv = mv[0].numpy()
+        args = (jnp.asarray(ta_blk), jnp.asarray(tb))
+        if kernel == "row_fill_last_rows":
+            steps = np.r_[0, cm[ta_blk[1:], gid]]
+            col0y = (c0 + np.cumsum(steps)).astype(np.int32)
+            got = np.asarray(fill_pallas.row_fill_last_rows(
+                *args, jnp.asarray(cm), jnp.int32(gid), jnp.int32(go),
+                row0=jnp.asarray(row0), col0y=jnp.asarray(col0y),
+                interpret=True,
+            ))
+            assert (got[:, : n + 1] == last).all(), (i0, i1)
+        elif kernel == "stacked_fill_with_moves":
+            got_last, got_mv = fill_pallas.stacked_fill_with_moves(
+                args[0][None], args[1][None], jnp.asarray(cm), jnp.int32(gid),
+                jnp.int32(go), jnp.asarray([k]), jnp.asarray([n]),
+                jnp.asarray(row0)[None], jnp.asarray([c0]), interpret=True,
+            )
+            assert (np.asarray(got_last)[0][:, : n + 1] == last).all()
+            _assert_real_cells_match(mv[None], np.asarray(got_mv), [k], [n])
+        else:
+            lane_args = (
+                args[0][None], args[1][None], 0, 5, 3, 2, go,
+                jnp.asarray([k], np.int32), jnp.asarray([n], np.int32),
+                jnp.asarray(row0)[None], jnp.asarray([c0], np.int32),
+            )
+            if kernel == "lanes_batch_last_rows":
+                got = np.asarray(fill_lanes.lanes_batch_last_rows(
+                    *lane_args, w=w, interpret=True
+                ))
+                assert (got[0][:, :n] == last[:, 1:]).all(), (i0, i1)
+            else:
+                f3, got_mv = fill_lanes.lanes_batch_moves(
+                    *lane_args, w=w, interpret=True
+                )
+                assert (np.asarray(f3) == final3.numpy()).all()
+                rows = fill_lanes.lanes_moves_to_row(np.asarray(got_mv), 1, n, w, k)
+                _assert_real_cells_match(mv[None], rows, [k], [n])
+
+
+def test_batch_last_rows_matches_stacked_cost_kernel():
+    """TPU kernel #5: ``stacked_fill_last_rows`` (default boundary, ragged
+    batch) in interpret mode — every column up to n_true, column 0 too."""
+    rng = np.random.default_rng(47)
+    A, gid, go = 6, 5, 3
+    cm = rng.integers(0, 9, (A, A)).astype(np.int32)
+    cm[gid, gid] = 0
+    ta, tb, mt, nt = _ragged_batch(rng, 3, 24, 33, list(range(5)))
+    got = np.asarray(fill_pallas.stacked_fill_last_rows(
+        jnp.asarray(ta), jnp.asarray(tb), jnp.asarray(cm), jnp.int32(gid),
+        jnp.int32(go), jnp.asarray(mt), jnp.asarray(nt), interpret=True,
+    ))
+    last = fill_cuda.batch_last_rows(_t(ta), _t(tb), _t(cm), gid, go, mt, nt)
+    for b in range(3):
+        assert (got[b][:, : nt[b] + 1] == last[b, :, : nt[b] + 1].numpy()).all(), b
+
+
+def test_injection_arguments_are_checked():
+    cm, gid = _uniform_costing(4, 0, 5, 3, 2)
+    ta = torch.ones((2, 9), dtype=torch.int32)
+    tb = torch.ones((2, 7), dtype=torch.int32)
+    row0 = torch.zeros((2, 3, 7), dtype=torch.int32)
+    c0 = torch.zeros((2,), dtype=torch.int32)
+    args = (ta, tb, _t(cm), gid, 4, [8, 3], [6, 2])
+    assert fill_cuda.batch_last_rows(*args, row0, c0).shape == (2, 3, 7)
+    with pytest.raises(ValueError, match="row0 must be"):
+        fill_cuda.batch_last_rows(*args, row0[:, :, :6].contiguous(), c0)
+    with pytest.raises(ValueError, match="col0y_top must be"):
+        fill_cuda.batch_moves(*args, row0=row0, col0y_top=c0[:1])
+    with pytest.raises(TypeError, match="int32"):
+        fill_cuda.batch_moves(*args, row0=row0.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        fill_cuda.batch_last_rows(*args, None, torch.zeros((4,), dtype=torch.int32)[::2])
+
+
+def test_every_kernel_source_is_bound():
+    """Each ``csrc/*.cu`` has its C entry points declared for ``ctypes``."""
+    from globalign_tpu_torch.utils import cuda_build
+
+    stems = {src.stem for src in cuda_build.sources()}
+    assert stems == set(cuda_build.SIGNATURES) == {"gotoh_fill", "walk_block"}
+    for stem in stems:
+        text = (cuda_build.CSRC_DIR / f"{stem}.cu").read_text()
+        for name in cuda_build.SIGNATURES[stem]:
+            assert f" {name}(" in text, name
+    assert len({cuda_build.library_path(s) for s in cuda_build.sources()}) == 2
