@@ -7,14 +7,17 @@ device is present or the port's package is not beside it, and when any
 phase fails:
 
   0. print the card's name and power limit (nvidia-smi), build the kernels
-     from ``globalign_tpu_torch/csrc`` (one nvcc per source, in parallel)
-     and print the build time;
+     from ``globalign_tpu_torch/csrc`` and the probes of
+     ``globalign_tpu_torch/utils/peaks.py`` (one nvcc per source, in
+     parallel) and print the build time;
   1. kernel vs plain, on the card against the plain versions on the CPU,
      same seeded inputs, tolerance 0 (all integers): ``batch_moves``
      (final3 and every move code); ``batch_moves`` and ``batch_last_rows``
      seeded from a real checkpoint row (``row0`` / ``col0y_top``);
      ``batch_last_rows`` with the default boundary; ``walk_block`` over the
-     same codes; the split cost;
+     same codes; the split cost; ``gotoh_batch`` (final3 and last rows) on
+     ragged batches of 1 to 4096 columns, m_true in {0, 1, 7, ..., M}, under
+     DNA, BLOSUM62, an odd asymmetric scheme and a 60-letter alphabet;
   2. the main paths, with every launch count set to 0 before each and read
      after it: ``find_global_alignment(..., device="cuda")`` on the
      reference goldens and pairs up to the moves budget (one fill each,
@@ -25,12 +28,25 @@ phase fails:
      pair forced into >= 4 blocks, equal to ``device="cpu"``; ``cost`` (the
      split from ``SPLIT_MIN_ROWS`` rows, else the direct fill; one launch)
      on every pair, equal to the direct fill and to the alignment's cost;
+     ``align_pairs`` on 1024-pair DNA and BLOSUM62 chunks (lengths
+     819-1024), cost-only and traceback, equal pair by pair to the
+     single-pair path on the card and, on 32 pairs, to ``device="cpu"``,
+     with one fill (and one walk) per bucket; a lowered moves budget
+     (sub-batches and a blocked pair); ``flush=False`` + ``resolve()``; the
+     batch CLI on the card and on the CPU (byte-identical TSVs);
   3. times with CUDA events: the fill kernel beside the plain row scan on
      the card; end-to-end ``align`` split into fill and D2H + walk; blocked
      ``align`` at 10 000² and 20 000² split into checkpoint pass, replay
      fills, walks, fetch and host assembly, beside the full-matrix route;
      split ``cost`` beside the direct cost-only fill, from a golden-sized
-     pair up; the walk kernel beside the plain walk.
+     pair up; the walk kernel beside the plain walk; ``align_pairs`` at
+     64 x 1024², 64 x 4096² and the two chunks, both modes, split into
+     device fill and walk and host enqueue, fetch and render;
+     ``gotoh_batch`` beside ``gotoh_fill``'s final3 mode on the same
+     buckets; the batch runner over 4 chunks of 1024 pairs; the probes
+     (checked against the row scan first): the peak cell rate of a fill's
+     arithmetic and the latency of a dependent load, from which each
+     kernel's bound is computed.
 
 The last two lines of standard output are JSON: the kernels' record, then
 ``{"ok": true, "device": {...}}``.  It uses no JAX and no network.
@@ -39,9 +55,11 @@ The last two lines of standard output are JSON: the kernels' record, then
 from __future__ import annotations
 
 import functools
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,6 +112,19 @@ def mutate(rng, seq: str, letters: str, identity: float = 0.85) -> str:
     return out + random_seq(rng, letters, len(seq) - len(out))
 
 
+def serving_chunk(rng, letters: str, count: int, lo: int, hi: int):
+    """``count`` pairs, each length drawn from [lo, hi] on its own (as the
+    JAX package's serving measurement draws them), seq_2 a relative of
+    seq_1 cut or extended to its length."""
+    pairs = []
+    for _ in range(count):
+        m, n = (int(x) for x in rng.integers(lo, hi + 1, 2))
+        s1 = random_seq(rng, letters, m)
+        s2 = mutate(rng, s1, letters) + random_seq(rng, letters, max(0, n - m))
+        pairs.append((s1, s2[:n]))
+    return pairs
+
+
 def main() -> int:
     if not (REPO / "globalign_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: globalign_tpu_torch is not beside this script",
@@ -107,6 +138,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from globalign_tpu_torch import (
         api,
+        final_cost_to_score,
         find_global_alignment,
         resolve_scheme,
         validate_and_transform_args,
@@ -116,9 +148,19 @@ def main() -> int:
         SPLIT_MIN_ROWS,
         GotohAligner,
     )
-    from globalign_tpu_torch.ops import fill_cuda, fill_rows, fill_split, linear_tb
+    from globalign_tpu_torch import batch as batch_mod
+    from globalign_tpu_torch.batch import align_pairs, bucket_length
+    from globalign_tpu_torch.ops import (
+        fill_batch,
+        fill_cuda,
+        fill_rows,
+        fill_split,
+        linear_tb,
+    )
     from globalign_tpu_torch.ops.traceback import traceback_moves
-    from globalign_tpu_torch.utils import cuda_build
+    from globalign_tpu_torch.runner import BatchRunner
+    from globalign_tpu_torch.utils import cuda_build, peaks
+    from globalign_tpu_torch.utils.tokenize import encode_padded
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -132,8 +174,9 @@ def main() -> int:
     log(smi)
     card = f"({smi})"
     t0 = time.perf_counter()
-    libs = cuda_build.build()
+    libs = cuda_build.build(cuda_build.sources() + [peaks.SOURCE])
     cuda_build.load()
+    peaks.load()
     log(f"phase 0: built {', '.join(p.name for p in libs)} in "
         f"{time.perf_counter() - t0:.3f} s")
 
@@ -141,6 +184,7 @@ def main() -> int:
         "batch_moves": fill_cuda.batch_moves,
         "batch_last_rows": fill_cuda.batch_last_rows,
         "walk_block": linear_tb.walk_block,
+        "batch_final3": fill_batch.batch_final3,
     }
 
     def reset_counts():
@@ -334,6 +378,34 @@ def main() -> int:
         if err != 0:
             raise SystemExit(f"phase 1 failed (split): {name} {m} x {n}")
 
+    # gotoh_batch (the batch cost fill) on ragged batches: final3 and the
+    # last rows at every column, on the card against the plain version on
+    # the CPU, at widths from one column to the cap, every scheme.
+    batch_err = 0
+    for name, letters in (("dna", DNA), ("blosum62", PROTEIN),
+                          ("odd_asym", DNA), ("wide60", WIDE)):
+        for n_cols in (1, 31, 32, 33, 255, 1024, fill_batch.MAX_COLUMNS):
+            rows = 300 if n_cols <= 1024 else 64
+            shapes = [(rows, n_cols), (0, n_cols), (1, n_cols),
+                      (rows, max(0, n_cols - 7)), (rows // 2, n_cols // 3),
+                      (rows, 0), (7, n_cols), (rows, 1)]
+            args = make_pairs(name, letters, shapes)
+            want3, _, want_last = fill_cuda._plain(*args, None, None, False, True)
+            before = fill_batch.batch_final3.launches
+            got3 = fill_batch.batch_final3(*to_dev(args))
+            got_last = fill_batch.batch_final3(*to_dev(args), last_rows=True)
+            torch.cuda.synchronize()
+            if fill_batch.batch_final3.launches != before + 2:
+                raise SystemExit(f"phase 1 failed: gotoh_batch not launched "
+                                 f"for {name} N={n_cols}")
+            err = max(abs_err(got3, want3), abs_err(got_last, want_last))
+            batch_err = max(batch_err, err)
+            log(f"phase 1: gotoh_batch {name} {len(shapes)} pairs, N={n_cols}, "
+                f"m_true {[m for m, _ in shapes]}: final3 and last rows max "
+                f"abs err {err}")
+    if batch_err != 0:
+        raise SystemExit("phase 1 failed: gotoh_batch != plain version")
+
     # -- phase 2: the main path -----------------------------------------
     runs = [
         (dict(seq_1="ACGT", seq_2="AGT"), (0, 7)),
@@ -365,7 +437,8 @@ def main() -> int:
                              f"{(r.score, r.cost)}")
         log(f"phase 2: {m} x {n}: score {r.score} cost {r.cost} "
             f"(= device='cpu')")
-    if counts != dict(batch_moves=len(runs), batch_last_rows=0, walk_block=0):
+    if counts != dict(batch_moves=len(runs), batch_last_rows=0, walk_block=0,
+                      batch_final3=0):
         raise SystemExit(f"phase 2 failed: launches {counts} for "
                          f"{len(runs)} align calls")
     log(f"phase 2: launches on the full-matrix path: {counts}")
@@ -398,7 +471,7 @@ def main() -> int:
         add_main(counts)
         long_results.append(r)
         design = dict(batch_moves=nblocks, batch_last_rows=nblocks,
-                      walk_block=nblocks)
+                      walk_block=nblocks, batch_final3=0)
         w = full_matrix_route(**kw)
         if r != w or str(r) != str(w):
             raise SystemExit(f"phase 2 failed: blocked != full matrix for "
@@ -428,7 +501,7 @@ def main() -> int:
     add_main(counts)
     if nblocks < 4 or counts != dict(batch_moves=nblocks,
                                      batch_last_rows=nblocks,
-                                     walk_block=nblocks):
+                                     walk_block=nblocks, batch_final3=0):
         raise SystemExit(f"phase 2 failed: forced blocks {nblocks}, "
                          f"launches {counts}")
     if (r.seq_1_aligned, r.middle_part, r.seq_2_aligned, r.cost, r.score) != (
@@ -457,7 +530,8 @@ def main() -> int:
         add_main(counts)
         split = len(s1) >= SPLIT_MIN_ROWS
         design = dict(batch_moves=int(not split),
-                      batch_last_rows=int(split), walk_block=0)
+                      batch_last_rows=int(split), walk_block=0,
+                      batch_final3=0)
         direct, _ = aligner._batch_fill(s1, s2, want_moves=False)
         if counts != design or c != int(direct.min()) or c != r.cost:
             raise SystemExit(f"phase 2 failed: cost {c} direct "
@@ -466,6 +540,151 @@ def main() -> int:
     log(f"phase 2: cost on {len(cost_runs)} pairs (the split from "
         f"{SPLIT_MIN_ROWS} rows) = direct fill = alignment cost; one launch "
         "each")
+
+    # Batch serving: align_pairs on the runner's default chunk (1024 pairs,
+    # lengths 819-1024, ~7 x 7 buckets at quantum 32), DNA and BLOSUM62,
+    # cost-only and traceback, against the single-pair path on the card.
+    def fields(r):
+        return (r.cost, r.score, r.seq_1_aligned, r.middle_part,
+                r.seq_2_aligned)
+
+    def bucket_counts(pairs, budget=None):
+        """Launch plan of align_pairs: bucket sizes, split by the budget."""
+        keys = {}
+        for a, b in pairs:
+            key = (bucket_length(len(a)), bucket_length(len(b)))
+            keys[key] = keys.get(key, 0) + 1
+        if budget is None:
+            return len(keys), len(keys)
+        subs = sum(-(-k // (budget // ((mm + 1) * (nn + 1))))
+                   for (mm, nn), k in keys.items())
+        return len(keys), subs
+
+    chunks = {"dna": (serving_chunk(rng, DNA, 1024, 819, 1024), {}),
+              "blosum62": (serving_chunk(rng, PROTEIN, 1024, 819, 1024),
+                           dict(scoring_mat_name="BLOSUM62"))}
+    for name, (pairs, kw) in chunks.items():
+        scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
+        aligner = GotohAligner(scheme, device="cuda")
+        nbuckets, nsubs = bucket_counts(
+            pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET
+        )
+        for with_tb in (False, True):
+            torch.cuda.synchronize()
+            reset_counts()
+            got = align_pairs(pairs, scheme=scheme, with_traceback=with_tb)
+            counts = read_counts()
+            add_main(counts)
+            design = (
+                dict(batch_moves=nsubs, batch_last_rows=0, walk_block=nsubs,
+                     batch_final3=0)
+                if with_tb else
+                dict(batch_moves=0, batch_last_rows=0, walk_block=0,
+                     batch_final3=nbuckets)
+            )
+            if counts != design:
+                raise SystemExit(f"phase 2 failed: align_pairs {name} "
+                                 f"traceback={with_tb} launches {counts}, "
+                                 f"design {design}")
+            for (s1, s2), r in zip(pairs, got):
+                if with_tb:
+                    w = aligner.align(s1, s2)
+                    want = (w.cost, w.score, w.seq_1_aligned, w.middle_part,
+                            w.seq_2_aligned)
+                else:
+                    c = aligner.cost(s1, s2)
+                    want = (c, final_cost_to_score(
+                        cost=c, m=len(s1), n=len(s2),
+                        max_score=scheme.max_score,
+                    ), None, None, None)
+                if fields(r) != want:
+                    raise SystemExit(f"phase 2 failed: align_pairs {name} "
+                                     f"traceback={with_tb} != single pair "
+                                     f"{len(s1)} x {len(s2)}")
+            subset = pairs[:32]
+            cpu = align_pairs(subset, scheme=scheme, with_traceback=with_tb,
+                              device="cpu")
+            if [fields(r) for r in cpu] != [fields(r) for r in got[:32]]:
+                raise SystemExit(f"phase 2 failed: align_pairs {name} "
+                                 f"traceback={with_tb} != device='cpu'")
+            log(f"phase 2: align_pairs {name} 1024 pairs ({nbuckets} buckets), "
+                f"traceback={with_tb}: = single-pair path on the card, first "
+                f"32 = device='cpu'; launches {counts}")
+
+    # A lowered budget: the 300-nt bucket splits into sub-batches and the
+    # 1200 x 1100 pair goes blocked; equal to the default budget's result
+    # and to the CPU.
+    mixed = serving_chunk(rng, DNA, 12, 290, 300)
+    s1 = random_seq(rng, DNA, 1200)
+    mixed.insert(5, (s1, mutate(rng, s1, DNA)[:1100]))
+    want = align_pairs(mixed)
+    real_budget = batch_mod.DEVICE_WALK_MOVES_BUDGET
+    batch_mod.DEVICE_WALK_MOVES_BUDGET = budget = 400_000
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        got = align_pairs(mixed)
+        counts = read_counts()
+    finally:
+        batch_mod.DEVICE_WALK_MOVES_BUDGET = real_budget
+    add_main(counts)
+    small = [p for p in mixed if len(p[0]) < 1200]
+    nsmall, nsubs = bucket_counts(small, budget)
+    design = dict(batch_moves=nsubs + 1, batch_last_rows=1,
+                  walk_block=nsubs + 1, batch_final3=0)
+    cpu = align_pairs(mixed, device="cpu")
+    if [fields(r) for r in got] != [fields(r) for r in want] or [
+        fields(r) for r in cpu
+    ] != [fields(r) for r in want] or counts != design or nsubs <= nsmall:
+        raise SystemExit(f"phase 2 failed: budget {budget}: launches {counts}, "
+                         f"design {design}")
+    log(f"phase 2: align_pairs under a {budget}-byte budget: {nsubs} "
+        f"sub-batches + one blocked 1200 x 1100 pair = default budget = "
+        f"device='cpu'; launches {counts}")
+
+    # flush=False: nothing fetched until resolve(), which equals flush=True.
+    dna_pairs = chunks["dna"][0]
+    want = align_pairs(dna_pairs)
+    torch.cuda.synchronize()
+    reset_counts()
+    pending = align_pairs(dna_pairs, flush=False)
+    counts = read_counts()
+    got = pending.resolve()
+    add_main(counts)
+    if [fields(r) for r in got] != [fields(r) for r in want]:
+        raise SystemExit("phase 2 failed: flush=False then resolve() != flush")
+    log(f"phase 2: align_pairs(flush=False).resolve() = flush=True on the DNA "
+        f"chunk; launches {counts}")
+
+    # The batch CLI on the card and on the CPU: the same results TSV, byte
+    # for byte, and the same manifest fingerprint.
+    cli_pairs = serving_chunk(rng, DNA, 512, 50, 300)
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv = Path(tmp) / "pairs.tsv"
+        tsv.write_text("".join(f"{a}\t{b}\n" for a, b in cli_pairs))
+        outs = {}
+        for device in ("cuda", "cpu"):
+            out = Path(tmp) / f"out_{device}.tsv"
+            proc = subprocess.run(
+                [sys.executable, "-m", "globalign_tpu_torch.batch_cli",
+                 "--pairs_tsv", str(tsv), "-o", str(out), "--with_traceback",
+                 "--cigar", "--device", device],
+                cwd=REPO, capture_output=True, text=True, timeout=600,
+            )
+            if proc.returncode != 0:
+                raise SystemExit(f"phase 2 failed: batch_cli --device {device}"
+                                 f": {proc.stderr[-2000:]}")
+            manifest = out.with_name(out.name + ".manifest.jsonl")
+            prints = {json.loads(line)["fingerprint"]
+                      for line in manifest.read_text().splitlines()}
+            outs[device] = (out.read_bytes(), prints)
+            log(f"phase 2: batch_cli --device {device}: "
+                f"{proc.stderr.strip().splitlines()[-1]}")
+    if outs["cuda"] != outs["cpu"] or len(outs["cuda"][0].splitlines()) != 512:
+        raise SystemExit("phase 2 failed: batch_cli TSVs or fingerprints differ")
+    log(f"phase 2: batch_cli --with_traceback --cigar over 512 pairs of "
+        f"50-300 nt: results TSVs byte-identical ({len(outs['cuda'][0])} "
+        f"bytes), manifest fingerprints {sorted(outs['cuda'][1])} on both")
     log(f"phase 2: launches on the main paths: {main_launches}")
 
     # -- phase 3: times -------------------------------------------------
@@ -481,7 +700,7 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    kernel_ms = plain_ms = None
+    kernel_ms = plain_ms = fill_size = None
     for size in (4096, 8000):
         s1 = random_seq(rng, DNA, size)
         s2 = mutate(rng, s1, DNA)
@@ -528,7 +747,7 @@ def main() -> int:
         log(f"phase 3: align {size}x{size} on {card}: end to end "
             f"{a_ms:.4f} ms ({cells / a_ms / 1e6:.4f} GCUPS); fill "
             f"{f_ms:.4f} ms, D2H + walk {w_ms:.4f} ms")
-        kernel_ms, plain_ms = k_ms, p_ms
+        kernel_ms, plain_ms, fill_size = k_ms, p_ms, size
 
     # The last-row mode, injected (a checkpoint fill), beside the plain
     # row scan on the card.
@@ -564,7 +783,7 @@ def main() -> int:
             out.append(time.perf_counter() - t0)
         return float(np.median(out))
 
-    walk_ms = plain_walk_ms = None
+    walk_ms = plain_walk_ms = walk_steps = walk_path = None
     for size in (10_000, 20_000):
         s1 = random_seq(rng, DNA, size)
         s2 = mutate(rng, s1, DNA)
@@ -647,6 +866,9 @@ def main() -> int:
             t0 = time.perf_counter()
             want = linear_tb.walk_block(moves_cpu, [size], j_cpu, level_cpu)
             plain_walk_ms = 1e3 * (time.perf_counter() - t0)
+            walk_steps = int(want[1][0])
+            walk_path = (want[0][0, :walk_steps].numpy(), size, len(s2),
+                         len(s2) + 1)
             got = linear_tb.walk_block(moves, [size], j_dev, level)
             err = max(abs_err(g, w) for g, w in zip(got, want))
             walk_err = max(walk_err, err)
@@ -685,6 +907,266 @@ def main() -> int:
             f"ms, direct {di_ms:.4f} ms, cost() {co_ms:.4f} ms (split from "
             f"{SPLIT_MIN_ROWS} rows)")
 
+    # -- phase 3, batch serving -------------------------------------------
+    # Each wrapper's launches are bracketed by CUDA events (device fill and
+    # walk time); the host clock takes the call after a synchronise, and
+    # align_pairs' phase_seconds its enqueue, fetch (wait + copy) and render.
+    def timed(fn, spans):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        wrapper.launches = 0  # the wrappers count on their global name
+        return wrapper
+
+    def time_align_pairs(pairs, scheme, with_tb, reps=3):
+        align_pairs(pairs, scheme=scheme, with_traceback=with_tb)  # warm-up
+        rows = []
+        for _ in range(reps):
+            spans = {"fill": [], "walk": []}
+            patched = [(fill_batch, "batch_final3", "fill"),
+                       (fill_cuda, "batch_moves", "fill"),
+                       (linear_tb, "walk_block", "walk")]
+            saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+            phases = {}
+            try:
+                for mod, name, kind in patched:
+                    setattr(mod, name, timed(getattr(mod, name), spans[kind]))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                align_pairs(pairs, scheme=scheme, with_traceback=with_tb,
+                            phase_seconds=phases)
+                total = time.perf_counter() - t0
+            finally:
+                for mod, name, fn in saved:
+                    setattr(mod, name, fn)
+            rows.append((
+                1e3 * total,
+                sum(s.elapsed_time(e) for s, e in spans["fill"]),
+                sum(s.elapsed_time(e) for s, e in spans["walk"]),
+                1e3 * phases.get("fill", 0.0),
+                1e3 * phases.get("fetch", 0.0),
+                1e3 * phases.get("traceback", 0.0),
+            ))
+        return [float(np.median(col)) for col in zip(*rows)]
+
+    def bucket_inputs(pairs, scheme):
+        """align_pairs' buckets of ``pairs`` as fill arguments on the card."""
+        groups = {}
+        for a, b in pairs:
+            key = (bucket_length(len(a)), bucket_length(len(b)))
+            groups.setdefault(key, []).append((a, b))
+        cost = torch.from_numpy(
+            np.ascontiguousarray(scheme.costing.values, dtype=np.int32)
+        ).to(dev)
+        out = []
+        for (mm, nn), group in groups.items():
+            ta = np.stack([encode_padded(scheme.alphabet, a, mm) for a, _ in group])
+            tb = np.stack([encode_padded(scheme.alphabet, b, nn) for _, b in group])
+            out.append((torch.from_numpy(ta).to(dev), torch.from_numpy(tb).to(dev),
+                        cost, scheme.alphabet.gap_id, scheme.gap_open_cost,
+                        [len(a) for a, _ in group], [len(b) for _, b in group]))
+        return out
+
+    smi_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    sm_hz = float(smi_clock) * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    hbm_bytes_s = 3.35e12  # H100 SXM HBM3
+
+    # The card's best case for the fills' arithmetic and the walk's loads,
+    # measured here by the probes of utils/peaks.py (checked first against
+    # the plain row scan): the cell rate of a fill in registers at the
+    # fewest int32 operations a cell needs on sm_90 (9 cost only, 23 with
+    # codes: DPX fused add-min and 3-way min), and the clocks of one
+    # dependent load from L1 and from L2.
+    dna_scheme = resolve_scheme(DNA, DNA)
+    peak = peaks.measure(
+        dev, torch.from_numpy(np.asarray(dna_scheme.costing.values, np.int32)),
+        dna_scheme.alphabet.gap_id, dna_scheme.gap_open_cost, SEED,
+    )
+    per_clock_sm = {
+        mode: peak[f"{mode}_cells_s"] * peaks.CELL_OPS[mode] / (sms * sm_hz)
+        for mode in peaks.CELL_OPS
+    }
+    log(f"phase 3: peaks on {card}: a fill's arithmetic in registers "
+        f"{peak['cost_cells_s'] / 1e9:.4f} Gcells/s cost only "
+        f"({per_clock_sm['cost']:.4f} int32 ops a clock an SM at "
+        f"{peaks.CELL_OPS['cost']} a cell), {peak['moves_cells_s'] / 1e9:.4f}"
+        f" Gcells/s with codes ({per_clock_sm['moves']:.4f} at "
+        f"{peaks.CELL_OPS['moves']} a cell); DPX fused add-min "
+        f"{peak['addmin_ops_s'] / (sms * sm_hz):.4f} a clock an SM; one "
+        f"dependent load {peak['l1_load_clocks']:.2f} clocks from L1, "
+        f"{peak['l2_load_clocks']:.2f} from L2 ({sms} SMs at {smi_clock} MHz)")
+
+    def bound(cells, mode, nbytes):
+        """(least ms on this card, what bounds it): the cells at the peak
+        cell rate of ``mode`` ("cost" or "moves"), bytes over the HBM
+        rate."""
+        t_ops = 1e3 * cells / peak[f"{mode}_cells_s"]
+        t_bytes = 1e3 * nbytes / hbm_bytes_s
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    def walk_bound(ops, i0, j0, ld):
+        """(least ms, the loads on its chain) of one walk of ``ops`` from
+        (i0, j0) over codes ``ld`` bytes a row: every step's code load
+        waits for the step before, and a load that opens a 32-byte sector
+        the walk has not read (it never comes back to one) cannot come
+        from nearer than L2; the rest come from L1 at best."""
+        ops = np.asarray(ops, dtype=np.int64)
+        i = i0 - np.concatenate([[0], np.cumsum(ops != linear_tb.OP_LEFT)[:-1]])
+        j = j0 - np.concatenate([[0], np.cumsum(ops != linear_tb.OP_UP)[:-1]])
+        sector = (i * ld + j)[j > 0] // 32  # steps at column 0 load nothing
+        new = int(np.count_nonzero(np.diff(sector, prepend=-1)))
+        clocks = new * peak["l2_load_clocks"] + (
+            len(sector) - new) * peak["l1_load_clocks"]
+        return 1e3 * clocks / sm_hz, (new, len(sector) - new)
+
+    def fill_bytes(args, out_bytes):
+        ta, tb, cost, _, _, mt, _ = args
+        return 4 * (ta.numel() + tb.numel() + cost.numel() + 2 * len(mt)) + out_bytes
+
+    arms = {
+        "64 x 1024^2": (serving_chunk(rng, DNA, 64, 1024, 1024), {}),
+        "64 x 4096^2": (serving_chunk(rng, DNA, 64, 4096, 4096), {}),
+        "1024-pair DNA chunk": chunks["dna"],
+        "1024-pair BLOSUM62 chunk": chunks["blosum62"],
+    }
+    arm_cost = {}
+    for arm, (pairs, kw) in arms.items():
+        scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
+        cells = sum(len(a) * len(b) for a, b in pairs)
+        for with_tb in (False, True):
+            tot, fill_ms, walk_ms_b, enq, fetch, render = time_align_pairs(
+                pairs, scheme, with_tb
+            )
+            log(f"phase 3: align_pairs {arm} traceback={with_tb} on {card}: "
+                f"{tot:.4f} ms ({len(pairs) / tot * 1e3:.2f} pairs/s, "
+                f"{cells / tot / 1e6:.4f} GCUPS); device: fill {fill_ms:.4f} ms"
+                f", walk {walk_ms_b:.4f} ms; host: enqueue {enq:.4f} ms, fetch "
+                f"(wait + copy) {fetch:.4f} ms, render {render:.4f} ms")
+        buckets = bucket_inputs(pairs, scheme)
+        gb = sum(cuda_ms(lambda: fill_batch.batch_final3(*a), 3) for a in buckets)
+        gf = sum(
+            cuda_ms(lambda: fill_cuda.batch_moves(*a, want_moves=False), 3)
+            for a in buckets
+        )
+        arm_cost[arm] = (buckets, gb, gf)
+        b_ms, b_by = bound(
+            cells, "cost", sum(fill_bytes(a, 12 * len(a[5])) for a in buckets)
+        )
+        log(f"phase 3: cost fills of {arm} ({len(buckets)} buckets, one launch "
+            f"each) on {card}: gotoh_batch {gb:.4f} ms ({cells / gb / 1e6:.4f} "
+            f"GCUPS), gotoh_fill final3 {gf:.4f} ms ({cells / gf / 1e6:.4f} "
+            f"GCUPS); bound {b_ms:.4f} ms ({b_by})")
+
+    # The kernel record's bucket: the DNA chunk's largest bucket, one launch.
+    dna_buckets = arm_cost["1024-pair DNA chunk"][0]
+    bucket = max(dna_buckets, key=lambda a: len(a[5]))
+    bucket_cells = sum(m * n for m, n in zip(bucket[5], bucket[6]))
+    batch_ms = cuda_ms(lambda: fill_batch.batch_final3(*bucket), 5)
+    batch_fill_ms = cuda_ms(
+        lambda: fill_cuda.batch_moves(*bucket, want_moves=False), 5
+    )
+    ta_b, tb_b, cost_b, gid_b, go_b, mt_b, nt_b = bucket
+
+    def plain_bucket():
+        for b in range(len(mt_b)):
+            fill_rows.row_fill(ta_b[b, : mt_b[b] + 1], tb_b[b, : nt_b[b] + 1],
+                               cost_b, gid_b, go_b, want_moves=False)
+
+    plain_batch_ms = cuda_ms(plain_bucket, 1)
+    batch_bound, batch_bound_by = bound(
+        bucket_cells, "cost", fill_bytes(bucket, 12 * len(mt_b))
+    )
+    log(f"phase 3: gotoh_batch on one {ta_b.shape[1] - 1} x {tb_b.shape[1] - 1} "
+        f"bucket of {len(mt_b)} pairs on {card}: {batch_ms:.4f} ms, gotoh_fill "
+        f"final3 {batch_fill_ms:.4f} ms, plain row scan on the card "
+        f"{plain_batch_ms:.4f} ms, bound {batch_bound:.4f} ms ({batch_bound_by})")
+
+    # The whole DNA chunk as one launch, padded to its widest bucket (the
+    # kernels take each pair's lengths, so the results are the same): how
+    # the two kernels scale once a launch holds several warps per SM.
+    dna_pairs = chunks["dna"][0]
+    whole = to_dev(fill_args(
+        resolve_scheme(*("".join(s) for s in zip(*dna_pairs))), dna_pairs
+    ))
+    one_batch = cuda_ms(lambda: fill_batch.batch_final3(*whole), 5)
+    one_fill = cuda_ms(
+        lambda: fill_cuda.batch_moves(*whole, want_moves=False), 3
+    )
+    same = torch.equal(
+        fill_batch.batch_final3(*whole),
+        fill_cuda.batch_moves(*whole, want_moves=False)[0],
+    )
+    if not same:
+        raise SystemExit("phase 3 failed: gotoh_batch != gotoh_fill final3")
+    whole_cells = sum(m * n for m, n in zip(whole[5], whole[6]))
+    log(f"phase 3: the DNA chunk as one launch of 1024 pairs padded to "
+        f"{whole[0].shape[1] - 1} x {whole[1].shape[1] - 1} on {card}: "
+        f"gotoh_batch {one_batch:.4f} ms ({whole_cells / one_batch / 1e6:.4f} "
+        f"GCUPS), gotoh_fill final3 {one_fill:.4f} ms "
+        f"({whole_cells / one_fill / 1e6:.4f} GCUPS); final3 equal")
+
+    # The runner over 4 chunks of 1024 DNA pairs, both modes.  Its one-deep
+    # pipeline overlaps a chunk's host work with the next chunk's fills, so
+    # the per-chunk rates it logs overstate; the steady rate here is chunks
+    # 1-3 over the time between the journal lines of chunks 0 and 3.
+    runner_pairs = serving_chunk(rng, DNA, 4096, 819, 1024)
+    for with_tb in (False, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            stats_log = io.StringIO()
+            runner = BatchRunner(output=Path(tmp) / "out.tsv",
+                                 with_traceback=with_tb, log=stats_log)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = runner.run(runner_pairs)
+            wall = time.perf_counter() - t0
+            stamps = [json.loads(x)["ts"] for x in
+                      runner.manifest_path.read_text().splitlines()]
+        steady = 3 * 1024 / (stamps[3] - stamps[0])
+        phases = [json.loads(x)["phase_seconds"]
+                  for x in stats_log.getvalue().splitlines() if '"chunk"' in x]
+        log(f"phase 3: runner, 4 chunks of 1024 DNA pairs, traceback="
+            f"{with_tb}, on {card}: {len(runner_pairs) / wall:.2f} pairs/s "
+            f"over the whole run ({wall:.4f} s), steady (chunks 1-3) "
+            f"{steady:.2f} pairs/s; summary {stats.as_dict()}; phase seconds "
+            f"per chunk {phases}")
+
+    # The bound of every gotoh_fill mode at the square shapes timed above:
+    # tokens in, final3 out, plus the codes (1 byte a cell) or the injected
+    # and last rows (12 bytes a column each).
+    def square_bound(n, mode, extra):
+        return bound(n * n, mode, 8 * (n + 1) + 12 + extra)
+
+    bounds = {
+        f"{label} {n}^2": square_bound(n, mode, extra(n))
+        for n in (4096, 8000, 10_000, 20_000)
+        for label, mode, extra in (
+            ("moves", "moves", lambda n: (n + 1) ** 2),
+            ("cost-only", "cost", lambda n: 0),
+            ("injected last rows", "cost", lambda n: 24 * (n + 1)),
+        )
+    }
+    log(f"phase 3: bounds on {card} (the peaks above; {hbm_bytes_s / 1e12} "
+        f"TB/s): " + "; ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                               for k, v in bounds.items()))
+    fill_bound, fill_by = bounds[f"moves {fill_size}^2"]
+    walk_lat, (walk_new, walk_near) = walk_bound(*walk_path)
+    walk_bytes = 1e3 * (2 * walk_steps + 24) / hbm_bytes_s
+    walk_bound_ms = max(walk_lat, walk_bytes)
+    walk_by = "operations" if walk_lat >= walk_bytes else "bytes"
+    log(f"phase 3: walk bound on {card}: {walk_steps} dependent steps, "
+        f"{walk_new} loads opening a sector at {peak['l2_load_clocks']:.2f} "
+        f"clocks (L2) and {walk_near} at {peak['l1_load_clocks']:.2f} (L1): "
+        f"{walk_lat:.4f} ms; bytes {walk_bytes:.6f} ms")
     log(json.dumps({"kernels": [
         {
             "name": "gotoh_fill",
@@ -702,8 +1184,12 @@ def main() -> int:
                 k: main_launches[k] for k in ("batch_moves", "batch_last_rows")
             },
             "max_abs_err": max_abs_err,
+            "shape": f"moves fill, {fill_size}^2 DNA",
             "ms": kernel_ms,
             "plain_ms": plain_ms,
+            "bound_ms": fill_bound,
+            "bound_by": fill_by,
+            "library_ms": None,
             "last_rows_ms": last_ms,
             "plain_last_rows_ms": plain_last_ms,
         },
@@ -714,8 +1200,32 @@ def main() -> int:
             "replaces": "globalign_tpu/ops/linear_tb.py:74",
             "launches": main_launches["walk_block"],
             "max_abs_err": walk_err,
+            "shape": f"one 10000^2 matrix, {walk_steps} steps",
             "ms": walk_ms,
             "plain_ms": plain_walk_ms,
+            "bound_ms": walk_bound_ms,
+            "bound_by": walk_by,
+            "bound_note": "latency: a chain of dependent code loads",
+            "library_ms": None,
+        },
+        {
+            "name": "gotoh_batch",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/gotoh_batch.cu",
+            "replaces": "globalign_tpu/ops/fill_pallas.py:1321",
+            "also_replaces": ["globalign_tpu/ops/fill_pallas.py:458"],
+            "launches": main_launches["batch_final3"],
+            "max_abs_err": batch_err,
+            "shape": f"one {ta_b.shape[1] - 1} x {tb_b.shape[1] - 1} bucket of "
+                     f"{len(mt_b)} DNA pairs (1024-pair chunk)",
+            "ms": batch_ms,
+            "plain_ms": plain_batch_ms,
+            "bound_ms": batch_bound,
+            "bound_by": batch_bound_by,
+            "library_ms": None,
+            "gotoh_fill_final3_ms": batch_fill_ms,
+            "chunk_ms": arm_cost["1024-pair DNA chunk"][1],
+            "chunk_gotoh_fill_final3_ms": arm_cost["1024-pair DNA chunk"][2],
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -8,12 +8,15 @@ budget, block by block on the card (``csrc/walk_block.cu``).  The JAX
 package ``globalign_tpu`` stays the reference; this package never imports
 it or JAX, and gives identical alignments, costs, scores and reports.
 
-The single-pair path is ported, long pairs included::
+The single-pair path (long pairs included) and batch serving are ported::
 
     find_global_alignment(..., device="cuda")   # reference-parity entry point
     GotohAligner(scheme, device="cuda")          # align / cost / dp_planes
     AlignmentResults                             # report object
+    align_pairs(pairs, device="cuda")            # many pairs, bucketed
+    python -m globalign_tpu_torch.batch_cli      # resumable batch runs
 
+Batch cost fills run ``csrc/gotoh_batch.cu`` (a warp per pair).
 ``device="cpu"`` runs the plain PyTorch engine (the row scan of
 ``ops.fill_rows``); ``device="cuda"`` without a GPU raises.
 """
@@ -26,6 +29,7 @@ except Exception:  # running from a source tree
     __version__ = "0.2.0"
 
 from .api import find_global_alignment
+from .batch import PairResult, align_pairs
 from .config import (
     ResolvedScheme,
     SimpleCostingSettings,
@@ -60,6 +64,8 @@ from .utils.tokenize import Alphabet
 __all__ = [
     "__version__",
     "find_global_alignment",
+    "align_pairs",
+    "PairResult",
     "AlignmentResults",
     "alignment_to_cigar",
     "GotohAligner",

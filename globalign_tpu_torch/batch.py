@@ -1,0 +1,397 @@
+"""Batched many-pair alignment: length bucketing, one fill per bucket.
+
+The port of ``globalign_tpu/batch.py`` (``align_pairs`` and its result
+types).  Pairs are padded into (M, N) length buckets; each bucket (or
+sub-batch of one, under the moves budget) is one launch on the card:
+
+  * cost-only: ``ops.fill_batch.batch_final3`` — ``gotoh_batch``, a warp
+    per pair, or ``gotoh_fill``'s final3 mode past its width cap;
+  * traceback: one ``gotoh_fill`` moves launch (``fill_cuda.batch_moves``,
+    row-major (B, M+1, N+1) codes), then one ``walk_block`` launch over the
+    whole sub-batch from each pair's (m, n) at the argmin level of its
+    final3.  The codes never leave the device.
+
+Final lanes, op tapes, counts and exit columns stay on the device until
+``resolve()`` (or the end of a ``flush=True`` call) brings every bucket's
+results to the host in one synchronisation; the host then prepends the
+row-0 left moves, reverses each tape and renders it
+(``ops.linear_tb.render_ops``).  A pair whose codes alone exceed the moves
+budget takes the blocked linear-space traceback (``linear_tb.align_blocked``)
+on its own, eagerly.  On CPU tensors the same code runs the plain versions
+of the kernels — the counterpart of the JAX package's CPU branch.  Results
+come back in input order with the single-pair API's cost, score and
+alignment.
+
+Not ported, by design:
+  * ``mesh=`` (data-parallel sharding) waits for the ``parallel/`` port;
+  * the chunk-fusion executables (``COST_CHUNK_JIT`` / ``TB_CHUNK_JIT``) bound
+    XLA compiles per bucket composition — the kernels take lengths at run
+    time, so there is nothing to fuse;
+  * the mega-walk blob and its pad quanta: one ``walk_block`` launch per
+    bucket walks the row-major codes where they lie;
+  * ``_moves_backend_estimate``'s per-backend byte models: a pair's codes
+    are (M+1)(N+1) bytes on every route.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .config import ResolvedScheme, resolve_scheme
+from .models.gotoh import GotohAlignment, resolve_device
+from .ops import fill_batch, fill_cuda, linear_tb
+from .ops.transforms import final_cost_to_score
+from .utils.tokenize import GAP, encode_padded
+
+DEFAULT_BUCKET_QUANTUM = 32
+
+# Above this many bytes of move codes for one sub-batch, traceback mode
+# splits a bucket into sub-batches; past it for one pair, the pair takes
+# the blocked linear-space traceback.  On the CPU the codes are host
+# memory, and this bound applies (as on the JAX package's CPU branch);
+# overridable via GLOBALIGN_BATCH_MOVES_BUDGET_BYTES.
+DEFAULT_BATCH_MOVES_BUDGET = int(
+    os.environ.get("GLOBALIGN_BATCH_MOVES_BUDGET_BYTES", 256 * 1024 * 1024)
+)
+
+# The same bound on the card, where the codes never leave device memory
+# (only O(m+n) op tapes cross to the host): every traceback bucket is
+# walked on the device.
+DEVICE_WALK_MOVES_BUDGET = 1536 * 1024 * 1024
+
+
+@dataclass
+class PendingAlignments:
+    """A dispatched-but-unfetched :func:`align_pairs` call.
+
+    Returned by ``align_pairs(..., flush=False)``: every bucket's fill (and
+    walk, in traceback mode) is queued on the device, nothing has been
+    fetched.  ``resolve()`` waits for the device, fetches, renders and
+    returns the results — the runner dispatches chunk k+1 before resolving
+    chunk k, so the host's fetch and render overlap the device's fills.
+    """
+
+    _flush: object
+
+    def resolve(self) -> "list[PairResult]":
+        return self._flush()
+
+
+@dataclass(frozen=True)
+class PairResult:
+    """Result for one pair in a batch (traceback fields None in cost-only mode)."""
+
+    cost: int
+    score: int
+    seq_1_aligned: str | None = None
+    middle_part: str | None = None
+    seq_2_aligned: str | None = None
+
+    def cigar(self, extended: bool = True) -> str | None:
+        """CIGAR of the alignment, or None in cost-only mode."""
+        if self.seq_1_aligned is None:
+            return None
+        from .ops.traceback import alignment_to_cigar
+
+        return alignment_to_cigar(
+            self.seq_1_aligned, self.seq_2_aligned, extended=extended
+        )
+
+
+def bucket_length(length: int, quantum: int = DEFAULT_BUCKET_QUANTUM) -> int:
+    """Round a sequence length up to the bucket grid (next multiple of quantum)."""
+    return max(quantum, quantum * math.ceil(length / quantum))
+
+
+def _validate_pairs(pairs: Sequence[tuple[str, str]]) -> list[tuple[str, str]]:
+    out = []
+    for idx, (s1, s2) in enumerate(pairs):
+        if len(s1) == 0 or len(s2) == 0:
+            raise RuntimeError(f"Pair {idx}: detected a sequence of length 0.")
+        if GAP in s1 or GAP in s2:
+            raise RuntimeError(
+                f"Pair {idx}: sequences may not contain the '-' character."
+            )
+        out.append((s1.upper(), s2.upper()))
+    return out
+
+
+def _moves_budget(device: torch.device) -> int:
+    """Bytes of codes one traceback sub-batch may hold on ``device``."""
+    if device.type == "cuda":
+        return DEVICE_WALK_MOVES_BUDGET
+    return DEFAULT_BATCH_MOVES_BUDGET
+
+
+def _encode_bucket(alphabet, seqs: list[str], padded_len: int) -> np.ndarray:
+    """(B, padded_len + 1) int32 1-origin tokens: ``encode_padded`` of each
+    sequence, vectorised over an ASCII bucket with one lookup table
+    (``encode_padded`` looks every character up in Python)."""
+    out = np.zeros((len(seqs), padded_len + 1), np.int32)
+    text = "".join(seqs)
+    if text.isascii():
+        lut = np.full(128, -1, np.int32)
+        for token, letter in enumerate(alphabet.letters):
+            if letter.isascii():
+                lut[ord(letter)] = token
+        codes = lut[np.frombuffer(text.encode("ascii"), np.uint8)]
+        if (codes >= 0).all():
+            lengths = np.array([len(s) for s in seqs])
+            # Row-major order of the mask is the concatenated text's order.
+            out[:, 1:][np.arange(padded_len) < lengths[:, None]] = codes
+            return out
+    for row, seq in enumerate(seqs):  # alphabet.encode names an unknown letter
+        out[row] = encode_padded(alphabet, seq, padded_len)
+    return out
+
+
+def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to the card through pinned memory without
+    a host synchronisation."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor
+
+
+def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
+    """Every tensor on the host after one synchronisation."""
+    if not tensors or tensors[0].device.type == "cpu":
+        return [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in host]
+
+
+@dataclass
+class _Dispatched:
+    """One bucket sub-batch on the device: its pairs' final lanes and, in
+    traceback mode, their op tapes (walk order), tape lengths and exit
+    columns."""
+
+    indices: list[int]
+    final3: torch.Tensor
+    ops: torch.Tensor | None = None
+    count: torch.Tensor | None = None
+    j_exit: torch.Tensor | None = None
+
+
+def align_pairs(
+    pairs: Sequence[tuple[str, str]],
+    *,
+    scheme: ResolvedScheme | None = None,
+    scoring_mat_name: str | None = None,
+    scoring_mat_path=None,
+    match_score=None,
+    mismatch_score=None,
+    mismatch_cost=None,
+    gap_open_score=None,
+    gap_open_cost=None,
+    gap_extension_score=None,
+    gap_extension_cost=None,
+    with_traceback: bool = True,
+    bucket_quantum: int = DEFAULT_BUCKET_QUANTUM,
+    device: str | torch.device = "cuda",
+    phase_seconds: dict | None = None,
+    flush: bool = True,
+) -> "list[PairResult] | PendingAlignments":
+    """Align many independent pairs on ``device``, in input order.
+
+    Scheme options mirror :func:`globalign_tpu_torch.find_global_alignment`;
+    a pre-resolved ``scheme`` may be passed instead.  ``device="cuda"`` (the
+    default) raises without a GPU; ``device="cpu"`` runs the plain engine.
+
+    ``phase_seconds`` (optional dict) accumulates host wall-clock per phase:
+    "fill" (bucket fills and walks queued), "fetch" (waiting for the device
+    and the device-to-host copies), "traceback" (rendering the strings),
+    "blocked" (pairs past the moves budget, fill to strings).  Each phase is
+    also a ``torch.profiler.record_function`` range, ``globalign.<phase>``.
+
+    ``flush=False`` returns a :class:`PendingAlignments` whose ``resolve()``
+    runs the fetch and the rendering; nothing synchronises with the device
+    before it (pairs past the moves budget excepted).
+    """
+    dev = resolve_device(device)
+
+    @contextmanager
+    def _phase(name):
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(f"globalign.{name}"):
+            yield
+        if phase_seconds is not None:
+            phase_seconds[name] = phase_seconds.get(name, 0.0) + (
+                time.perf_counter() - t0
+            )
+
+    pairs = _validate_pairs(pairs)
+    if not pairs:
+        return []
+
+    if scheme is None:
+        # Union alphabet across the batch: for simple schemes the matrix
+        # entries depend only on char-class (match/mismatch/gap), so a wider
+        # alphabet leaves every pair's cost and score unchanged relative to
+        # the reference's per-pair alphabet (start.py:355-358).
+        all_1 = "".join(s1 for s1, _ in pairs)
+        all_2 = "".join(s2 for _, s2 in pairs)
+        scheme = resolve_scheme(
+            all_1,
+            all_2,
+            scoring_mat_name=scoring_mat_name,
+            scoring_mat_path=scoring_mat_path,
+            match_score=match_score,
+            mismatch_score=mismatch_score,
+            mismatch_cost=mismatch_cost,
+            gap_open_score=gap_open_score,
+            gap_open_cost=gap_open_cost,
+            gap_extension_score=gap_extension_score,
+            gap_extension_cost=gap_extension_cost,
+        )
+
+    cost_mat = _to_device(np.asarray(scheme.costing.values, np.int32), dev)
+    gap_id = scheme.alphabet.gap_id
+    gap_open = scheme.gap_open_cost
+
+    # Bucket by padded (M, N).
+    buckets: dict[tuple[int, int], list[int]] = {}
+    for idx, (s1, s2) in enumerate(pairs):
+        key = (
+            bucket_length(len(s1), bucket_quantum),
+            bucket_length(len(s2), bucket_quantum),
+        )
+        buckets.setdefault(key, []).append(idx)
+
+    def score_of(idx: int, cost: int) -> int:
+        s1, s2 = pairs[idx]
+        return final_cost_to_score(
+            cost=cost, m=len(s1), n=len(s2), max_score=scheme.max_score
+        )
+
+    results: list[PairResult | None] = [None] * len(pairs)
+    dispatched: list[_Dispatched] = []
+    budget = _moves_budget(dev)
+    for (M, N), indices in buckets.items():
+        groups = [indices]
+        if with_traceback:
+            per_pair = (M + 1) * (N + 1)
+            if per_pair > budget:
+                # A single pair's move matrix exceeds the budget: the
+                # checkpointed linear-space traceback, pair by pair.
+                for idx in indices:
+                    s1, s2 = pairs[idx]
+                    with _phase("blocked"):
+                        tb = linear_tb.align_blocked(
+                            _to_device(encode_padded(scheme.alphabet, s1, len(s1)), dev),
+                            _to_device(encode_padded(scheme.alphabet, s2, len(s2)), dev),
+                            cost_mat, gap_id, gap_open, s1, s2,
+                        )
+                    results[idx] = PairResult(
+                        cost=tb.cost,
+                        score=score_of(idx, tb.cost),
+                        seq_1_aligned=tb.seq_1_aligned,
+                        middle_part=tb.middle_part,
+                        seq_2_aligned=tb.seq_2_aligned,
+                    )
+                continue
+            # Split oversized buckets into sub-batches under the budget
+            # rather than losing the batched path.
+            max_pairs = budget // per_pair
+            groups = [
+                indices[lo : lo + max_pairs]
+                for lo in range(0, len(indices), max_pairs)
+            ]
+
+        for group in groups:
+            tok_a = _to_device(_encode_bucket(
+                scheme.alphabet, [pairs[i][0] for i in group], M
+            ), dev)
+            tok_b = _to_device(_encode_bucket(
+                scheme.alphabet, [pairs[i][1] for i in group], N
+            ), dev)
+            m_true = [len(pairs[i][0]) for i in group]
+            n_true = [len(pairs[i][1]) for i in group]
+            with _phase("fill"):
+                if not with_traceback:
+                    final3 = fill_batch.batch_final3(
+                        tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true
+                    )
+                    dispatched.append(_Dispatched(group, final3))
+                    continue
+                final3, moves = fill_cuda.batch_moves(
+                    tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true
+                )
+                # Each walk starts at (m, n) in the level of the least of
+                # its final lanes (ties M > Ix > Iy: argmin's first index).
+                ops, count, j_exit, _ = linear_tb.walk_block(
+                    moves, m_true,
+                    _to_device(np.asarray(n_true, np.int32), dev),
+                    final3.argmin(-1).to(torch.int32),
+                )
+                dispatched.append(_Dispatched(group, final3, ops, count, j_exit))
+
+    def _flush() -> list[PairResult]:
+        if not dispatched:
+            return results  # type: ignore[return-value]
+        with _phase("fetch"):
+            device_parts = [torch.cat([d.final3 for d in dispatched])]
+            if with_traceback:
+                device_parts += [
+                    torch.cat([d.ops.reshape(-1) for d in dispatched]),
+                    torch.cat([d.count for d in dispatched]),
+                    torch.cat([d.j_exit for d in dispatched]),
+                ]
+            fetched = _to_host(device_parts)
+        order = [idx for d in dispatched for idx in d.indices]
+        costs = fetched[0].min(axis=1).tolist()
+        lines = [(None, None, None)] * len(order)
+        if with_traceback:
+            with _phase("traceback"):
+                tapes, counts, j_exits = fetched[1:]
+                left = np.full(j_exits.max(), linear_tb.OP_LEFT, np.uint8)
+                fwd, row, off = [], 0, 0
+                for d in dispatched:
+                    width = d.ops.shape[1]
+                    for k in range(len(d.indices)):
+                        start = off + k * width
+                        tape = tapes[start : start + counts[row + k]]
+                        # Forward op order: the walk records from (m, n)
+                        # upward and stops at row 0 with j_exit LEFT moves
+                        # remaining (reference globaligner.py:542-561).
+                        fwd.append(np.concatenate(
+                            (left[: j_exits[row + k]], tape[::-1])
+                        ))
+                    row += len(d.indices)
+                    off += d.ops.numel()
+                lines = linear_tb.render_many(
+                    fwd,
+                    [pairs[idx][0] for idx in order],
+                    [pairs[idx][1] for idx in order],
+                )
+        for idx, cost, (s1a, midl, s2a) in zip(order, costs, lines):
+            results[idx] = PairResult(cost, score_of(idx, cost), s1a, midl, s2a)
+        dispatched.clear()
+        return results  # type: ignore[return-value]
+
+    if flush:
+        return _flush()
+    return PendingAlignments(_flush)
+
+
+def alignment_to_pair_result(a: GotohAlignment) -> PairResult:
+    return PairResult(
+        cost=a.cost,
+        score=a.score,
+        seq_1_aligned=a.seq_1_aligned,
+        middle_part=a.middle_part,
+        seq_2_aligned=a.seq_2_aligned,
+    )

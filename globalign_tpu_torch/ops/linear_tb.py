@@ -307,3 +307,57 @@ def assemble_from_tapes(
     mid.reverse()
     out_2.reverse()
     return "".join(out_1), "".join(mid), "".join(out_2)
+
+
+def render_many(
+    tapes_fwd, seqs_1, seqs_2
+) -> list[tuple[str, str, str]]:
+    """The three alignment lines of many pairs' FORWARD-order op tapes.
+
+    Ops: ``OP_DIAG`` consumes a character of each sequence, ``OP_LEFT`` one
+    of seq_2 (gap in seq_1), any other op one of seq_1.  Each tape is a
+    whole alignment of its pair: it consumes every character of both
+    sequences.  The port of the native ``ga_render_ops``
+    (``native/runtime.cpp:227``), vectorised with numpy over every op of
+    every pair at once (one numpy pass, not a Python loop per op or pair);
+    byte-identical to :func:`assemble_from_tapes` over the reversed tape
+    with the row-0 left moves in front.
+    """
+    if not len(tapes_fwd):
+        return []
+    lengths = np.array([len(t) for t in tapes_fwd], np.int64)
+    ops = np.concatenate(
+        [np.asarray(t, np.uint8).reshape(-1) for t in tapes_fwd]
+    )
+    text_1, text_2 = "".join(seqs_1), "".join(seqs_2)
+    codec, dtype = (
+        ("ascii", np.uint8) if text_1.isascii() and text_2.isascii()
+        else ("utf-32-le", np.uint32)
+    )
+    diag, left = ops == OP_DIAG, ops == OP_LEFT
+    from_1, from_2 = ~left, diag | left  # ops that consume seq_1 / seq_2
+    # The ops that consume a seq_1 character take them in order, pair after
+    # pair: the concatenated seq_1s fill those slots (and likewise seq_2).
+    c1 = np.full(ops.shape, ord(GAP_CHAR), dtype)
+    c2 = c1.copy()
+    for out, mask, text in ((c1, from_1, text_1), (c2, from_2, text_2)):
+        chars = np.frombuffer(text.encode(codec), dtype)
+        if int(mask.sum()) != len(chars):
+            raise ValueError("an op tape does not consume its whole sequence")
+        out[mask] = chars
+    mid = np.full(ops.shape, ord(GAP_GLYPH), dtype)
+    mid[diag] = np.where(
+        c1[diag] == c2[diag], ord(MATCH_GLYPH), ord(MISMATCH_GLYPH)
+    )
+    line_1, line_m, line_2 = (x.tobytes().decode(codec) for x in (c1, mid, c2))
+    ends = np.cumsum(lengths).tolist()
+    return [
+        (line_1[lo:hi], line_m[lo:hi], line_2[lo:hi])
+        for lo, hi in zip([0] + ends[:-1], ends)
+    ]
+
+
+def render_ops(ops_fwd, seq_1: str, seq_2: str) -> tuple[str, str, str]:
+    """The three alignment lines of one pair's forward op tape
+    (:func:`render_many` for one pair)."""
+    return render_many([ops_fwd], [seq_1], [seq_2])[0]

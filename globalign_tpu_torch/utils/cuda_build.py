@@ -45,6 +45,16 @@ SIGNATURES = {
         ),
         "gotoh_fill_error_string": ([_I32], ctypes.c_char_p),
     },
+    "gotoh_batch": {
+        "gotoh_batch_launch": (
+            # tok_a tok_b cost m n final3 last
+            [_PTR] * 7
+            + [_I32] * 8  # B M N A gap go warps W
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "gotoh_batch_error_string": ([_I32], ctypes.c_char_p),
+    },
     "walk_block": {
         "walk_block_launch": (
             # moves i_entry j_entry level_entry ops count j_exit level_exit
@@ -86,10 +96,12 @@ def library_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> list[Path]:
-    """Compile every source whose library is missing, one ``nvcc`` each,
-    all running at once; returns the libraries in ``sources()`` order."""
-    paths = [library_path(src) for src in sources()]
+def build(srcs: list[Path] | None = None) -> list[Path]:
+    """Compile every source (default: ``sources()``) whose library is
+    missing, one ``nvcc`` each, all running at once; returns the libraries
+    in the order of the sources."""
+    srcs = sources() if srcs is None else list(srcs)
+    paths = [library_path(src) for src in srcs]
     if all(p.exists() for p in paths):
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -97,7 +109,7 @@ def build() -> list[Path]:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
         try:
             jobs = []
-            for src, so_path in zip(sources(), paths):
+            for src, so_path in zip(srcs, paths):
                 if so_path.exists():  # built by another process meanwhile
                     continue
                 tmp = so_path.with_name(so_path.name + f".{os.getpid()}.tmp")

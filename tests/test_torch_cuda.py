@@ -262,3 +262,113 @@ def test_blocked_align_matches_full_matrix(cuda_device):
                 tb37.cost) == (full.seq_1_aligned, full.middle_part,
                                full.seq_2_aligned, full.cost)
         assert small.cost(s1, s2) == full.cost
+
+
+# -- batch serving: gotoh_batch and align_pairs ------------------------------
+
+
+@pytest.mark.parametrize(
+    "letters,n_cols,scheme_kw",
+    [
+        ("ACGT", 1, {}),
+        ("ACGT", 31, {}),
+        ("ACGT", 33, {}),
+        ("ACGT", 1024, {}),
+        ("ACGT", 4096, {}),
+        ("ARNDCQEGHILKMFPSTWYV", 255, dict(scoring_mat_name="BLOSUM62")),
+        ("ACGT", 200, dict(match_score=3, mismatch_score=-2, gap_open_score=-5,
+                           gap_extension_score=-1)),
+    ],
+)
+def test_gotoh_batch_matches_plain(cuda_device, letters, n_cols, scheme_kw):
+    """Ragged batches (m_true 0, 1 and M, zero and partial widths): final3
+    and the last rows at every column, kernel == plain, one launch each."""
+    from globalign_tpu_torch.ops import fill_batch
+
+    rows = 40 if n_cols > 1024 else 150
+    shapes = [(rows, n_cols), (0, n_cols), (1, n_cols), (rows, n_cols // 2),
+              (rows, 0), (rows // 3, max(1, n_cols - 5))]
+    args = _case(np.random.default_rng(n_cols), letters, shapes, **scheme_kw)
+    want3 = fill_batch.batch_final3(*args)
+    want_last = fill_batch.batch_final3(*args, last_rows=True)
+    before = fill_batch.batch_final3.launches
+    got3 = fill_batch.batch_final3(*_on(cuda_device, args))
+    got_last = fill_batch.batch_final3(*_on(cuda_device, args), last_rows=True)
+    torch.cuda.synchronize()
+    assert fill_batch.batch_final3.launches == before + 2
+    assert torch.equal(got3.cpu(), want3)
+    assert torch.equal(got_last.cpu(), want_last)
+
+
+@pytest.mark.parametrize("letters,shapes", [
+    ("ACGT", [(30, 4200), (3, 4097)]),  # wider than the cap
+    ("".join(chr(0x4E00 + k) for k in range(399)), [(40, 60), (5, 9)]),  # table
+])
+def test_batch_final3_past_the_plan_runs_gotoh_fill(cuda_device, letters, shapes):
+    """Buckets wider than gotoh_batch's cap, or with a table too large for
+    its shared memory, run gotoh_fill's final3 / last-row mode."""
+    from globalign_tpu_torch.ops import fill_batch
+
+    args = _case(np.random.default_rng(15), letters, shapes)
+    before = (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches,
+              fill_cuda.batch_last_rows.launches)
+    got3 = fill_batch.batch_final3(*_on(cuda_device, args))
+    got_last = fill_batch.batch_final3(*_on(cuda_device, args), last_rows=True)
+    assert (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches,
+            fill_cuda.batch_last_rows.launches) == (
+        before[0], before[1] + 1, before[2] + 1
+    )
+    assert torch.equal(got3.cpu(), fill_batch.batch_final3(*args))
+    assert torch.equal(got_last.cpu(), fill_batch.batch_final3(*args, last_rows=True))
+
+
+@pytest.mark.parametrize("with_traceback", [False, True])
+@pytest.mark.parametrize("letters,kw", [
+    ("ACGT", {}), ("ARNDCQEGHILKMFPSTWYV", dict(scoring_mat_name="BLOSUM62")),
+])
+def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
+                                             with_traceback):
+    """Ragged pairs over several buckets: the card (one fill, and one walk,
+    a bucket) == ``device="cpu"``, pair by pair; flush=False too."""
+    from globalign_tpu_torch import align_pairs
+    from globalign_tpu_torch.batch import bucket_length
+    from globalign_tpu_torch.ops import fill_batch
+
+    rng = np.random.default_rng(16 + with_traceback)
+    pairs = [
+        tuple("".join(rng.choice(list(letters), int(rng.integers(1, 200))))
+              for _ in range(2))
+        for _ in range(40)
+    ]
+    buckets = {(bucket_length(len(a)), bucket_length(len(b))) for a, b in pairs}
+    before = (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches,
+              linear_tb.walk_block.launches)
+    got = align_pairs(pairs, with_traceback=with_traceback, **kw)
+    k = len(buckets)
+    assert (fill_batch.batch_final3.launches - before[0],
+            fill_cuda.batch_moves.launches - before[1],
+            linear_tb.walk_block.launches - before[2]) == (
+        (0, k, k) if with_traceback else (k, 0, 0)
+    )
+    want = align_pairs(pairs, with_traceback=with_traceback, device="cpu", **kw)
+    assert got == want
+    assert align_pairs(pairs, with_traceback=with_traceback, flush=False,
+                       **kw).resolve() == want
+
+
+@pytest.mark.parametrize("letters, scheme_kw", [
+    ("ACGT", {}),
+    ("ACDEFGHIKLMNPQRSTVWY", {"scoring_mat_name": "BLOSUM62"}),
+    ("ACGT", {"match_score": 3, "mismatch_score": -4, "gap_open_score": -7,
+              "gap_extension_score": -3}),
+])
+def test_cell_probe_matches_the_row_scan(cuda_device, letters, scheme_kw):
+    """The bound's cell probe (DPX form, in registers) computes the fill."""
+    from globalign_tpu_torch.utils import peaks
+
+    scheme = resolve_scheme(letters, letters, **scheme_kw)
+    cost = torch.from_numpy(
+        np.ascontiguousarray(scheme.costing.values, dtype=np.int32)
+    )
+    peaks.check(cuda_device, cost, scheme.alphabet.gap_id,
+                scheme.gap_open_cost, seed=7, pairs=32, rows=40)

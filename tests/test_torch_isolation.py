@@ -22,6 +22,10 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import globalign_tpu_torch, globalign_tpu_torch.cli\n"
         "import globalign_tpu_torch.utils.cuda_build\n"
+        "import globalign_tpu_torch.batch, globalign_tpu_torch.runner\n"
+        "import globalign_tpu_torch.batch_cli\n"
+        "import globalign_tpu_torch.parallel.multihost\n"
+        "import globalign_tpu_torch.ops.fill_batch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'globalign_tpu', 'globalign'))\n"
         "assert not bad, bad\n"
