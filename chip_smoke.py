@@ -18,6 +18,9 @@ phase fails:
      same codes; the split cost; ``gotoh_batch`` (final3 and last rows) on
      ragged batches of 1 to 4096 columns, m_true in {0, 1, 7, ..., M}, under
      DNA, BLOSUM62, an odd asymmetric scheme and a 60-letter alphabet;
+     ``gotoh_fill``'s strip mode (``strip_fill_block``) at RB in {1, 3,
+     256} x W in {1, 31, 1024, 16 000}, its col0 a real neighbour's edge,
+     under the same four schemes (fin and every edge row);
   2. the main paths, with every launch count set to 0 before each and read
      after it: ``find_global_alignment(..., device="cuda")`` on the
      reference goldens and pairs up to the moves budget (one fill each,
@@ -33,7 +36,16 @@ phase fails:
      single-pair path on the card and, on 32 pairs, to ``device="cpu"``,
      with one fill (and one walk) per bucket; a lowered moves budget
      (sub-batches and a blocked pair); ``flush=False`` + ``resolve()``; the
-     batch CLI on the card and on the CPU (byte-identical TSVs);
+     batch CLI on the card and on the CPU (byte-identical TSVs); the
+     parallel layer: on an NCCL world of one, ``align_pairs(mesh=)`` on both
+     chunks (= unsharded, same launches) and ``sharded_pair_cost`` on a
+     50 000^2 DNA and a 20 000^2 BLOSUM62 pair (= ``cost()``, one strip
+     launch a block); on 4 spawned gloo ranks sharing the card, the same
+     two pairs (= the world of one), ``align_blocked(mesh=)`` at 20 000^2
+     (= the unsharded blocked path, report bytes too) and
+     ``align_pairs(mesh=)`` on the DNA chunk, every rank; the batch CLI
+     with ``--shard`` and, over 2 gloo processes, ``--distributed`` with
+     and without ``--shard`` (outputs merge to the single-process TSV);
   3. times with CUDA events: the fill kernel beside the plain row scan on
      the card; end-to-end ``align`` split into fill and D2H + walk; blocked
      ``align`` at 10 000² and 20 000² split into checkpoint pass, replay
@@ -46,7 +58,10 @@ phase fails:
      buckets; the batch runner over 4 chunks of 1024 pairs; the probes
      (checked against the row scan first): the peak cell rate of a fill's
      arithmetic and the latency of a dependent load, from which each
-     kernel's bound is computed.
+     kernel's bound is computed; the strip mode on a 256 x 50 000 block
+     beside its plain version and its bound; the 50 000^2 cost on a world
+     of one beside ``cost()`` and the direct fill; the gloo exchange per
+     super-step; ``align_pairs`` on a world of one beside no mesh.
 
 The last two lines of standard output are JSON: the kernels' record, then
 ``{"ok": true, "device": {...}}``.  It uses no JAX and no network.
@@ -125,6 +140,129 @@ def serving_chunk(rng, letters: str, count: int, lo: int, hi: int):
     return pairs
 
 
+def _rank_main(rank, world, store, jobs, queue, backend):
+    """One spawned rank (gloo ranks share cuda:0; an NCCL rank takes card
+    ``rank``): run ``jobs``
+    in order, every rank the same, and put (rank, "ok", answers) or (rank,
+    "error", traceback) on ``queue``.  Each job's launches are counted from
+    0; the strip exchanges are timed on the host clock."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(REPO))
+        import torch
+        import torch.distributed as dist
+
+        from globalign_tpu_torch import align_pairs, resolve_scheme
+        from globalign_tpu_torch.models.gotoh import GotohAligner
+        from globalign_tpu_torch.ops import fill_cuda, linear_tb
+        from globalign_tpu_torch.parallel import comm, make_pair_mesh, multihost
+        from globalign_tpu_torch.parallel import seqpar
+
+        multihost.initialize(store, world, rank, backend=backend)
+        mesh = make_pair_mesh()
+        shifts = []
+        plain_shift = comm.shift
+
+        def timed_shift(*args):
+            t0 = time.perf_counter()
+            out = plain_shift(*args)
+            shifts.append(time.perf_counter() - t0)
+            return out
+
+        comm.shift = timed_shift
+        wrappers = (fill_cuda.strip_fill_block, fill_cuda.batch_moves,
+                    fill_cuda.batch_last_rows, linear_tb.walk_block)
+        answers = []
+        for kind, job in jobs:
+            scheme = resolve_scheme(*job["scheme_seqs"], **job["scheme_kw"])
+            aligner = GotohAligner(scheme, device="cuda")
+            for fn in wrappers:
+                fn.launches = 0
+            shifts.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "cost":
+                s1, s2 = job["pair"]
+                out = seqpar.sharded_pair_cost(
+                    mesh, aligner._encode(s1), aligner._encode(s2),
+                    aligner.cost_mat, aligner.gap_id, aligner.gap_open,
+                ).tolist()
+            elif kind == "blocked":
+                s1, s2 = job["pair"]
+                tb = linear_tb.align_blocked(
+                    aligner._encode(s1), aligner._encode(s2), aligner.cost_mat,
+                    aligner.gap_id, aligner.gap_open, s1, s2, mesh=mesh,
+                )
+                out = [tb.cost, tb.seq_1_aligned, tb.middle_part,
+                       tb.seq_2_aligned]
+            else:
+                out = [
+                    (r.cost, r.score, r.seq_1_aligned, r.middle_part,
+                     r.seq_2_aligned)
+                    for r in align_pairs(job["pairs"], scheme=scheme,
+                                         with_traceback=job["traceback"],
+                                         mesh=mesh)
+                ]
+            torch.cuda.synchronize()
+            answers.append({
+                "out": out,
+                "seconds": time.perf_counter() - t0,
+                "launches": {fn.__name__: fn.launches for fn in wrappers},
+                "shift_s": list(shifts),
+            })
+        queue.put((rank, "ok", answers))
+        dist.destroy_process_group()
+    except BaseException:  # reported to the parent, which fails the run
+        queue.put((rank, "error", traceback.format_exc()))
+
+
+def spawn_ranks(world: int, jobs, timeout: float, backend: str = "gloo"):
+    """Run ``jobs`` on ``world`` spawned ranks (gloo: sharing cuda:0; NCCL:
+    one card each); every rank's answers, rank by rank.  A rank that fails or outlives
+    ``timeout`` seconds fails the run; no rank outlives this call."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"file://{Path(tmp) / 'store'}"
+        procs = [
+            ctx.Process(target=_rank_main,
+                        args=(rank, world, store, jobs, results, backend))
+            for rank in range(world)
+        ]
+        for proc in procs:
+            proc.start()
+        answers = {}
+        deadline = time.monotonic() + timeout
+        try:
+            while len(answers) < world:
+                try:
+                    rank, status, payload = results.get(
+                        timeout=max(1.0, deadline - time.monotonic())
+                    )
+                except queue_mod.Empty:
+                    raise SystemExit(f"phase 2 failed: gloo ranks timed out "
+                                     f"after {timeout} s") from None
+                if status != "ok":
+                    raise SystemExit(f"phase 2 failed: gloo rank {rank}:\n"
+                                     f"{payload}")
+                answers[rank] = payload
+            for proc in procs:
+                proc.join(timeout=60)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(timeout=10)
+    bad = [r for r, proc in enumerate(procs) if proc.exitcode != 0]
+    if bad:
+        raise SystemExit(f"phase 2 failed: gloo ranks {bad} exited non-zero")
+    return [answers[r] for r in range(world)]
+
+
 def main() -> int:
     if not (REPO / "globalign_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: globalign_tpu_torch is not beside this script",
@@ -157,6 +295,9 @@ def main() -> int:
         fill_split,
         linear_tb,
     )
+    import torch.distributed as dist
+
+    from globalign_tpu_torch.ops.fill_scan import BIG, default_boundary
     from globalign_tpu_torch.ops.traceback import traceback_moves
     from globalign_tpu_torch.runner import BatchRunner
     from globalign_tpu_torch.utils import cuda_build, peaks
@@ -185,6 +326,7 @@ def main() -> int:
         "batch_last_rows": fill_cuda.batch_last_rows,
         "walk_block": linear_tb.walk_block,
         "batch_final3": fill_batch.batch_final3,
+        "strip_fill_block": fill_cuda.strip_fill_block,
     }
 
     def reset_counts():
@@ -193,6 +335,10 @@ def main() -> int:
 
     def read_counts():
         return {name: fn.launches for name, fn in counters.items()}
+
+    def launches(**kw):
+        """A launch design: the given counts, 0 for every other wrapper."""
+        return dict(dict.fromkeys(counters, 0), **kw)
 
     main_launches = dict.fromkeys(counters, 0)
 
@@ -406,6 +552,77 @@ def main() -> int:
     if batch_err != 0:
         raise SystemExit("phase 1 failed: gotoh_batch != plain version")
 
+    # gotoh_fill's strip mode (TPU kernel #10) against its plain version,
+    # the row scan's col0_full / want_edge / want_fin_row modes: a block of
+    # RB rows under a real checkpoint row, cut into a strip at the matrix
+    # edge and the strip of W columns to its right, whose col0 is the edge
+    # the plain fill of the left strip gives.  Both strips, fin and every
+    # edge row, m_true short of RB included; W = 16 000 keeps the strip
+    # state in global memory.
+    def strip_case(name, letters, rb, width, left=37, i0=5):
+        scheme = schemes[name](letters, letters)
+        cost = torch.from_numpy(
+            np.ascontiguousarray(scheme.costing.values, dtype=np.int32)
+        )
+        gid, go = scheme.alphabet.gap_id, scheme.gap_open_cost
+
+        def enc(k):
+            return torch.tensor(
+                [0, *scheme.alphabet.encode(random_seq(rng, letters, k))],
+                dtype=torch.int32,
+            )
+
+        ta_full, tb_full = enc(i0 + rb), enc(left + width)
+        top = fill_rows.row_fill(ta_full[: i0 + 1], tb_full, cost, gid, go,
+                                 want_moves=False).last3
+        steps = cost[ta_full[i0:], gid].clone()
+        steps[0] = 0
+        edge0 = torch.stack(
+            [torch.full((rb + 1,), BIG, dtype=torch.int32)] * 2
+            + [int(top[2, 0]) + torch.cumsum(steps, 0, dtype=torch.int32)]
+        )
+        ta = ta_full[i0:].clone()
+        ta[0] = 0
+        left_args = (ta[None], tb_full[None, : left + 1].contiguous(), cost,
+                     gid, go, top[None, :, : left + 1].contiguous(), edge0[None])
+        _, edge = fill_cuda.strip_fill_block(*left_args, [rb])
+        tb = torch.cat([torch.zeros(1, dtype=torch.int32), tb_full[left + 1 :]])
+        right_args = (ta[None], tb[None], cost, gid, go,
+                      top[None, :, left:].contiguous(), edge)
+        return left_args, right_args
+
+    def strip_on_card(args):
+        ta, tb, cost, gid, go, row0, col0 = args
+        return (ta.to(dev), tb.to(dev), cost.to(dev), gid, go, row0.to(dev),
+                col0.to(dev))
+
+    strip_err = 0
+    for name, letters in (("dna", DNA), ("blosum62", PROTEIN),
+                          ("odd_asym", DNA), ("wide60", WIDE)):
+        for rb in (1, 3, 256):
+            for width in (1, 31, 1024, 16_000):
+                cuts = sorted({rb, max(0, rb - 1)} | ({0} if rb == 3 else set()))
+                for args in strip_case(name, letters, rb, width):
+                    for m_true in cuts:
+                        want = fill_cuda.strip_fill_block(*args, [m_true])
+                        before = fill_cuda.strip_fill_block.launches
+                        got = fill_cuda.strip_fill_block(
+                            *strip_on_card(args), [m_true]
+                        )
+                        torch.cuda.synchronize()
+                        if fill_cuda.strip_fill_block.launches != before + 1:
+                            raise SystemExit("phase 1 failed: strip mode not "
+                                             "launched")
+                        err = max(abs_err(g, w) for g, w in zip(got, want))
+                        strip_err = max(strip_err, err)
+                        if err != 0:
+                            raise SystemExit(
+                                f"phase 1 failed: strip mode {name} RB={rb} "
+                                f"W={args[1].shape[1] - 1} m_true={m_true}")
+                log(f"phase 1: strip mode {name} RB={rb} W={width} (and the "
+                    f"37-column strip at the matrix edge), m_true {cuts}: fin "
+                    f"and every edge row max abs err 0")
+
     # -- phase 2: the main path -----------------------------------------
     runs = [
         (dict(seq_1="ACGT", seq_2="AGT"), (0, 7)),
@@ -437,8 +654,7 @@ def main() -> int:
                              f"{(r.score, r.cost)}")
         log(f"phase 2: {m} x {n}: score {r.score} cost {r.cost} "
             f"(= device='cpu')")
-    if counts != dict(batch_moves=len(runs), batch_last_rows=0, walk_block=0,
-                      batch_final3=0):
+    if counts != launches(batch_moves=len(runs)):
         raise SystemExit(f"phase 2 failed: launches {counts} for "
                          f"{len(runs)} align calls")
     log(f"phase 2: launches on the full-matrix path: {counts}")
@@ -470,8 +686,8 @@ def main() -> int:
         counts = read_counts()
         add_main(counts)
         long_results.append(r)
-        design = dict(batch_moves=nblocks, batch_last_rows=nblocks,
-                      walk_block=nblocks, batch_final3=0)
+        design = launches(batch_moves=nblocks, batch_last_rows=nblocks,
+                          walk_block=nblocks)
         w = full_matrix_route(**kw)
         if r != w or str(r) != str(w):
             raise SystemExit(f"phase 2 failed: blocked != full matrix for "
@@ -499,9 +715,9 @@ def main() -> int:
     )
     counts = read_counts()
     add_main(counts)
-    if nblocks < 4 or counts != dict(batch_moves=nblocks,
-                                     batch_last_rows=nblocks,
-                                     walk_block=nblocks, batch_final3=0):
+    if nblocks < 4 or counts != launches(batch_moves=nblocks,
+                                         batch_last_rows=nblocks,
+                                         walk_block=nblocks):
         raise SystemExit(f"phase 2 failed: forced blocks {nblocks}, "
                          f"launches {counts}")
     if (r.seq_1_aligned, r.middle_part, r.seq_2_aligned, r.cost, r.score) != (
@@ -529,9 +745,8 @@ def main() -> int:
         counts = read_counts()
         add_main(counts)
         split = len(s1) >= SPLIT_MIN_ROWS
-        design = dict(batch_moves=int(not split),
-                      batch_last_rows=int(split), walk_block=0,
-                      batch_final3=0)
+        design = launches(batch_moves=int(not split),
+                          batch_last_rows=int(split))
         direct, _ = aligner._batch_fill(s1, s2, want_moves=False)
         if counts != design or c != int(direct.min()) or c != r.cost:
             raise SystemExit(f"phase 2 failed: cost {c} direct "
@@ -563,6 +778,7 @@ def main() -> int:
     chunks = {"dna": (serving_chunk(rng, DNA, 1024, 819, 1024), {}),
               "blosum62": (serving_chunk(rng, PROTEIN, 1024, 819, 1024),
                            dict(scoring_mat_name="BLOSUM62"))}
+    chunk_results = {}  # (chunk, traceback) -> align_pairs' results
     for name, (pairs, kw) in chunks.items():
         scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
         aligner = GotohAligner(scheme, device="cuda")
@@ -575,12 +791,10 @@ def main() -> int:
             got = align_pairs(pairs, scheme=scheme, with_traceback=with_tb)
             counts = read_counts()
             add_main(counts)
+            chunk_results[name, with_tb] = (got, counts)
             design = (
-                dict(batch_moves=nsubs, batch_last_rows=0, walk_block=nsubs,
-                     batch_final3=0)
-                if with_tb else
-                dict(batch_moves=0, batch_last_rows=0, walk_block=0,
-                     batch_final3=nbuckets)
+                launches(batch_moves=nsubs, walk_block=nsubs)
+                if with_tb else launches(batch_final3=nbuckets)
             )
             if counts != design:
                 raise SystemExit(f"phase 2 failed: align_pairs {name} "
@@ -630,8 +844,8 @@ def main() -> int:
     add_main(counts)
     small = [p for p in mixed if len(p[0]) < 1200]
     nsmall, nsubs = bucket_counts(small, budget)
-    design = dict(batch_moves=nsubs + 1, batch_last_rows=1,
-                  walk_block=nsubs + 1, batch_final3=0)
+    design = launches(batch_moves=nsubs + 1, batch_last_rows=1,
+                      walk_block=nsubs + 1)
     cpu = align_pairs(mixed, device="cpu")
     if [fields(r) for r in got] != [fields(r) for r in want] or [
         fields(r) for r in cpu
@@ -685,6 +899,200 @@ def main() -> int:
     log(f"phase 2: batch_cli --with_traceback --cigar over 512 pairs of "
         f"50-300 nt: results TSVs byte-identical ({len(outs['cuda'][0])} "
         f"bytes), manifest fingerprints {sorted(outs['cuda'][1])} on both")
+
+    # -- phase 2, the parallel layer --------------------------------------
+    # A world of one on NCCL (the production mesh on one H100): align_pairs
+    # over the mesh on both chunks, both modes, equal to the unsharded
+    # call with the same launches; sharded_pair_cost on a 50 000 x 50 000
+    # DNA pair, one strip-mode launch a block, equal to cost() (the split).
+    from globalign_tpu_torch.parallel import make_pair_mesh, multihost, seqpar
+
+    multihost.initialize(num_processes=1)
+    world1 = make_pair_mesh()
+    if world1.backend != "nccl":
+        raise SystemExit(f"phase 2 failed: world of one on {world1.backend}")
+    for name, (pairs, kw) in chunks.items():
+        scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
+        for with_tb in (False, True):
+            want, want_counts = chunk_results[name, with_tb]
+            torch.cuda.synchronize()
+            reset_counts()
+            got = align_pairs(pairs, scheme=scheme, with_traceback=with_tb,
+                              mesh=world1)
+            counts = read_counts()
+            add_main(counts)
+            if [fields(r) for r in got] != [fields(r) for r in want] or (
+                counts != want_counts
+            ):
+                raise SystemExit(f"phase 2 failed: align_pairs(mesh=world of "
+                                 f"one) {name} traceback={with_tb}: launches "
+                                 f"{counts}, unsharded {want_counts}")
+            log(f"phase 2: align_pairs(mesh=NCCL world of one) {name} "
+                f"traceback={with_tb}: = unsharded, pair by pair; launches "
+                f"{counts}")
+
+    def pair_of(letters, size):
+        s1 = random_seq(rng, letters, size)
+        return s1, mutate(rng, s1, letters)
+
+    big_pair = pair_of(DNA, 50_000)
+    blosum_pair = pair_of(PROTEIN, 20_000)
+    world1_cost = {}
+    for label, (s1, s2), kw in (("50000^2 DNA", big_pair, {}),
+                                ("20000^2 BLOSUM62", blosum_pair,
+                                 dict(scoring_mat_name="BLOSUM62"))):
+        aligner = GotohAligner(resolve_scheme(s1, s2, **kw), device="cuda")
+        enc = (aligner._encode(s1), aligner._encode(s2), aligner.cost_mat,
+               aligner.gap_id, aligner.gap_open)
+        torch.cuda.synchronize()
+        reset_counts()
+        final3 = seqpar.sharded_pair_cost(world1, *enc)
+        counts = read_counts()
+        add_main(counts)
+        nblocks = -(-len(s1) // seqpar.DEFAULT_BLOCK_ROWS)
+        split_cost = aligner.cost(s1, s2)
+        if int(final3.min()) != split_cost or counts != launches(
+            strip_fill_block=nblocks
+        ):
+            raise SystemExit(f"phase 2 failed: sharded_pair_cost {label}: "
+                             f"{final3.tolist()} against cost() {split_cost}, "
+                             f"launches {counts}")
+        world1_cost[label] = (final3.tolist(), aligner, enc)
+        log(f"phase 2: sharded_pair_cost(NCCL world of one) {label}: lanes "
+            f"{final3.tolist()}, cost {split_cost} = cost() (the split); "
+            f"launches {counts}")
+
+    # Four gloo ranks sharing the card (spawned; exchanges staged through
+    # pinned host memory): the same pairs, the 20 000^2 blocked alignment
+    # and the DNA chunk, every rank equal to the world of one / unsharded,
+    # one strip-mode launch per block of each rank's pipeline.
+    blocked_kw = long_runs[1]
+    if len(blocked_kw["seq_1"]) != 20_000 or blocked_kw.get("scoring_mat_name"):
+        raise SystemExit("phase 2 failed: the 20 000^2 DNA run moved")
+    blocked_want = long_results[1]
+    dna_chunk = chunks["dna"][0]
+    dna_seqs = ["".join(s) for s in zip(*dna_chunk)]
+
+    def job(pair, kw):
+        return dict(pair=pair, scheme_seqs=list(pair), scheme_kw=kw)
+
+    gloo_jobs = [
+        ("cost", job(big_pair, {})),
+        ("cost", job(blosum_pair, dict(scoring_mat_name="BLOSUM62"))),
+        ("blocked", job((blocked_kw["seq_1"], blocked_kw["seq_2"]), {})),
+        ("pairs", dict(pairs=dna_chunk, traceback=False, scheme_seqs=dna_seqs,
+                       scheme_kw={})),
+        ("pairs", dict(pairs=dna_chunk, traceback=True, scheme_seqs=dna_seqs,
+                       scheme_kw={})),
+    ]
+    ranks = 4
+    t0 = time.perf_counter()
+    gloo = spawn_ranks(ranks, gloo_jobs, timeout=600)
+    log(f"phase 2: {ranks} gloo ranks on one card: spawned, ran and joined "
+        f"in {time.perf_counter() - t0:.3f} s")
+    m_blocked = len(blocked_kw["seq_1"])
+    bounds = linear_tb.block_bounds(m_blocked, len(blocked_kw["seq_2"]))
+    blocked_strips = sum(
+        -(-(hi - lo) // min(seqpar.DEFAULT_BLOCK_ROWS, hi - lo))
+        for lo, hi in zip(bounds, bounds[1:])
+    )
+    gloo_exchange = []
+    for rank, answers in enumerate(gloo):
+        costs, blosum, blocked, pairs_c, pairs_tb = answers
+        for label, ans in (("50000^2 DNA", costs), ("20000^2 BLOSUM62", blosum)):
+            nblocks = -(-len((big_pair if "DNA" in label else blosum_pair)[0])
+                        // seqpar.DEFAULT_BLOCK_ROWS)
+            if ans["out"] != world1_cost[label][0] or (
+                ans["launches"]["strip_fill_block"] != nblocks
+            ):
+                raise SystemExit(f"phase 2 failed: gloo rank {rank} "
+                                 f"sharded_pair_cost {label}: {ans['out']}, "
+                                 f"launches {ans['launches']}")
+        cost_b, s1a, mid, s2a = blocked["out"]
+        got_r = blocked_want._replace(
+            seq_1_aligned=s1a, middle_part=mid, seq_2_aligned=s2a, cost=cost_b,
+            score=final_cost_to_score(cost=cost_b, m=m_blocked,
+                                      n=len(blocked_kw["seq_2"]),
+                                      max_score=resolve_scheme(
+                                          blocked_kw["seq_1"],
+                                          blocked_kw["seq_2"]).max_score),
+        )
+        if got_r != blocked_want or str(got_r) != str(blocked_want) or (
+            blocked["launches"]["strip_fill_block"] != blocked_strips
+        ):
+            raise SystemExit(f"phase 2 failed: gloo rank {rank} align_blocked"
+                             f"(mesh=) 20000^2: launches {blocked['launches']}")
+        for with_tb, ans in ((False, pairs_c), (True, pairs_tb)):
+            want = [fields(r) for r in chunk_results["dna", with_tb][0]]
+            if [tuple(x) for x in ans["out"]] != want:
+                raise SystemExit(f"phase 2 failed: gloo rank {rank} align_pairs"
+                                 f"(mesh=) DNA chunk traceback={with_tb}")
+        for ans in answers:
+            for name, k in ans["launches"].items():
+                main_launches[name] += k
+        gloo_exchange.append(costs["shift_s"])
+    log(f"phase 2: {ranks} gloo ranks: sharded_pair_cost 50000^2 DNA and "
+        f"20000^2 BLOSUM62 = the world of one on every rank, "
+        f"{-(-50_000 // seqpar.DEFAULT_BLOCK_ROWS)} and "
+        f"{-(-20_000 // seqpar.DEFAULT_BLOCK_ROWS)} strip launches a rank; "
+        f"align_blocked(mesh=) 20000^2: strings, cost, score and report bytes "
+        f"= the unsharded blocked path, {blocked_strips} strip launches a rank "
+        f"({len(bounds) - 1} checkpoint blocks); align_pairs(mesh=) DNA chunk "
+        f"both modes = unsharded; seconds a job on rank 0: "
+        f"{[round(a['seconds'], 3) for a in gloo[0]]}")
+
+    # The batch CLI across processes: --shard (an NCCL world of one), and
+    # --distributed over 2 gloo processes on the card, dealt chunks (parts)
+    # and, with --shard, as one host of 2 lockstep ranks: the merged output
+    # is the single-process TSV, byte for byte.
+    cli_want = outs["cuda"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv = Path(tmp) / "pairs.tsv"
+        tsv.write_text("".join(f"{a}\t{b}\n" for a, b in cli_pairs))
+        base = [sys.executable, "-m", "globalign_tpu_torch.batch_cli",
+                "--pairs_tsv", str(tsv), "--with_traceback", "--cigar"]
+
+        def run_cli(cmds, label):
+            procs = [subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for cmd in cmds]
+            try:
+                errs = [proc.communicate(timeout=600)[1] for proc in procs]
+            finally:
+                for proc in procs:
+                    proc.kill()
+            for proc, err in zip(procs, errs):
+                if proc.returncode != 0:
+                    raise SystemExit(f"phase 2 failed: batch_cli {label}: "
+                                     f"{err[-2000:]}")
+
+        out = Path(tmp) / "shard.tsv"
+        run_cli([base + ["-o", str(out), "--shard"]], "--shard")
+        if out.read_bytes() != cli_want:
+            raise SystemExit("phase 2 failed: batch_cli --shard TSV differs")
+        for extra, label in (([], "--distributed"),
+                             (["--shard"], "--distributed --shard")):
+            out = Path(tmp) / f"dist{len(extra)}.tsv"
+            store = f"file://{Path(tmp) / f'store{len(extra)}'}"
+            run_cli([
+                base + ["-o", str(out), "--distributed", "--backend", "gloo",
+                        "--coordinator_address", store, "--num_processes",
+                        "2", "--process_id", str(k), "--chunk_pairs", "128",
+                        *extra]
+                for k in range(2)
+            ], label)
+            parts = sorted(Path(tmp).glob(f"{out.name}*"))
+            rows = [ln for part in parts if not part.name.endswith(".jsonl")
+                    for ln in part.read_text().splitlines(keepends=True)]
+            merged = "".join(sorted(rows, key=lambda ln: int(ln.split("\t")[0])))
+            if merged.encode() != cli_want:
+                raise SystemExit(f"phase 2 failed: batch_cli {label} parts "
+                                 f"differ from the single-process TSV")
+            log(f"phase 2: batch_cli {label} over 2 gloo processes on the "
+                f"card: {[p.name for p in parts]} merge to the single-process "
+                f"TSV, byte for byte")
+    log("phase 2: batch_cli --shard (NCCL world of one): TSV = the "
+        "single-process TSV, byte for byte")
     log(f"phase 2: launches on the main paths: {main_launches}")
 
     # -- phase 3: times -------------------------------------------------
@@ -1167,6 +1575,79 @@ def main() -> int:
         f"{walk_new} loads opening a sector at {peak['l2_load_clocks']:.2f} "
         f"clocks (L2) and {walk_near} at {peak['l1_load_clocks']:.2f} (L1): "
         f"{walk_lat:.4f} ms; bytes {walk_bytes:.6f} ms")
+
+    # -- phase 3, the parallel layer ---------------------------------------
+    # The strip mode at its main-path shape: the first block of the
+    # 50 000^2 world-of-one fill (RB 256 x W 50 000, at the matrix edge),
+    # beside its plain version on the card and its bound.
+    _, big_aligner, big_enc = world1_cost["50000^2 DNA"]
+    ta, tb, cost, gid, go = big_enc
+    rb, width = seqpar.DEFAULT_BLOCK_ROWS, tb.shape[0] - 1
+    row0_g, col0_g = default_boundary(ta, tb, cost, gid, go)
+    blk = (ta[None, : rb + 1].contiguous(), tb[None], cost, gid, go,
+           row0_g[None].contiguous(), col0_g[None, :, : rb + 1].contiguous())
+    strip_ms = cuda_ms(lambda: fill_cuda.strip_fill_block(*blk, [rb]), 5)
+    plain_strip_ms = cuda_ms(
+        lambda: fill_rows.row_fill(
+            blk[0][0], tb, cost, gid, go, rb, width, row0=row0_g,
+            col0=blk[6][0], want_moves=False, col0_full=True, want_edge=True,
+            want_fin_row=True,
+        ),
+        1,
+    )
+    got = fill_cuda.strip_fill_block(*blk, [rb])
+    want = fill_cuda.strip_fill_block(
+        *(x.cpu() if isinstance(x, torch.Tensor) else x for x in blk), [rb]
+    )
+    err = max(abs_err(g, w) for g, w in zip(got, want))
+    strip_err = max(strip_err, err)
+    if err != 0:
+        raise SystemExit("phase 3 failed: strip mode != plain at 256 x 50000")
+    strip_cells = rb * width
+    strip_bytes = 4 * (  # tokens, table, row0 and col0 in; fin, edge out
+        (rb + 1) + (width + 1) + cost.numel() + 2 + 6 * (width + 1)
+        + 6 * (rb + 1) + 3
+    )
+    strip_bound, strip_by = bound(strip_cells, "cost", strip_bytes)
+    log(f"phase 3: strip mode, one {rb} x {width} block on {card}: "
+        f"{strip_ms:.4f} ms ({strip_cells / strip_ms / 1e6:.4f} GCUPS), plain "
+        f"row scan (col0_full, want_edge, want_fin_row) on the card "
+        f"{plain_strip_ms:.4f} ms, bound {strip_bound:.4f} ms ({strip_by}); "
+        f"max abs err {err}")
+
+    # The world of one at 50 000^2 beside cost() (the split) and the direct
+    # cost-only fill, host clock around synchronised calls.
+    s1, s2 = big_pair
+    w1_ms = 1e3 * median_s(lambda: seqpar.sharded_pair_cost(world1, *big_enc), 1)
+    split_ms = 1e3 * median_s(lambda: big_aligner.cost(s1, s2), 3)
+    direct_ms = 1e3 * median_s(
+        lambda: fill_cuda.batch_moves(ta[None], tb[None], cost, gid, go,
+                                      [len(s1)], [len(s2)], want_moves=False),
+        1,
+    )
+    big_cells = len(s1) * len(s2)
+    log(f"phase 3: 50000^2 DNA cost on {card}: sharded_pair_cost (NCCL world "
+        f"of one, {-(-len(s1) // rb)} strip blocks) {w1_ms:.4f} ms "
+        f"({big_cells / w1_ms / 1e6:.4f} GCUPS); cost() (the split) "
+        f"{split_ms:.4f} ms; direct cost-only fill {direct_ms:.4f} ms")
+    shift_all = [x for shifts in gloo_exchange for x in shifts]
+    log(f"phase 3: gloo exchange (pinned host staging, {ranks} ranks sharing "
+        f"the card, 50000^2 DNA; host clock, so it holds each rank's wait for "
+        f"its left neighbour's block): {len(gloo_exchange[0])} super-steps a "
+        f"rank, median {1e3 * float(np.median(shift_all)):.4f} ms, mean "
+        f"{1e3 * float(np.mean(shift_all)):.4f} ms a step; jobs' seconds by "
+        f"rank {[[round(a['seconds'], 3) for a in r] for r in gloo]}")
+    for with_tb in (False, True):
+        dna_scheme = resolve_scheme(*dna_seqs)
+        plain_pairs_ms = 1e3 * median_s(lambda: align_pairs(
+            dna_chunk, scheme=dna_scheme, with_traceback=with_tb))
+        mesh_pairs_ms = 1e3 * median_s(lambda: align_pairs(
+            dna_chunk, scheme=dna_scheme, with_traceback=with_tb, mesh=world1))
+        log(f"phase 3: align_pairs DNA chunk traceback={with_tb} on {card}: "
+            f"unsharded {plain_pairs_ms:.4f} ms, mesh=NCCL world of one "
+            f"{mesh_pairs_ms:.4f} ms")
+    dist.destroy_process_group()
+
     log(json.dumps({"kernels": [
         {
             "name": "gotoh_fill",
@@ -1227,6 +1708,21 @@ def main() -> int:
             "chunk_ms": arm_cost["1024-pair DNA chunk"][1],
             "chunk_gotoh_fill_final3_ms": arm_cost["1024-pair DNA chunk"][2],
         },
+        {
+            "name": "gotoh_fill_strip",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/gotoh_fill.cu",
+            "replaces": "globalign_tpu/ops/fill_pallas.py:1811",
+            "launches": main_launches["strip_fill_block"],
+            "max_abs_err": strip_err,
+            "shape": f"one {rb} x {width} strip block, DNA (the first "
+                     "block of the 50000^2 world-of-one fill)",
+            "ms": strip_ms,
+            "plain_ms": plain_strip_ms,
+            "bound_ms": strip_bound,
+            "bound_by": strip_by,
+            "library_ms": None,
+        },
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1236,5 +1732,97 @@ def main() -> int:
     return 0
 
 
+def multi_card() -> int:
+    """``python3 chip_smoke.py --cards``: the parallel layer over NCCL, one
+    rank a card on every card of the machine — the path that exists only
+    across cards.  The jobs of phase 2's gloo ranks (a 50 000^2 DNA and a
+    20 000^2 BLOSUM62 ``sharded_pair_cost``, ``align_blocked(mesh=)`` at
+    20 000^2, ``align_pairs(mesh=)`` on a 1024-pair DNA chunk, both modes),
+    every rank against the unsharded path on cuda:0, with the strip-mode
+    launches a rank and the exchange time a super-step."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs two or more CUDA devices",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from globalign_tpu_torch import align_pairs, find_global_alignment
+    from globalign_tpu_torch.models.gotoh import GotohAligner
+    from globalign_tpu_torch.parallel import seqpar
+    from globalign_tpu_torch.utils import cuda_build
+    from globalign_tpu_torch.config import resolve_scheme
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    log("; ".join(smi))
+    cuda_build.build()
+    rng = np.random.default_rng(SEED)
+    cards = torch.cuda.device_count()
+
+    def pair_of(letters, size):
+        s1 = random_seq(rng, letters, size)
+        return s1, mutate(rng, s1, letters)
+
+    big, blosum, blocked = (pair_of(DNA, 50_000), pair_of(PROTEIN, 20_000),
+                            pair_of(DNA, 20_000))
+    chunk = serving_chunk(rng, DNA, 1024, 819, 1024)
+    seqs = ["".join(x) for x in zip(*chunk)]
+    want = [
+        GotohAligner(resolve_scheme(*big), device="cuda").cost(*big),
+        GotohAligner(resolve_scheme(*blosum, scoring_mat_name="BLOSUM62"),
+                     device="cuda").cost(*blosum),
+        find_global_alignment(seq_1=blocked[0], seq_2=blocked[1]),
+        [(r.cost, r.score, None, None, None)
+         for r in align_pairs(chunk, with_traceback=False)],
+        [(r.cost, r.score, r.seq_1_aligned, r.middle_part, r.seq_2_aligned)
+         for r in align_pairs(chunk, with_traceback=True)],
+    ]
+    jobs = [
+        ("cost", dict(pair=big, scheme_seqs=list(big), scheme_kw={})),
+        ("cost", dict(pair=blosum, scheme_seqs=list(blosum),
+                      scheme_kw=dict(scoring_mat_name="BLOSUM62"))),
+        ("blocked", dict(pair=blocked, scheme_seqs=list(blocked), scheme_kw={})),
+        ("pairs", dict(pairs=chunk, traceback=False, scheme_seqs=seqs,
+                       scheme_kw={})),
+        ("pairs", dict(pairs=chunk, traceback=True, scheme_seqs=seqs,
+                       scheme_kw={})),
+    ]
+    t0 = time.perf_counter()
+    answers = spawn_ranks(cards, jobs, timeout=600, backend="nccl")
+    log(f"cards: {cards} NCCL ranks spawned, ran and joined in "
+        f"{time.perf_counter() - t0:.3f} s")
+    rb = seqpar.DEFAULT_BLOCK_ROWS
+    for rank, (c_big, c_blosum, c_blocked, p_cost, p_tb) in enumerate(answers):
+        cost_b, s1a, mid, s2a = c_blocked["out"]
+        report = want[2]._replace(seq_1_aligned=s1a, middle_part=mid,
+                                  seq_2_aligned=s2a, cost=cost_b)
+        ok = (
+            min(c_big["out"]) == want[0] and min(c_blosum["out"]) == want[1]
+            and str(report) == str(want[2])
+            and [tuple(x) for x in p_cost["out"]] == want[3]
+            and [tuple(x) for x in p_tb["out"]] == want[4]
+            and c_big["launches"]["strip_fill_block"] == -(-50_000 // rb)
+            and c_blosum["launches"]["strip_fill_block"] == -(-20_000 // rb)
+        )
+        if not ok:
+            raise SystemExit(f"cards failed: NCCL rank {rank} differs from "
+                             "the unsharded path")
+        shifts = c_big["shift_s"]
+        log(f"cards: rank {rank} (cuda:{rank}): every job = the unsharded "
+            f"path on cuda:0; seconds a job "
+            f"{[round(a['seconds'], 4) for a in answers[rank]]}; 50000^2 "
+            f"exchange median {1e3 * float(np.median(shifts)):.4f} ms over "
+            f"{len(shifts)} super-steps; launches "
+            f"{[a['launches'] for a in answers[rank]]}")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards,
+    }}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multi_card() if sys.argv[1:] == ["--cards"] else main())

@@ -17,20 +17,32 @@ results to the host in one synchronisation; the host then prepends the
 row-0 left moves, reverses each tape and renders it
 (``ops.linear_tb.render_ops``).  A pair whose codes alone exceed the moves
 budget takes the blocked linear-space traceback (``linear_tb.align_blocked``)
-on its own, eagerly.  On CPU tensors the same code runs the plain versions
+on its own, eagerly.
+
+With ``mesh=`` (a ``parallel.Mesh``; every rank calls with the same pairs)
+each bucket's batch axis is sharded over the ranks
+(``parallel.mesh``): cost-only buckets through ``sharded_fill_costs``,
+traceback buckets through ``sharded_fill_moves`` and one ``walk_block`` per
+rank on its own shard, whose tapes, counts and exit columns are then
+all-gathered — every rank returns every result.  Buckets are issued in the
+same order on every rank, so the collectives pair up.  Each rank holds only
+its shard's codes, so a traceback sub-batch may hold the moves budget once
+per rank; blocked pairs pass the mesh on (a column-sharded checkpoint
+pass).  On CPU tensors the same code runs the plain versions
 of the kernels — the counterpart of the JAX package's CPU branch.  Results
 come back in input order with the single-pair API's cost, score and
 alignment.
 
 Not ported, by design:
-  * ``mesh=`` (data-parallel sharding) waits for the ``parallel/`` port;
   * the chunk-fusion executables (``COST_CHUNK_JIT`` / ``TB_CHUNK_JIT``) bound
     XLA compiles per bucket composition — the kernels take lengths at run
     time, so there is nothing to fuse;
   * the mega-walk blob and its pad quanta: one ``walk_block`` launch per
     bucket walks the row-major codes where they lie;
   * ``_moves_backend_estimate``'s per-backend byte models: a pair's codes
-    are (M+1)(N+1) bytes on every route.
+    are (M+1)(N+1) bytes on every route — nor, with them, the JAX mesh
+    path's budget, which grants host-fetched sharded codes the device
+    walk's 1.5 GB (reference fault C.2).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from .config import ResolvedScheme, resolve_scheme
 from .models.gotoh import GotohAlignment, resolve_device
 from .ops import fill_batch, fill_cuda, linear_tb
 from .ops.transforms import final_cost_to_score
+from .parallel import mesh as mesh_mod
 from .utils.tokenize import GAP, encode_padded
 
 DEFAULT_BUCKET_QUANTUM = 32
@@ -202,6 +215,7 @@ def align_pairs(
     with_traceback: bool = True,
     bucket_quantum: int = DEFAULT_BUCKET_QUANTUM,
     device: str | torch.device = "cuda",
+    mesh=None,
     phase_seconds: dict | None = None,
     flush: bool = True,
 ) -> "list[PairResult] | PendingAlignments":
@@ -210,6 +224,8 @@ def align_pairs(
     Scheme options mirror :func:`globalign_tpu_torch.find_global_alignment`;
     a pre-resolved ``scheme`` may be passed instead.  ``device="cuda"`` (the
     default) raises without a GPU; ``device="cpu"`` runs the plain engine.
+    ``mesh`` (a ``parallel.Mesh``) shards each bucket over its ranks
+    (module docstring); ``device`` is then this rank's.
 
     ``phase_seconds`` (optional dict) accumulates host wall-clock per phase:
     "fill" (bucket fills and walks queued), "fetch" (waiting for the device
@@ -280,6 +296,7 @@ def align_pairs(
     results: list[PairResult | None] = [None] * len(pairs)
     dispatched: list[_Dispatched] = []
     budget = _moves_budget(dev)
+    ranks = 1 if mesh is None else mesh.size
     for (M, N), indices in buckets.items():
         groups = [indices]
         if with_traceback:
@@ -293,7 +310,7 @@ def align_pairs(
                         tb = linear_tb.align_blocked(
                             _to_device(encode_padded(scheme.alphabet, s1, len(s1)), dev),
                             _to_device(encode_padded(scheme.alphabet, s2, len(s2)), dev),
-                            cost_mat, gap_id, gap_open, s1, s2,
+                            cost_mat, gap_id, gap_open, s1, s2, mesh=mesh,
                         )
                     results[idx] = PairResult(
                         cost=tb.cost,
@@ -304,22 +321,31 @@ def align_pairs(
                     )
                 continue
             # Split oversized buckets into sub-batches under the budget
-            # rather than losing the batched path.
-            max_pairs = budget // per_pair
+            # (a rank's share of a sub-batch) rather than losing the
+            # batched path.
+            max_pairs = budget // per_pair * ranks
             groups = [
                 indices[lo : lo + max_pairs]
                 for lo in range(0, len(indices), max_pairs)
             ]
 
         for group in groups:
-            tok_a = _to_device(_encode_bucket(
+            tok_a = _encode_bucket(
                 scheme.alphabet, [pairs[i][0] for i in group], M
-            ), dev)
-            tok_b = _to_device(_encode_bucket(
+            )
+            tok_b = _encode_bucket(
                 scheme.alphabet, [pairs[i][1] for i in group], N
-            ), dev)
+            )
             m_true = [len(pairs[i][0]) for i in group]
             n_true = [len(pairs[i][1]) for i in group]
+            if mesh is not None:
+                with _phase("fill"):
+                    dispatched.append(_sharded_bucket(
+                        mesh, group, tok_a, tok_b, cost_mat, gap_id, gap_open,
+                        m_true, n_true, with_traceback,
+                    ))
+                continue
+            tok_a, tok_b = _to_device(tok_a, dev), _to_device(tok_b, dev)
             with _phase("fill"):
                 if not with_traceback:
                     final3 = fill_batch.batch_final3(
@@ -385,6 +411,29 @@ def align_pairs(
     if flush:
         return _flush()
     return PendingAlignments(_flush)
+
+
+def _sharded_bucket(mesh, group, tok_a, tok_b, cost_mat, gap_id, gap_open,
+                    m_true, n_true, with_traceback) -> _Dispatched:
+    """One bucket sub-batch sharded over ``mesh``: its results on every
+    rank, where the unsharded path leaves them on the device."""
+    if not with_traceback:
+        return _Dispatched(group, mesh_mod.sharded_fill_costs(
+            mesh, tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true
+        ))
+    shard = mesh_mod.sharded_fill_moves(
+        mesh, tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true
+    )
+    # Each rank walks its own shard's codes where they lie.
+    ops, count, j_exit, _ = linear_tb.walk_block(
+        shard.moves, shard.shard_m,
+        _to_device(np.asarray(shard.shard_n, np.int32), cost_mat.device),
+        shard.shard_final3.argmin(-1).to(torch.int32),
+    )
+    ops, count, j_exit = (
+        mesh_mod.gather_batch(mesh, x, len(group)) for x in (ops, count, j_exit)
+    )
+    return _Dispatched(group, shard.final3, ops, count, j_exit)
 
 
 def alignment_to_pair_result(a: GotohAlignment) -> PairResult:

@@ -1,6 +1,8 @@
 // gotoh_fill.cu — Gotoh affine-gap DP fill for Hopper (sm_90a), one block
 // per pair, emitting final3 and, optionally, the packed move codes, the
-// last DP row, and a block boundary injected from a checkpoint row.
+// last DP row, a block boundary injected from a checkpoint row, and — in
+// strip mode — a column strip's left boundary taken from its neighbour and
+// its own right edge.
 //
 // What it replaces.  One kernel takes the place of these TPU kernels and
 // modes (files under globalign_tpu/ops/):
@@ -15,7 +17,10 @@
 //     2-pair last rows (lanes_split_fill_cost);
 //   * fill_pallas.py:_make_stacked_kernel cost mode — stacked_fill_last_rows;
 //   * fill_pallas.py:_make_row_kernel — row_fill_last_rows (row0 / col0y
-//     overrides), the blocked traceback's checkpoint fill.
+//     overrides), the blocked traceback's checkpoint fill;
+//   * fill_pallas.py:_make_strip_kernel (:1811) — strip_fill_block (:1956),
+//     one column strip's block of rows in the sequence-parallel fill
+//     (parallel/seqpar.py), as the strip mode below.
 // The TPU needed several kernels because Mosaic has no per-lane gather and
 // VMEM sizing picks the variant; here a thread reads the (A, A) cost table
 // at any index, so one kernel serves every scheme, alphabet and mode.
@@ -34,6 +39,15 @@
 // replaces row 0 (corner included) and col0y_top[b] replaces the go that
 // starts the column-0 sum.  A block of rows i0+1..i1 of a larger matrix is
 // filled exactly by injecting its checkpoint row i0 and Iy(i0, 0).
+// Strip mode (col0 (B, 3, M+1) given, with row0): column 0 is a neighbour
+// strip's right edge, cell (i, 0) = col0[b, :, i] in all three lanes, and
+// that Ix continues into row i without a fresh gap-open (the row scan's
+// col0_full mode, fill_rows.py:119-124, :183-194).  The strip's own right
+// edge comes back in edge (B, 3, M+1): entry 0 is row0 at column n, entry i
+// the lanes of cell (i, n) for 1 <= i <= m, entries past m are BIG.  last
+// is then the row m, column 0 included — the TPU kernel's `fin`.  Its
+// `last` (the state after every row of a padded block) differs only on a
+// partial final block, which no block follows, so it is not emitted.
 // The arithmetic is the row scan's (globalign_tpu/ops/fill_rows.py:133-289)
 // operation for operation, in int32 with BIG = 1 << 30: the clamps
 // min(., BIG) at :175, :177, :193, the code tests of :212-231 on unclamped
@@ -61,7 +75,11 @@
 // chain, and one pair runs on one SM (a block), so at B = 1 the kernel uses
 // 1 of 132 SMs and is bound by that SM's issue rate and the per-wave
 // barrier.  Move codes are stored a byte at a time, uncoalesced.  Many SMs
-// per pair and coalesced code stores are later work.
+// per pair and coalesced code stores are later work.  In strip mode a
+// launch is one block of M rows of one strip, and the skew costs S - 1 of
+// its M + S - 1 waves (1023 of 1279 for a 256-row block over 1024 strips);
+// fewer threads cut the skew but, measured on the card, lose more to the
+// latency the 1024 threads hide, so the launch keeps the full block.
 //
 // Launch conventions: the kernel runs on the caller's stream, allocates
 // nothing (the caller passes every output and the scratch), and the
@@ -75,7 +93,7 @@ namespace {
 constexpr int BIG = 1 << 30;
 constexpr int MAX_THREADS = 1024;
 
-template <bool MOVES, bool LAST, bool INJECT>
+template <bool MOVES, bool LAST, bool INJECT, bool STRIP>
 __global__ void __launch_bounds__(MAX_THREADS)
 gotoh_fill_kernel(const int* __restrict__ tok_a,
                   const int* __restrict__ tok_b,
@@ -84,9 +102,11 @@ gotoh_fill_kernel(const int* __restrict__ tok_a,
                   const int* __restrict__ n_true,
                   const int* __restrict__ row0,
                   const int* __restrict__ col0y_top,
+                  const int* __restrict__ col0,
                   int* __restrict__ final3,
                   uint8_t* __restrict__ moves,
                   int* __restrict__ last,
+                  int* __restrict__ edge_out,
                   int* __restrict__ scratch,
                   int M, int N, int A, int gap_id, int go, int W,
                   int table_in_smem, int state_in_smem) {
@@ -120,6 +140,9 @@ gotoh_fill_kernel(const int* __restrict__ tok_a,
   uint8_t* mv = MOVES ? moves + (long long)b * (M + 1) * ld : nullptr;
   const int* r0 = INJECT && row0 ? row0 + (long long)b * 3 * ld : nullptr;
   int* lst = LAST ? last + (long long)b * 3 * ld : nullptr;
+  const long long lc = M + 1;  // row stride of col0 and edge_out
+  const int* c0s = STRIP ? col0 + (long long)b * 3 * lc : nullptr;
+  int* eg = STRIP ? edge_out + (long long)b * 3 * lc : nullptr;
   // Iy(0, 0) seed of column 0
   const int c0 = INJECT && col0y_top ? col0y_top[b] : go;
 
@@ -133,6 +156,11 @@ gotoh_fill_kernel(const int* __restrict__ tok_a,
   if (LAST)  // columns past n
     for (int j = n + 1 + t; j <= N; j += T)
       lst[j] = lst[ld + j] = lst[2 * ld + j] = BIG;
+  if (STRIP) {  // the edge's row 0 and the rows past m
+    for (int i = m + 1 + t; i <= M; i += T)
+      eg[i] = eg[lc + i] = eg[2 * lc + i] = BIG;
+    if (t == 0) eg[0] = r0[n], eg[lc] = r0[ld + n], eg[2 * lc] = r0[2 * ld + n];
+  }
   __syncthreads();  // cost table staged
 
   if (m == 0 || n == 0) {  // only boundary cells: fill_scan.py:90-104
@@ -152,6 +180,11 @@ gotoh_fill_kernel(const int* __restrict__ tok_a,
           f0 = BIG, f1 = acc, f2 = BIG;
           if (LAST) lst[j] = BIG, lst[ld + j] = acc, lst[2 * ld + j] = BIG;
         }
+      } else if (STRIP) {  // n == 0: the strip is its left edge
+        f0 = c0s[m], f1 = c0s[lc + m], f2 = c0s[2 * lc + m];
+        for (int i = 1; i <= m; ++i)
+          eg[i] = c0s[i], eg[lc + i] = c0s[lc + i], eg[2 * lc + i] = c0s[2 * lc + i];
+        if (LAST) lst[0] = f0, lst[ld] = f1, lst[2 * ld] = f2;
       } else {  // n == 0: column 0 only
         int acc = c0;
         for (int i = 1; i <= m; ++i) acc += tab[ta[i] * A + gap_id];
@@ -223,7 +256,9 @@ gotoh_fill_kernel(const int* __restrict__ tok_a,
       const int* sub_row = tab + ta[i] * A;
       const int ic = sub_row[gap_id];  // icost(a_i)
       int lM, lX, lY, lXu;  // row i, column j0-1 (lXu: X unclamped)
-      if (t == 0) {
+      if (t == 0 && STRIP) {  // the neighbour's edge, its Ix run unopened
+        lM = c0s[i], lX = c0s[lc + i], lY = c0s[2 * lc + i], lXu = lX;
+      } else if (t == 0) {
         col0y += ic;
         lM = BIG, lX = BIG, lY = col0y, lXu = BIG;
       } else {
@@ -257,13 +292,18 @@ gotoh_fill_kernel(const int* __restrict__ tok_a,
         lM = mc, lX = xc, lY = yc, lXu = xu;
       }
       edge[(k & 1) * T + t] = make_int4(lM, lX, lY, lXu);
+      if (STRIP && t == S - 1)  // column n: the strip's right edge
+        eg[i] = lM, eg[lc + i] = lX, eg[2 * lc + i] = lY;
       if (i == m && t == S - 1) {  // column n ends the last strip
         final3[3 * b] = lM;
         final3[3 * b + 1] = lX;
         final3[3 * b + 2] = lY;
       }
       if (LAST && i == m) {  // the strip's share of the last row
-        if (t == 0) lst[0] = BIG, lst[ld] = BIG, lst[2 * ld] = col0y;
+        if (t == 0) {
+          lst[0] = STRIP ? eM : BIG, lst[ld] = STRIP ? eX : BIG;
+          lst[2 * ld] = STRIP ? eY : col0y;
+        }
         for (int c = 0; c < wt; ++c) {
           const int s = c * T + t;
           lst[j0 + c] = stM[s], lst[ld + j0 + c] = stX[s];
@@ -279,10 +319,11 @@ gotoh_fill_kernel(const int* __restrict__ tok_a,
 // The modes are template parameters, so the instance without last rows and
 // injection (the full-matrix align, the direct cost fill) has the wave loop
 // of the plain kernel, with no per-wave test for the modes it does not use.
+// Strip mode has one instance: last rows and injection, no codes.
 template <bool MOVES, bool LAST>
-decltype(&gotoh_fill_kernel<MOVES, LAST, false>) pick_kernel(bool inject) {
-  return inject ? gotoh_fill_kernel<MOVES, LAST, true>
-                : gotoh_fill_kernel<MOVES, LAST, false>;
+decltype(&gotoh_fill_kernel<MOVES, LAST, false, false>) pick_kernel(bool inject) {
+  return inject ? gotoh_fill_kernel<MOVES, LAST, true, false>
+                : gotoh_fill_kernel<MOVES, LAST, false, false>;
 }
 
 }  // namespace
@@ -291,18 +332,24 @@ extern "C" {
 
 // Launches the fill for B pairs on `stream`.  `moves` and `last` may be
 // null (not wanted); `row0` ((B, 3, N+1)) and `col0y_top` ((B,)) may be
-// null (the default boundary).  `scratch` holds B * 4 * W * threads int32
-// and is used when the strip state does not fit in shared memory.  Lengths
-// in m_true / n_true must lie in [0, M] / [0, N] (the caller checks).
+// null (the default boundary).  `col0` ((B, 3, M+1)) selects strip mode,
+// which needs `row0`, `last` and `edge` ((B, 3, M+1)) and no `moves`;
+// otherwise `col0` and `edge` are null.  `scratch` holds B * 4 * W * threads
+// int32 and is used when the strip state does not fit in shared memory.
+// Lengths in m_true / n_true must lie in [0, M] / [0, N] (the caller
+// checks).
 int gotoh_fill_launch(const void* tok_a, const void* tok_b,
                       const void* cost_mat, const void* m_true,
                       const void* n_true, const void* row0,
-                      const void* col0y_top, void* final3, void* moves,
-                      void* last, void* scratch, int B, int M, int N, int A,
-                      int gap_id, int gap_open, int threads, int W,
-                      void* stream) {
+                      const void* col0y_top, const void* col0, void* final3,
+                      void* moves, void* last, void* edge, void* scratch,
+                      int B, int M, int N, int A, int gap_id, int gap_open,
+                      int threads, int W, void* stream) {
   if (threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || W < 1 ||
       B < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool strip = col0 != nullptr;
+  if (strip ? (!row0 || !last || !edge || moves) : edge != nullptr)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -321,18 +368,20 @@ int gotoh_fill_launch(const void* tok_a, const void* tok_b,
   if (state_in_smem) smem += state_bytes;
 
   const bool inject = row0 != nullptr || col0y_top != nullptr;
-  auto kernel = moves ? (last ? pick_kernel<true, true>(inject)
-                              : pick_kernel<true, false>(inject))
-                      : (last ? pick_kernel<false, true>(inject)
-                              : pick_kernel<false, false>(inject));
+  auto kernel = strip ? gotoh_fill_kernel<false, true, true, true>
+                : moves ? (last ? pick_kernel<true, true>(inject)
+                                : pick_kernel<true, false>(inject))
+                        : (last ? pick_kernel<false, true>(inject)
+                                : pick_kernel<false, false>(inject));
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       (const int*)tok_a, (const int*)tok_b, (const int*)cost_mat,
       (const int*)m_true, (const int*)n_true, (const int*)row0,
-      (const int*)col0y_top, (int*)final3, (uint8_t*)moves, (int*)last,
-      (int*)scratch, M, N, A, gap_id, gap_open, W, table_in_smem ? 1 : 0,
+      (const int*)col0y_top, (const int*)col0, (int*)final3, (uint8_t*)moves,
+      (int*)last, (int*)edge, (int*)scratch, M, N, A, gap_id, gap_open, W,
+      table_in_smem ? 1 : 0,
       state_in_smem ? 1 : 0);
   return (int)cudaGetLastError();
 }

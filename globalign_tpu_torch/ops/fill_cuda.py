@@ -1,6 +1,6 @@
 """Batched Gotoh fills — the CUDA kernel and its plain version.
 
-Two wrappers of one kernel, ``csrc/gotoh_fill.cu`` (one block per pair;
+Three wrappers of one kernel, ``csrc/gotoh_fill.cu`` (one block per pair;
 see the note at the head of that file):
 
   * ``batch_moves`` — final3 and row-major move codes for B pairs, the
@@ -10,7 +10,12 @@ see the note at the head of that file):
   * ``batch_last_rows`` — the full last DP row of B pairs, the counterpart
     of ``lanes_batch_last_rows`` (optionally injected),
     ``stacked_fill_last_rows`` and ``row_fill_last_rows``: the blocked
-    traceback's checkpoint fill and the cost split's 2-pair fill.
+    traceback's checkpoint fill and the cost split's 2-pair fill;
+  * ``strip_fill_block`` — one column strip's block of rows, its left
+    boundary a neighbour strip's right edge: the row m_true and the strip's
+    own right edge, the counterpart of ``fill_pallas.strip_fill_block``
+    (TPU kernel ``_make_strip_kernel``), the block fill of the
+    sequence-parallel pipeline (``parallel.seqpar``).
 
 On CUDA tensors each launches the kernel; on CPU tensors each runs the
 plain version, the row scan of ``ops.fill_rows``, pair by pair.  There is
@@ -57,7 +62,8 @@ def _lengths(lengths, batch: int, cap: int, name: str) -> torch.Tensor:
     return out
 
 
-def _check(tok_a, tok_b, cost_mat, gap_id, m_true, n_true, row0, col0y_top):
+def _check(tok_a, tok_b, cost_mat, gap_id, m_true, n_true, row0, col0y_top,
+           col0=None):
     """Validate a fill's arguments; returns the host-side lengths."""
     if tok_a.dim() != 2 or tok_b.dim() != 2 or tok_a.shape[0] != tok_b.shape[0]:
         raise ValueError("tok_a / tok_b must be (B, M+1) / (B, N+1)")
@@ -83,6 +89,12 @@ def _check(tok_a, tok_b, cost_mat, gap_id, m_true, n_true, row0, col0y_top):
                 f"col0y_top must be ({batch},), got {tuple(col0y_top.shape)}"
             )
         tensors.append(("col0y_top", col0y_top))
+    if col0 is not None:
+        if tuple(col0.shape) != (batch, 3, m1):
+            raise ValueError(
+                f"col0 must be ({batch}, 3, {m1}), got {tuple(col0.shape)}"
+            )
+        tensors.append(("col0", col0))
     for name, x in tensors:
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
@@ -134,18 +146,50 @@ def _plain(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
     return final3, moves, last
 
 
+def _plain_strip(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
+                 row0, col0):
+    """The strip mode's plain version: ``row_fill``'s strip modes pair by
+    pair (CPU), returning ``(fin, edge)`` as ``strip_fill_block`` does."""
+    batch, m1 = tok_a.shape
+    n1 = tok_b.shape[1]
+    fin = torch.full((batch, 3, n1), BIG, dtype=torch.int32)
+    edge = torch.full((batch, 3, m1), BIG, dtype=torch.int32)
+    for b in range(batch):
+        m, n = int(m_true[b]), int(n_true[b])
+        res = row_fill(
+            tok_a[b], tok_b[b, : n + 1], cost_mat, gap_id, gap_open, m, n,
+            row0=row0[b, :, : n + 1], col0=col0[b], want_moves=False,
+            col0_full=True, want_edge=True, want_fin_row=True,
+        )
+        fin[b, :, : n + 1] = res.fin_row
+        edge[b, :, 0] = row0[b, :, n]
+        edge[b, :, 1 : m + 1] = res.edge[:m].T
+    return fin, edge
+
+
 def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
-          col0y_top, want_moves, want_last, counter):
-    """Route one fill: the plain version on CPU tensors, else the kernel."""
+          col0y_top, want_moves, want_last, counter, col0=None):
+    """Route one fill: the plain version on CPU tensors, else the kernel.
+    Returns ``(final3, moves, last, edge)``; ``col0`` selects strip mode
+    (``edge`` is None otherwise)."""
     m_true, n_true = _check(
-        tok_a, tok_b, cost_mat, gap_id, m_true, n_true, row0, col0y_top
+        tok_a, tok_b, cost_mat, gap_id, m_true, n_true, row0, col0y_top, col0
     )
     device = tok_a.device
     if device.type == "cpu":
-        return _plain(
+        if col0 is not None:
+            fin, edge = _plain_strip(
+                tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
+                col0,
+            )
+            final3 = torch.stack(
+                [fin[b, :, n] for b, n in enumerate(n_true.tolist())]
+            )
+            return final3, None, fin, edge
+        return (*_plain(
             tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
             col0y_top, want_moves, want_last,
-        )
+        ), None)
     if device.type != "cuda":
         raise ValueError(f"no gotoh_fill route for device {device}")
 
@@ -166,6 +210,11 @@ def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
         if want_last
         else None
     )
+    edge = (
+        torch.empty((batch, 3, m1), dtype=torch.int32, device=device)
+        if col0 is not None
+        else None
+    )
     scratch = torch.empty(
         (batch, 4, width * threads), dtype=torch.int32, device=device
     )
@@ -181,14 +230,15 @@ def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
         err = lib.gotoh_fill_launch(
             tok_a.data_ptr(), tok_b.data_ptr(), cost_mat.data_ptr(),
             m_dev.data_ptr(), n_dev.data_ptr(), ptr(row0), ptr(col0y_top),
-            final3.data_ptr(), ptr(moves), ptr(last), scratch.data_ptr(),
+            ptr(col0), final3.data_ptr(), ptr(moves), ptr(last), ptr(edge),
+            scratch.data_ptr(),
             batch, m1 - 1, n1 - 1, cost_mat.shape[0], int(gap_id),
             int(gap_open), threads, width, stream,
         )
     if err != 0:
         msg = lib.gotoh_fill_error_string(err).decode()
         raise RuntimeError(f"gotoh_fill launch failed: CUDA error {err} ({msg})")
-    return final3, moves, last
+    return final3, moves, last, edge
 
 
 def batch_moves(
@@ -219,7 +269,7 @@ def batch_moves(
 
     ``batch_moves.launches`` counts kernel launches.
     """
-    final3, moves, _ = _fill(
+    final3, moves, _, _ = _fill(
         tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
         col0y_top, want_moves, False, batch_moves,
     )
@@ -246,12 +296,63 @@ def batch_last_rows(
 
     ``batch_last_rows.launches`` counts kernel launches.
     """
-    _, _, last = _fill(
+    _, _, last, _ = _fill(
         tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
         col0y_top, False, True, batch_last_rows,
     )
     return last
 
 
+def strip_fill_block(
+    tok_a: torch.Tensor,
+    tok_b: torch.Tensor,
+    cost_mat: torch.Tensor,
+    gap_id: int,
+    gap_open: int,
+    row0: torch.Tensor,
+    col0: torch.Tensor,
+    m_true,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block of rows of B column strips: ``(fin (B, 3, N+1), edge (B, 3,
+    M+1))`` int32.
+
+    Args:
+        tok_a / tok_b: (B, M+1) block tokens / (B, N+1) strip tokens, int32
+            contiguous, 1-origin (entry 0 unused).
+        row0: (B, 3, N+1) the block's top row (the row above it, or the
+            strip's share of the matrix's row 0); its column 0 is the
+            diagonal seed of cell (1, 1).
+        col0: (B, 3, M+1) the block's left boundary: cell (i, 0) for
+            1 <= i <= m_true, all three lanes — the right edge of the strip
+            to the left, or (BIG, BIG, Iy) at the matrix edge.  Its Ix
+            continues into the row without a fresh gap-open.
+        m_true: (B,) host-side rows of the block (its tokens past them are
+            padding); every strip is N columns wide.
+
+    ``fin[b]`` is row m_true[b] (column 0 from ``col0``; row0 itself when
+    m_true[b] = 0): the TPU kernel's ``fin``.  ``edge[b, :, 0]`` is row0
+    at column N, ``edge[b, :, i]`` the lanes of cell (i, N) for
+    1 <= i <= m_true[b], and the rows past m_true[b] are BIG — the next
+    strip's ``col0`` for the same block.  The TPU kernel's ``last`` (the
+    state after all M rows) is not emitted: it differs from ``fin`` only on
+    a partial block, which is the pipeline's final one, and no block
+    follows it.
+
+    On CUDA tensors one launch of ``gotoh_fill``'s strip mode; on CPU
+    tensors the plain version, ``row_fill(col0_full=True, want_edge=True,
+    want_fin_row=True)`` pair by pair.  ``strip_fill_block.launches``
+    counts kernel launches.
+    """
+    if row0 is None or col0 is None:
+        raise ValueError("strip_fill_block needs row0 and col0")
+    n_true = [tok_b.shape[1] - 1] * tok_b.shape[0]
+    _, _, fin, edge = _fill(
+        tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0, None,
+        False, True, strip_fill_block, col0=col0,
+    )
+    return fin, edge
+
+
 batch_moves.launches = 0
 batch_last_rows.launches = 0
+strip_fill_block.launches = 0

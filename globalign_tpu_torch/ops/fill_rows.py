@@ -43,12 +43,19 @@ class RowFillResult(NamedTuple):
             (0=M, 1=Ix, 2=Iy).  Row 0 is all zeros (boundary).
         planes: (3, m+1, n+1) int32 dense cost planes, or None (debug).
         last3: (3, n+1) int32 — the DP lanes of the last computed row ``m``.
+        edge: (m, 3) int32 — rows 1..m at column ``edge_col`` (``want_edge``),
+            or None.
+        fin_row: (3, n+1) int32 — the whole row ``m_true`` (``want_fin_row``),
+            or None; it differs from ``last3`` when the buffer has rows past
+            the true length.
     """
 
     final3: torch.Tensor
     moves: torch.Tensor | None
     planes: torch.Tensor | None
     last3: torch.Tensor
+    edge: torch.Tensor | None = None
+    fin_row: torch.Tensor | None = None
 
 
 def _shift_right_big(x: torch.Tensor) -> torch.Tensor:
@@ -74,6 +81,10 @@ def row_fill(
     col0: torch.Tensor | None = None,
     want_moves: bool = True,
     want_planes: bool = False,
+    col0_full: bool = False,
+    want_edge: bool = False,
+    edge_col: int | None = None,
+    want_fin_row: bool = False,
 ) -> RowFillResult:
     """Fill the Gotoh DP matrix row by row (see module docstring).
 
@@ -87,8 +98,16 @@ def row_fill(
         row0 / col0: optional (3, n+1) / (3, m+1) int32 boundary in place
             of ``default_boundary``'s, each on its own — a block of rows of
             a larger matrix, seeded from its checkpoint row.  Of ``col0``
-            only the Iy lane at rows 1..m is read (the matrix edge; the
-            JAX ``col0_full`` mode of a neighbour strip is not ported).
+            only the Iy lane at rows 1..m is read (the matrix edge), unless
+            ``col0_full``.
+        col0_full: ``col0`` is a column strip's left edge, a neighbour
+            strip's right edge: cell (i, 0) takes all three lanes from
+            ``col0[:, i]``, and the neighbour's Ix run continues without a
+            fresh gap-open — ``col0[1, i]`` floors the Ix prefix minimum
+            (``globalign_tpu/ops/fill_rows.py:119-124``).
+        want_edge / edge_col: also return each row's lanes at column
+            ``edge_col`` (default ``n_true``), the strip's right edge.
+        want_fin_row: also return the whole row ``m_true``.
     """
     m = tok_a.shape[0] - 1
     n = tok_b.shape[0] - 1
@@ -102,6 +121,8 @@ def row_fill(
     go = int(gap_open)
     cost_mat = cost_mat.to(torch.int32)
 
+    if col0_full and col0 is None:
+        raise ValueError("col0_full needs the neighbour's edge as col0")
     if row0 is None or col0 is None:
         def_row0, def_col0 = default_boundary(tok_a, tok_b, cost_mat, gap_id, go)
         row0 = def_row0 if row0 is None else row0
@@ -119,6 +140,10 @@ def row_fill(
     a_host = tok_a.tolist()
     ic_host = cost_mat[tok_a, gap_id].tolist()  # icost(a_i)
     y_bound = col0[2].tolist()
+    # Column 0's M and Ix: BIG at the matrix edge (Ix unreachable there).
+    m_bound = col0[0].tolist() if col0_full else [BIG] * (m + 1)
+    x_bound = col0[1].tolist() if col0_full else [BIG] * (m + 1)
+    edge_col = n_true if edge_col is None else int(edge_col)
 
     moves = planes = None
     if want_moves:
@@ -129,6 +154,11 @@ def row_fill(
         )
         planes[:, 0] = row0
     final3 = row0[:, n_true].clone() if m_true == 0 else None
+    fin_row = row0.clone() if want_fin_row and m_true == 0 else None
+    edge = (
+        torch.empty((m, 3), dtype=torch.int32, device=tok_a.device)
+        if want_edge else None
+    )
 
     mp, xp, yp = row0[0], row0[1], row0[2]
     for i in range(1, m + 1):
@@ -144,19 +174,26 @@ def row_fill(
         yc = torch.clamp_max(vy + ic_host[i], BIG)
 
         # Column-0 boundary before H so that Ix[i,1] sees the boundary cell.
-        mc[0] = BIG
+        mc[0] = m_bound[i]
         yc[0] = y_bound[i]
 
         # Horizontal lane via exclusive prefix-min of H - D (exact in int32);
-        # the matrix edge floors the prefix at BIG (Ix unreachable there).
+        # column 0's Ix floors the prefix: BIG at the matrix edge, where Ix
+        # is unreachable, or a neighbour strip's run, continuing unopened.
         h = torch.minimum(mc, yc) + go
         p = h - dprefix
-        ep = torch.clamp_max(torch.cummin(_shift_right_big(p), 0).values, BIG)
+        ep = torch.clamp_max(
+            torch.cummin(_shift_right_big(p), 0).values, x_bound[i]
+        )
         xc = torch.clamp_max(dprefix + ep, BIG)
-        xc[0] = BIG
+        xc[0] = x_bound[i]
 
         if i == m_true:
             final3 = torch.stack([mc[n_true], xc[n_true], yc[n_true]])
+            if want_fin_row:
+                fin_row = torch.stack([mc, xc, yc])
+        if want_edge:
+            edge[i - 1] = torch.stack([mc[edge_col], xc[edge_col], yc[edge_col]])
         if want_moves:
             # Argmin provenance by exact equality, tie priority M > Ix > Iy.
             code_m = _code(mp_s == best_prev_s, xp_s == best_prev_s)
@@ -176,4 +213,6 @@ def row_fill(
         moves=moves,
         planes=planes,
         last3=torch.stack([mp, xp, yp]),
+        edge=edge,
+        fin_row=fin_row,
     )

@@ -15,6 +15,13 @@ aligns in O(n * (m/K + K)) device memory instead:
    writes an op tape and hands its exit column and level to the next
    block's walk as device tensors.
 
+With ``mesh=`` (a ``parallel.Mesh`` of more than one rank, and at least as
+many columns as ranks) the checkpoint pass is column-sharded
+(``parallel.seqpar.ShardedCheckpointFill``): each block's last row is
+filled strip by strip across the ranks and all-gathered, so every rank
+holds every checkpoint row and replays on its own device; every rank
+returns the same alignment.
+
 Nothing syncs with the host between the first fill and the fetch of the
 tapes; the host then rebuilds the strings from the tapes alone
 (``assemble_from_tapes``).  Total fill work is 2x a plain fill; the path is
@@ -191,6 +198,7 @@ def align_blocked(
     block_rows: int | None = None,
     block_moves_bytes: int = DEFAULT_BLOCK_MOVES_BYTES,
     on_phase: Callable[[str], None] | None = None,
+    mesh=None,
 ) -> Traceback:
     """Full alignment with O(n * (m/K + K)) memory (module docstring).
 
@@ -206,6 +214,8 @@ def align_blocked(
             checkpoint pass is queued, "fill" / "walk" after each replay
             block's fill / walk is queued, "fetch" once the tapes are on the
             host and "assembled" at the end — the points a timer marks.
+        mesh: optional ``parallel.Mesh``; every rank calls with the same
+            arguments (module docstring).
     """
     mark = on_phase or (lambda _: None)
     m, n = len(seq_1), len(seq_2)
@@ -227,8 +237,20 @@ def align_blocked(
     bounds = block_bounds(m, n, block_rows, block_moves_bytes)
     nblocks = len(bounds) - 1
     rows = [row0[None]]  # (1, 3, n+1) checkpoint row at each bounds[b]
+    sharded = None
+    if mesh is not None and mesh.size > 1 and n >= mesh.size:
+        from ..parallel.seqpar import ShardedCheckpointFill
+
+        sharded = ShardedCheckpointFill(mesh, tok_b, cost_mat, gap_id, go)
+        state = sharded.pad_row0(row0)
     for b in range(nblocks):
         i0, i1 = bounds[b], bounds[b + 1]
+        if sharded is not None:
+            state = sharded.block_last_rows(
+                tok_a[i0 : i1 + 1], state, col0[:, i0 : i1 + 1]
+            )
+            rows.append(state[None, :, : n + 1].contiguous())
+            continue
         rows.append(
             batch_last_rows(
                 tok_a[None, i0 : i1 + 1], tok_b[None], cost_mat, gap_id, go,

@@ -16,8 +16,9 @@ run.
 
 The device work goes through :func:`globalign_tpu_torch.batch.align_pairs`
 on ``device`` ("cuda" by default, raising without a GPU; "cpu" runs the
-plain engine).  Sharding a chunk across devices (the JAX runner's ``mesh``)
-is not ported yet.
+plain engine), optionally sharded over a ``parallel.Mesh`` — a host's ranks,
+which run the host's chunks in lockstep; only the mesh's first rank writes
+the output and the manifest.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Iterable, Iterator
 from .batch import DEFAULT_BUCKET_QUANTUM, align_pairs, bucket_length
 from .config import resolve_scheme
 from .models.gotoh import resolve_device
+from .parallel import comm
 from .parallel.multihost import owns_chunk, part_path
 
 DEFAULT_CHUNK_PAIRS = 1024
@@ -76,7 +78,14 @@ class BatchRunner:
             find_global_alignment's scheme options).
         chunk_pairs: pairs per resumable chunk.
         with_traceback: also emit aligned strings.
-        device: "cuda" (default; raises without a GPU) or "cpu".
+        device: "cuda" (default; raises without a GPU) or "cpu" — this
+            rank's device when ``mesh`` is set.
+        mesh: optional ``parallel.Mesh`` sharding each chunk's buckets over
+            its ranks (``align_pairs(mesh=)``).  Every rank of the mesh runs
+            the same runner on the same input; only its rank 0 writes the
+            output, the manifest and the stats lines.  In a multi-host run
+            the mesh is the host's ranks, and ``process_id`` /
+            ``num_processes`` number the hosts.
         log: file-like for structured stats lines (default stderr).
     """
 
@@ -87,6 +96,7 @@ class BatchRunner:
     with_traceback: bool = False
     emit_cigar: bool = False
     device: str = "cuda"
+    mesh: object = None
     log: object = None
     # Multi-host: this process aligns only chunks with
     # chunk_id % num_processes == process_id, into its own output shard
@@ -104,6 +114,7 @@ class BatchRunner:
         )
         if self.log is None:
             self.log = sys.stderr
+        self.writer = self.mesh is None or self.mesh.rank == 0
 
     # -- manifest ---------------------------------------------------------
 
@@ -266,7 +277,12 @@ class BatchRunner:
         scheme = None
         stats = RunStats()
         done = self._completed_chunks()
-        self._dedupe_output(done)
+        if self.writer:
+            self._dedupe_output(done)
+        if self.mesh is not None:
+            # Every rank has read the manifest before its writer appends to
+            # it, so the ranks skip the same chunks and stay in lockstep.
+            comm.barrier(self.mesh)
         # The dispatched-but-unresolved previous chunk (chunk pipeline).
         in_flight = None
 
@@ -297,6 +313,7 @@ class BatchRunner:
                 with_traceback=self.with_traceback,
                 bucket_quantum=self.bucket_quantum,
                 device=self.device,
+                mesh=self.mesh,
                 phase_seconds=phases,
                 flush=False,
             )
@@ -308,8 +325,9 @@ class BatchRunner:
         if in_flight is not None:
             self._finish_chunk(stats, *in_flight)
 
-        print(json.dumps({"run": self._fingerprint(), **stats.as_dict()}),
-              file=self.log)
+        if self.writer:
+            print(json.dumps({"run": self._fingerprint(), **stats.as_dict()}),
+                  file=self.log)
         return stats
 
     def _finish_chunk(
@@ -319,6 +337,19 @@ class BatchRunner:
         t0 = time.perf_counter()
         results = pending.resolve()
         dt += time.perf_counter() - t0
+        true_cells = sum(len(a) * len(b) for a, b in chunk)
+        padded = sum(
+            bucket_length(len(a), self.bucket_quantum)
+            * bucket_length(len(b), self.bucket_quantum)
+            for a, b in chunk
+        )
+        stats.pairs += len(chunk)
+        stats.chunks += 1
+        stats.true_cells += true_cells
+        stats.padded_cells += padded
+        stats.seconds += dt
+        if not self.writer:
+            return
 
         with self.output.open("a") as out:
             for k, r in enumerate(results):
@@ -332,18 +363,6 @@ class BatchRunner:
                     if self.emit_cigar:
                         row.append(r.cigar())
                 out.write("\t".join(row) + "\n")
-
-        true_cells = sum(len(a) * len(b) for a, b in chunk)
-        padded = sum(
-            bucket_length(len(a), self.bucket_quantum)
-            * bucket_length(len(b), self.bucket_quantum)
-            for a, b in chunk
-        )
-        stats.pairs += len(chunk)
-        stats.chunks += 1
-        stats.true_cells += true_cells
-        stats.padded_cells += padded
-        stats.seconds += dt
         self._journal(chunk_id, len(chunk), dt, sha)
         print(
             json.dumps(

@@ -37,8 +37,9 @@ _I32 = ctypes.c_int
 SIGNATURES = {
     "gotoh_fill": {
         "gotoh_fill_launch": (
-            # tok_a tok_b cost m n row0 col0y_top final3 moves last scratch
-            [_PTR] * 11
+            # tok_a tok_b cost m n row0 col0y_top col0 final3 moves last
+            # edge scratch
+            [_PTR] * 13
             + [_I32] * 8  # B M N A gap go threads W
             + [_PTR],  # stream
             _I32,

@@ -372,3 +372,115 @@ def test_cell_probe_matches_the_row_scan(cuda_device, letters, scheme_kw):
     )
     peaks.check(cuda_device, cost, scheme.alphabet.gap_id,
                 scheme.gap_open_cost, seed=7, pairs=32, rows=40)
+
+
+def _strip_case(rng, letters, rb, width, **scheme_kw):
+    """A block of ``rb`` rows under a real checkpoint row, cut into a left
+    strip of 37 columns (at the matrix edge) and a strip of ``width``
+    columns whose col0 is the left strip's edge (from the plain version)."""
+    from globalign_tpu_torch.ops import fill_rows
+    from globalign_tpu_torch.ops.fill_scan import BIG
+
+    scheme = resolve_scheme(letters, letters, **scheme_kw)
+    cm = torch.from_numpy(np.ascontiguousarray(scheme.costing.values, dtype=np.int32))
+    gid, go = scheme.alphabet.gap_id, scheme.gap_open_cost
+
+    def enc(k):
+        seq = "".join(rng.choice(list(letters), k))
+        return torch.tensor([0, *scheme.alphabet.encode(seq)], dtype=torch.int32)
+
+    i0, left = 5, 37
+    ta_full, tb_full = enc(i0 + rb), enc(left + width)
+    top = fill_rows.row_fill(ta_full[: i0 + 1], tb_full, cm, gid, go,
+                             want_moves=False).last3
+    steps = cm[ta_full[i0:], gid].clone()
+    steps[0] = 0
+    edge0 = torch.stack([torch.full((rb + 1,), BIG, dtype=torch.int32)] * 2 + [
+        int(top[2, 0]) + torch.cumsum(steps, 0, dtype=torch.int32)])
+    ta = ta_full[i0:].clone()
+    ta[0] = 0
+    left_args = (ta[None], tb_full[None, : left + 1].contiguous(), cm, gid, go,
+                 top[None, :, : left + 1].contiguous(), edge0[None])
+    _, edge = fill_cuda.strip_fill_block(*left_args, [rb])
+    tb = torch.cat([torch.zeros(1, dtype=torch.int32), tb_full[left + 1 :]])
+    right_args = (ta[None], tb[None], cm, gid, go,
+                  top[None, :, left:].contiguous(), edge)
+    return left_args, right_args
+
+
+@pytest.mark.parametrize("rb,width", [(1, 1), (5, 0), (3, 31), (17, 1024),
+                                      (64, 13_000)])
+@pytest.mark.parametrize("letters,scheme_kw", [
+    ("ACGT", {}),
+    ("ACDEFGHIKLMNPQRSTVWY", {"scoring_mat_name": "BLOSUM62"}),
+    ("ACGT", {"match_score": 3, "mismatch_score": -2, "gap_open_score": -5,
+              "gap_extension_score": -1}),
+])
+def test_strip_mode_matches_plain(cuda_device, rb, width, letters, scheme_kw):
+    """``gotoh_fill``'s strip mode (TPU kernel #10) == its plain version:
+    fin and edge, at the matrix edge and beside a neighbour strip, m_true
+    = 0, short of the block and the whole block; one launch a call."""
+    rng = np.random.default_rng(rb + width)
+    for args in _strip_case(rng, letters, rb, width, **scheme_kw):
+        for m_true in sorted({0, max(0, rb - 2), rb}):
+            want = fill_cuda.strip_fill_block(*args, [m_true])
+            before = fill_cuda.strip_fill_block.launches
+            got = fill_cuda.strip_fill_block(*_on(cuda_device, args[:3]),
+                                             *args[3:5],
+                                             *(x.to(cuda_device) for x in args[5:]),
+                                             [m_true])
+            torch.cuda.synchronize()
+            assert fill_cuda.strip_fill_block.launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (rb, width, m_true)
+
+
+def test_strip_mode_rejects_codes_and_mixed_devices(cuda_device):
+    rng = np.random.default_rng(2)
+    _, (ta, tb, cm, gid, go, row0, col0) = _strip_case(rng, "ACGT", 4, 9)
+    dev = cuda_device
+    with pytest.raises(ValueError, match="is on cpu"):
+        fill_cuda.strip_fill_block(ta.to(dev), tb.to(dev), cm.to(dev), gid, go,
+                                   row0.to(dev), col0, [4])
+
+
+@pytest.fixture
+def world_of_one(cuda_device):
+    """One NCCL rank on the card — the production mesh on one H100."""
+    import torch.distributed as dist
+
+    from globalign_tpu_torch.parallel import make_pair_mesh, multihost
+
+    multihost.initialize(num_processes=1)
+    try:
+        yield make_pair_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("with_traceback", [False, True])
+def test_world_of_one_align_pairs_equals_no_mesh(world_of_one, with_traceback):
+    from globalign_tpu_torch import align_pairs
+
+    assert world_of_one.backend == "nccl"
+    rng = np.random.default_rng(23)
+    pairs = [tuple("".join(rng.choice(list("ACGT"), int(rng.integers(1, 300))))
+                   for _ in range(2)) for _ in range(37)]
+    want = align_pairs(pairs, with_traceback=with_traceback)
+    assert align_pairs(pairs, with_traceback=with_traceback,
+                       mesh=world_of_one) == want
+
+
+def test_world_of_one_pair_cost_launches_the_strip_mode(world_of_one):
+    """Every block of the sequence-parallel fill is one strip-mode launch."""
+    from globalign_tpu_torch.parallel import seqpar
+
+    rng = np.random.default_rng(5)
+    s1, s2 = ("".join(rng.choice(list("ACGT"), k)) for k in (1000, 1700))
+    aligner = GotohAligner(resolve_scheme(s1, s2), device="cuda")
+    enc = (aligner._encode(s1), aligner._encode(s2), aligner.cost_mat,
+           aligner.gap_id, aligner.gap_open)
+    before = fill_cuda.strip_fill_block.launches
+    got = seqpar.sharded_pair_cost(world_of_one, *enc, block_rows=128)
+    assert fill_cuda.strip_fill_block.launches - before == -(-1000 // 128)
+    assert int(got.min()) == aligner.cost(s1, s2)

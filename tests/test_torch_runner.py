@@ -5,8 +5,8 @@ Mirrors ``tests/test_runner.py:40-320`` for
 ``python -m globalign_tpu_torch.batch_cli --device cpu``, and holds the
 results TSV and the manifest fingerprint byte for byte to the JAX runner's
 on the same input.  Not mirrored: ``--fuse_chunks`` (XLA chunk fusion, not
-ported) and ``--shard`` (mesh sharding, which waits for the ``parallel/``
-port); the CLI has neither option.
+ported; the CLI has no such option).  ``--shard`` and ``--distributed`` are
+held to the JAX runner in ``tests/test_torch_multihost.py``.
 """
 
 import json
@@ -209,12 +209,20 @@ def test_batch_cli_defaults_to_the_card(tmp_path):
     assert not (tmp_path / "o.tsv").exists()
 
 
-def test_batch_cli_drops_the_xla_and_mesh_options(tmp_path):
+def test_batch_cli_drops_the_xla_and_mesh_options(tmp_path, monkeypatch):
+    """The XLA-only options are gone; the mesh options are ported, and
+    ``--distributed`` without a cluster to join refuses to guess one."""
     tsv = tmp_path / "p.tsv"
     tsv.write_text("ACGT\tAGT\n")
-    for flag in ("--fuse_chunks", "--shard", "--distributed", "--platform"):
+    for flag in ("--fuse_chunks", "--platform"):
         with pytest.raises(SystemExit):
             cli(["--pairs_tsv", str(tsv), "-o", str(tmp_path / "o.tsv"), flag])
+    for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="no process group to join"):
+        cli(["--pairs_tsv", str(tsv), "-o", str(tmp_path / "o.tsv"),
+             "--device", "cpu", "--distributed"])
+    assert not (tmp_path / "o.tsv").exists()
 
 
 def test_batch_cli_profile_dir_writes_a_trace(tmp_path):
