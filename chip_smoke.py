@@ -20,7 +20,12 @@ phase fails:
      DNA, BLOSUM62, an odd asymmetric scheme and a 60-letter alphabet;
      ``gotoh_fill``'s strip mode (``strip_fill_block``) at RB in {1, 3,
      256} x W in {1, 31, 1024, 16 000}, its col0 a real neighbour's edge,
-     under the same four schemes (fin and every edge row);
+     under the same four schemes (fin and every edge row); the wave kernel
+     (``fill_wave.wave_frontiers``: all four captured waves at every row,
+     and the cost) at (m, n) from (0, 0) to 12 345 x 3000, some buffers
+     padded, under four uniform schemes; ``batch_final3_dual`` on two sets
+     of B in {1, 33, 132} ragged pairs, 1 to 5000 columns (across the
+     4096-column cap), DNA, BLOSUM62 and the 60-letter alphabet;
   2. the main paths, with every launch count set to 0 before each and read
      after it: ``find_global_alignment(..., device="cuda")`` on the
      reference goldens and pairs up to the moves budget (one fill each,
@@ -46,6 +51,9 @@ phase fails:
      ``align_pairs(mesh=)`` on the DNA chunk, every rank; the batch CLI
      with ``--shard`` and, over 2 gloo processes, ``--distributed`` with
      and without ``--shard`` (outputs merge to the single-process TSV);
+     ``wave_split_fill_cost`` at 10 000^2 and 50 000^2 DNA (= ``cost()``,
+     one wave_split launch a call) and ``batch_final3_dual`` on the DNA
+     chunk's two widest buckets (= ``align_pairs``, one launch);
   3. times with CUDA events: the fill kernel beside the plain row scan on
      the card; end-to-end ``align`` split into fill and D2H + walk; blocked
      ``align`` at 10 000² and 20 000² split into checkpoint pass, replay
@@ -61,7 +69,11 @@ phase fails:
      kernel's bound is computed; the strip mode on a 256 x 50 000 block
      beside its plain version and its bound; the 50 000^2 cost on a world
      of one beside ``cost()`` and the direct fill; the gloo exchange per
-     super-step; ``align_pairs`` on a world of one beside no mesh.
+     super-step; ``align_pairs`` on a world of one beside no mesh; the wave
+     kernel at 10 000^2 and 50 000^2 beside the row split and the direct
+     fill, its plain version on the card at 10 000^2, its bound and serial
+     floor; the dual launch beside two single-set launches (64 x 4096^2 a
+     set, and the DNA chunk's two widest buckets) and its plain version.
 
 The last two lines of standard output are JSON: the kernels' record, then
 ``{"ok": true, "device": {...}}``.  It uses no JAX and no network.
@@ -293,6 +305,7 @@ def main() -> int:
         fill_cuda,
         fill_rows,
         fill_split,
+        fill_wave,
         linear_tb,
     )
     import torch.distributed as dist
@@ -327,6 +340,7 @@ def main() -> int:
         "walk_block": linear_tb.walk_block,
         "batch_final3": fill_batch.batch_final3,
         "strip_fill_block": fill_cuda.strip_fill_block,
+        "wave_frontiers": fill_wave.wave_frontiers,
     }
 
     def reset_counts():
@@ -622,6 +636,104 @@ def main() -> int:
                 log(f"phase 1: strip mode {name} RB={rb} W={width} (and the "
                     f"37-column strip at the matrix edge), m_true {cuts}: fin "
                     f"and every edge row max abs err 0")
+
+    # The wave kernel (TPU kernel #9) against its plain version (the wave
+    # recurrence vectorised over rows, on the CPU): all four captured waves
+    # at every row and the cost, tolerance 0, m + n <= 1 included, token
+    # buffers padded past the true lengths on some shapes.  Schemes: the
+    # JAX bench's wave arm (scoring 2 / -3 / -2, max score 2, gap open 4:
+    # the default DNA scheme, also the (5, 4, 3) fuzz scheme of
+    # tests/test_fill_pallas.py:469), its (1, 7, 1) and (9, 2, 6) schemes,
+    # and odd_asym (dcost != icost).
+    wave_schemes = {
+        "bench = (5,4,3)": resolve_scheme(DNA, DNA),
+        "(1,7,1)": resolve_scheme(DNA, DNA, mismatch_cost=1, gap_open_cost=7,
+                                  gap_extension_cost=1),
+        "(9,2,6)": resolve_scheme(DNA, DNA, mismatch_cost=9, gap_open_cost=2,
+                                  gap_extension_cost=6),
+        "odd_asym": schemes["odd_asym"](DNA, DNA),
+    }
+    wave_shapes = [  # (m, n), (padding of seq_1's and seq_2's buffers)
+        ((0, 0), (0, 0)), ((0, 1), (2, 3)), ((1, 0), (0, 0)), ((1, 1), (3, 1)),
+        ((2, 70), (5, 0)), ((70, 2), (0, 0)), ((1023, 1025), (0, 0)),
+        ((1025, 1023), (0, 9)), ((4096, 4096), (0, 0)),
+        ((12_345, 3000), (7, 7)), ((3000, 12_345), (0, 0)),
+    ]
+
+    def wave_args(scheme, m, n, pad=(0, 0)):
+        """Seeded tokens (CPU) and the scheme's uniform costs, as
+        ``wave_frontiers`` takes them."""
+        prm = fill_wave.uniform_scheme_params(scheme.costing.values,
+                                              scheme.alphabet.gap_id)
+        if prm is None:
+            raise SystemExit("phase 1 failed: a wave scheme is not uniform")
+        ta, tb = (
+            torch.tensor([0, *scheme.alphabet.encode(random_seq(rng, DNA, k))],
+                         dtype=torch.int32)
+            for k in (m + pad[0], n + pad[1])
+        )
+        return (ta, tb, *prm, scheme.gap_open_cost, m, n)
+
+    wave_err = 0
+    for label, scheme in wave_schemes.items():
+        for (m, n), pad in wave_shapes:
+            args = wave_args(scheme, m, n, pad)
+            on_card = (args[0].to(dev), args[1].to(dev), *args[2:])
+            want = fill_wave.wave_frontiers(*args)
+            want_cost = fill_wave.join_frontiers(want, args[6], m, n)
+            before = fill_wave.wave_frontiers.launches
+            got = fill_wave.wave_frontiers(*on_card)
+            got_cost = fill_wave.wave_split_fill_cost(*on_card)
+            torch.cuda.synchronize()
+            if fill_wave.wave_frontiers.launches != before + 2:
+                raise SystemExit("phase 1 failed: wave_split not launched")
+            err = max(abs_err(got, want), abs_err(got_cost, want_cost))
+            wave_err = max(wave_err, err)
+            if err != 0:
+                raise SystemExit(f"phase 1 failed: wave_split {label} {m} x {n}")
+        log(f"phase 1: wave_split scheme {label} "
+            f"{fill_wave.uniform_scheme_params(scheme.costing.values, scheme.alphabet.gap_id)}"
+            f" go {scheme.gap_open_cost}, (m, n) {[s for s, _ in wave_shapes]}: "
+            f"four captured waves at every row and the cost max abs err 0")
+
+    # batch_final3_dual (TPU kernel #11's entry points) against its plain
+    # version: two sets of B ragged pairs in one launch, across
+    # gotoh_batch's 4096-column cap (5000: gotoh_fill final3); short rows
+    # (m_true 0..32) for many pairs, and rows near a 1024 bucket's top
+    # (m_true 992..1024, the DNA chunk's widest buckets) for a few.
+    dual_err = 0
+    dual_cases = [(1, 0, 32), (33, 0, 32), (132, 0, 32), (5, 992, 1024)]
+    for name, letters in (("dna", DNA), ("blosum62", PROTEIN),
+                          ("wide60", WIDE)):
+        for batch, lo, hi in dual_cases:
+            for n_cols in (1, 64, 1024, fill_batch.MAX_COLUMNS, 5000):
+                shapes = [(int(rng.integers(lo, hi + 1)),
+                           int(rng.integers(0, n_cols + 1)))
+                          for _ in range(2 * batch)]
+                shapes[0] = (hi, n_cols)
+                ta, tb, cost, gid, go, mt, nt = make_pairs(name, letters, shapes)
+                args = (ta.reshape(2, batch, -1), tb.reshape(2, batch, -1), cost,
+                        gid, go, np.reshape(mt, (2, batch)),
+                        np.reshape(nt, (2, batch)))
+                want = fill_batch.batch_final3_dual(*args)
+                before = (fill_batch.batch_final3.launches
+                          + fill_cuda.batch_moves.launches)
+                got = fill_batch.batch_final3_dual(
+                    args[0].to(dev), args[1].to(dev), cost.to(dev), *args[3:]
+                )
+                torch.cuda.synchronize()
+                if (fill_batch.batch_final3.launches
+                        + fill_cuda.batch_moves.launches) != before + 1:
+                    raise SystemExit("phase 1 failed: batch_final3_dual is not "
+                                     "one launch")
+                err = abs_err(got, want)
+                dual_err = max(dual_err, err)
+                if err != 0:
+                    raise SystemExit(f"phase 1 failed: batch_final3_dual {name} "
+                                     f"B={batch} N={n_cols}")
+        log(f"phase 1: batch_final3_dual {name}, 2 sets of (B, m_true) in "
+            f"{[(b, f'{lo}..{hi}') for b, lo, hi in dual_cases]} x N in (1, 64, "
+            f"1024, 4096, 5000): (2, B, 3) max abs err 0, one launch a call")
 
     # -- phase 2: the main path -----------------------------------------
     runs = [
@@ -1093,6 +1205,86 @@ def main() -> int:
                 f"TSV, byte for byte")
     log("phase 2: batch_cli --shard (NCCL world of one): TSV = the "
         "single-process TSV, byte for byte")
+
+    # The anti-diagonal split (TPU kernel #9's entry point) on the long
+    # pairs: the JAX bench's wave arm at 10 000^2 (the 10 000^2 DNA pair
+    # above; the default DNA scheme is the bench's) and the 50 000^2 DNA
+    # pair: one wave_split launch a call, equal to cost() (the row split)
+    # and, at 10 000^2, to the direct cost-only fill.
+    wave_main = {}
+    for label, (s1, s2) in (
+        ("10000^2 DNA", (long_runs[0]["seq_1"], long_runs[0]["seq_2"])),
+        ("50000^2 DNA", big_pair),
+    ):
+        aligner = GotohAligner(resolve_scheme(s1, s2), device="cuda")
+        prm = fill_wave.uniform_scheme_params(aligner.scheme.costing.values,
+                                              aligner.gap_id)
+        enc = (aligner._encode(s1), aligner._encode(s2), *prm,
+               aligner.gap_open, len(s1), len(s2))
+        torch.cuda.synchronize()
+        reset_counts()
+        c = int(fill_wave.wave_split_fill_cost(*enc))
+        counts = read_counts()
+        add_main(counts)
+        split_c = aligner.cost(s1, s2)
+        direct_c = split_c
+        if len(s1) <= 10_000:
+            direct, _ = aligner._batch_fill(s1, s2, want_moves=False)
+            direct_c = int(direct.min())
+        if c != split_c or c != direct_c or counts != launches(wave_frontiers=1):
+            raise SystemExit(f"phase 2 failed: wave_split_fill_cost {label} {c}, "
+                             f"cost() {split_c}, direct {direct_c}, launches "
+                             f"{counts}")
+        wave_main[label] = (enc, aligner, (s1, s2))
+        log(f"phase 2: wave_split_fill_cost {label} (params {prm}, go "
+            f"{aligner.gap_open}): {c} = cost() (the row split)"
+            f"{' = the direct fill' if len(s1) <= 10_000 else ''}; launches "
+            f"{counts}")
+
+    # batch_final3_dual (TPU kernel #11's entry points) on the DNA chunk's
+    # two widest buckets, one set each, padded to one shape and cut to one
+    # count: one launch a call, every pair equal to align_pairs(with_
+    # traceback=False).
+    dna_pairs = chunks["dna"][0]
+    dna_scheme = resolve_scheme(*("".join(s) for s in zip(*dna_pairs)))
+    groups = {}
+    for k, (a, b) in enumerate(dna_pairs):
+        groups.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                          []).append(k)
+    widest = sorted(groups, key=lambda key: (key[1], key[0]))[-2:]
+    per_set = min(len(groups[key]) for key in widest)
+    dual_ids = [groups[key][:per_set] for key in widest]
+    mm = max(key[0] for key in widest)
+    nn = max(key[1] for key in widest)
+    dual_args = (
+        torch.from_numpy(np.stack([
+            [encode_padded(dna_scheme.alphabet, dna_pairs[k][0], mm) for k in ids]
+            for ids in dual_ids])).to(dev),
+        torch.from_numpy(np.stack([
+            [encode_padded(dna_scheme.alphabet, dna_pairs[k][1], nn) for k in ids]
+            for ids in dual_ids])).to(dev),
+        torch.from_numpy(np.ascontiguousarray(dna_scheme.costing.values,
+                                              dtype=np.int32)).to(dev),
+        dna_scheme.alphabet.gap_id, dna_scheme.gap_open_cost,
+        [[len(dna_pairs[k][0]) for k in ids] for ids in dual_ids],
+        [[len(dna_pairs[k][1]) for k in ids] for ids in dual_ids],
+    )
+    torch.cuda.synchronize()
+    reset_counts()
+    dual_final3 = fill_batch.batch_final3_dual(*dual_args)
+    counts = read_counts()
+    add_main(counts)
+    dual_main_launches = counts["batch_final3"] + counts["batch_moves"]
+    want_costs = [[chunk_results["dna", False][0][k].cost for k in ids]
+                  for ids in dual_ids]
+    if dual_final3.min(-1).values.tolist() != want_costs or counts != launches(
+        batch_final3=1
+    ):
+        raise SystemExit(f"phase 2 failed: batch_final3_dual on the DNA chunk's "
+                         f"buckets {widest}: launches {counts}")
+    log(f"phase 2: batch_final3_dual on the DNA chunk's buckets {widest}, "
+        f"{per_set} pairs each, padded to {mm} x {nn}: every pair = align_pairs"
+        f"(with_traceback=False); launches {counts}")
     log(f"phase 2: launches on the main paths: {main_launches}")
 
     # -- phase 3: times -------------------------------------------------
@@ -1648,6 +1840,161 @@ def main() -> int:
             f"{mesh_pairs_ms:.4f} ms")
     dist.destroy_process_group()
 
+
+    # -- phase 3, the wave kernel and the dual-set fill --------------------
+    # The wave kernel at the two main-path shapes beside the row split
+    # (fill_split: one 2-pair last-rows launch + join; cost() end to end)
+    # and the direct cost-only fill: does the anti-diagonal split beat the
+    # row split on this card?  Its bound: the cells both problems reach at
+    # the probe's cost-only cell rate (the function needs no more than the
+    # probe's cost-only cell; as in every fill bound, the substitution cost
+    # is free), against tokens read once and four captured waves written
+    # once; beside it the serial floor, tmax dependent waves of at least
+    # one L1 load each (a wave reads the neighbour's edge through shared
+    # memory after a barrier).
+    def wave_cells(m, n, tend):
+        """Cells that waves 1..tend reach: rows max(0, t-n)..min(t, m)."""
+        return sum(max(0, min(t, m) - max(0, t - n) + 1)
+                   for t in range(1, tend + 1))
+
+    wave_rec = {}
+    for label, (enc, aligner, (s1, s2)) in wave_main.items():
+        ta, tb, *prm_go, m, n = enc
+        big = m > 10_000
+        reps = 2 if big else 5
+        w_ms = cuda_ms(lambda: fill_wave.wave_frontiers(*enc), reps)
+        cost_args = (ta, tb, aligner.cost_mat, aligner.gap_id, aligner.gap_open)
+        split_k_ms = cuda_ms(lambda: fill_split.split_fill_cost(*cost_args), reps)
+        direct_k_ms = cuda_ms(
+            lambda: fill_cuda.batch_moves(ta[None], tb[None], *cost_args[2:],
+                                          [m], [n], want_moves=False),
+            1 if big else 3,
+        )
+        wave_e2e = 1e3 * median_s(
+            lambda: int(fill_wave.wave_split_fill_cost(*enc)), 1 if big else 3
+        )
+        cost_e2e = 1e3 * median_s(lambda: aligner.cost(s1, s2), 1 if big else 3)
+        (_, t_split), (_, tmax) = fill_wave.capture_waves(m, n)
+        cells = wave_cells(m, n, t_split) + wave_cells(m, n, tmax)
+        w_bound, w_by = bound(
+            cells, "cost", 4 * (ta.numel() + tb.numel()) + 4 * 12 * ta.numel()
+        )
+        floor_ms = 1e3 * tmax * peak["l1_load_clocks"] / sm_hz
+        wave_rec[label] = dict(ms=w_ms, bound_ms=w_bound, bound_by=w_by,
+                               serial_floor_ms=floor_ms, cells=cells,
+                               split_ms=split_k_ms, direct_ms=direct_k_ms,
+                               e2e_ms=wave_e2e, cost_e2e_ms=cost_e2e)
+        log(f"phase 3: wave_split {label} on {card}: kernel {w_ms:.4f} ms "
+            f"({cells / w_ms / 1e6:.4f} Gcells/s over the {cells} cells both "
+            f"problems reach), wave_split_fill_cost end to end {wave_e2e:.4f} "
+            f"ms; row split (fill_split) {split_k_ms:.4f} ms, cost() end to "
+            f"end {cost_e2e:.4f} ms; direct cost-only fill {direct_k_ms:.4f} "
+            f"ms; bound {w_bound:.4f} ms ({w_by}), serial floor {tmax} waves x "
+            f"{peak['l1_load_clocks']:.2f} clocks = {floor_ms:.4f} ms")
+    # Its plain version on the card at 10 000^2, one run, held against the
+    # kernel there.
+    enc10 = wave_main["10000^2 DNA"][0]
+    got = fill_wave.wave_frontiers(*enc10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fill_wave._plain(*enc10)
+    torch.cuda.synchronize()
+    wave_plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = abs_err(got, want.cpu())
+    wave_err = max(wave_err, err)
+    if err != 0:
+        raise SystemExit("phase 3 failed: wave_split != plain at 10000^2")
+    log(f"phase 3: wave_split plain version (the wave recurrence in torch) on "
+        f"the card, 10000^2, one run: {wave_plain_ms:.4f} ms; four captured "
+        f"waves max abs err {err}")
+    # And once at the 50 000^2 main-path shape: phase 2 holds the kernel
+    # there only as a cost against cost().
+    enc50 = wave_main["50000^2 DNA"][0]
+    got = fill_wave.wave_frontiers(*enc50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fill_wave._plain(*enc50)
+    torch.cuda.synchronize()
+    wave_plain50_ms = 1e3 * (time.perf_counter() - t0)
+    err = abs_err(got, want.cpu())
+    wave_err = max(wave_err, err)
+    if err != 0:
+        raise SystemExit("phase 3 failed: wave_split != plain at 50000^2")
+    log(f"phase 3: wave_split plain version on the card, 50000^2, one run: "
+        f"{wave_plain50_ms:.4f} ms; four captured waves max abs err {err}")
+
+    # The dual launch beside two single-set launches, in turns (dual,
+    # singles, singles, dual): 64 x 4096^2 a set, and the DNA chunk's two
+    # widest buckets (phase 2's sets).  Its bound and its plain version on
+    # the card (the row scan pair by pair) at the chunk's sets.
+    sets64 = serving_chunk(rng, DNA, 128, 4096, 4096)
+    ta64, tb64, cost64, gid64, go64, mt64, nt64 = to_dev(fill_args(
+        resolve_scheme(*("".join(s) for s in zip(*sets64))), sets64
+    ))
+    dual64 = (ta64.reshape(2, 64, -1), tb64.reshape(2, 64, -1), cost64, gid64,
+              go64, np.reshape(mt64, (2, 64)), np.reshape(nt64, (2, 64)))
+
+    def two_singles(a):
+        for k in range(2):
+            fill_batch.batch_final3(a[0][k], a[1][k], *a[2:5], a[5][k], a[6][k])
+
+    dual_rec = {}
+    for label, a in (("64 x 4096^2 a set", dual64),
+                     ("the DNA chunk's two widest buckets", dual_args)):
+        if not torch.equal(
+            fill_batch.batch_final3_dual(*a),
+            torch.stack([fill_batch.batch_final3(a[0][k], a[1][k], *a[2:5],
+                                                 a[5][k], a[6][k])
+                         for k in range(2)]),
+        ):
+            raise SystemExit(f"phase 3 failed: dual != two single sets, {label}")
+        d1 = cuda_ms(lambda: fill_batch.batch_final3_dual(*a), 5)
+        s1_ms = cuda_ms(lambda: two_singles(a), 5)
+        s2_ms = cuda_ms(lambda: two_singles(a), 5)
+        d2 = cuda_ms(lambda: fill_batch.batch_final3_dual(*a), 5)
+        cells = sum(int(m) * int(n) for mk, nk in zip(a[5], a[6])
+                    for m, n in zip(mk, nk))
+        d_bound, d_by = bound(
+            cells, "cost",
+            4 * (a[0].numel() + a[1].numel() + a[2].numel()) + 8 * 2 * len(a[5][0])
+            + 12 * 2 * len(a[5][0]),
+        )
+        dual_rec[label] = dict(ms=(d1 + d2) / 2, single_ms=(s1_ms + s2_ms) / 2,
+                               bound_ms=d_bound, bound_by=d_by, cells=cells)
+        log(f"phase 3: batch_final3_dual, {label} ({a[0].shape[1]} pairs a set, "
+            f"{a[0].shape[2] - 1} x {a[1].shape[2] - 1}) on {card}: one dual "
+            f"launch {d1:.4f} / {d2:.4f} ms, two single-set launches "
+            f"{s1_ms:.4f} / {s2_ms:.4f} ms ({cells / ((d1 + d2) / 2) / 1e6:.4f} "
+            f"against {cells / ((s1_ms + s2_ms) / 2) / 1e6:.4f} GCUPS); bound "
+            f"{d_bound:.4f} ms ({d_by})")
+    ta2, tb2, cost2, gid2, go2, m2, n2 = dual_args
+
+    def plain_dual():
+        return torch.stack([
+            torch.stack([
+                fill_rows.row_fill(ta2[k, b, : m2[k][b] + 1],
+                                   tb2[k, b, : n2[k][b] + 1], cost2, gid2, go2,
+                                   want_moves=False).final3
+                for b in range(len(m2[k]))
+            ])
+            for k in range(2)
+        ])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain_dual()
+    torch.cuda.synchronize()
+    dual_plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = abs_err(dual_final3, want.cpu())
+    dual_err = max(dual_err, err)
+    if err != 0:
+        raise SystemExit("phase 3 failed: batch_final3_dual != plain on the DNA "
+                         "chunk's two widest buckets")
+    log(f"phase 3: batch_final3_dual plain version (the row scan pair by pair) "
+        f"on the card, the DNA chunk's two widest buckets, one run: "
+        f"{dual_plain_ms:.4f} ms; phase 2's (2, {len(m2[0])}, 3) final3 max abs "
+        f"err {err}")
+
     log(json.dumps({"kernels": [
         {
             "name": "gotoh_fill",
@@ -1722,6 +2069,52 @@ def main() -> int:
             "bound_ms": strip_bound,
             "bound_by": strip_by,
             "library_ms": None,
+        },
+        {
+            "name": "wave_split",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/wave_split.cu",
+            "replaces": "globalign_tpu/ops/fill_pallas.py:1510",
+            "launches": main_launches["wave_frontiers"],
+            "max_abs_err": wave_err,
+            "shape": "10000^2 DNA, the bench's wave arm (both problems)",
+            "ms": wave_rec["10000^2 DNA"]["ms"],
+            "plain_ms": wave_plain_ms,
+            "bound_ms": wave_rec["10000^2 DNA"]["bound_ms"],
+            "bound_by": wave_rec["10000^2 DNA"]["bound_by"],
+            "library_ms": None,
+            "serial_floor_ms": wave_rec["10000^2 DNA"]["serial_floor_ms"],
+            "row_split_ms": wave_rec["10000^2 DNA"]["split_ms"],
+            "ms_50000": wave_rec["50000^2 DNA"]["ms"],
+            "bound_ms_50000": wave_rec["50000^2 DNA"]["bound_ms"],
+            "serial_floor_ms_50000": wave_rec["50000^2 DNA"]["serial_floor_ms"],
+            "row_split_ms_50000": wave_rec["50000^2 DNA"]["split_ms"],
+            "plain_ms_50000": wave_plain50_ms,
+        },
+        {
+            "name": "gotoh_batch_dual",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/gotoh_batch.cu",
+            "replaces": "globalign_tpu/ops/fill_lanes.py:201",
+            "replaces_note": "_make_lane_kernel(npar=2), entries "
+                             "fill_lanes.py:1869 and :1902",
+            "launches": dual_main_launches,
+            "counted_in": "gotoh_batch",
+            "counted_note": "the dual call launches gotoh_batch, so its "
+                            "launches are already in gotoh_batch's count",
+            "max_abs_err": dual_err,
+            "shape": f"2 sets of {len(m2[0])} DNA pairs, {ta2.shape[2] - 1} x "
+                     f"{tb2.shape[2] - 1} (the 1024-pair chunk's two widest "
+                     "buckets)",
+            "ms": dual_rec["the DNA chunk's two widest buckets"]["ms"],
+            "plain_ms": dual_plain_ms,
+            "bound_ms": dual_rec["the DNA chunk's two widest buckets"]["bound_ms"],
+            "bound_by": dual_rec["the DNA chunk's two widest buckets"]["bound_by"],
+            "library_ms": None,
+            "two_single_ms": dual_rec["the DNA chunk's two widest buckets"][
+                "single_ms"],
+            "ms_64x4096": dual_rec["64 x 4096^2 a set"]["ms"],
+            "two_single_ms_64x4096": dual_rec["64 x 4096^2 a set"]["single_ms"],
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -47,6 +47,7 @@ from .ops.transforms import (
     scoring_mat_to_costing_mat,
 )
 from .results import AlignmentResults, prettify_mat
+from .runner import BatchRunner
 from .utils.fasta import read_first_2_seqs_from_fasta, read_seq_from_fasta
 from .utils.matrices import (
     SubstitutionMatrix,
@@ -59,6 +60,7 @@ from .utils.matrices import (
     read_scoring_mat,
     validate_scoring_mat_keys,
 )
+from .utils.random_seqs import draw_random_seq, draw_two_random_seqs
 from .utils.tokenize import Alphabet
 
 __all__ = [
@@ -66,6 +68,7 @@ __all__ = [
     "find_global_alignment",
     "align_pairs",
     "PairResult",
+    "BatchRunner",
     "AlignmentResults",
     "alignment_to_cigar",
     "GotohAligner",
@@ -93,4 +96,6 @@ __all__ = [
     "get_max_val",
     "read_seq_from_fasta",
     "read_first_2_seqs_from_fasta",
+    "draw_random_seq",
+    "draw_two_random_seqs",
 ]

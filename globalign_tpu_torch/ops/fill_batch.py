@@ -130,4 +130,58 @@ def batch_final3(
     return last if last_rows else final3
 
 
+def batch_final3_dual(
+    tok_a2: torch.Tensor,
+    tok_b2: torch.Tensor,
+    cost_mat: torch.Tensor,
+    gap_id: int,
+    gap_open: int,
+    m2,
+    n2,
+) -> torch.Tensor:
+    """Final lanes (2, B, 3) of two same-shape sets of B pairs, one launch.
+
+    The counterpart of ``globalign_tpu/ops/fill_lanes.py``'s
+    ``lanes_batch_final3_dual`` (uniform schemes, reached here through the
+    scheme's costing matrix) and ``lanes_general_final3_dual`` (any
+    matrix): TPU kernel ``_make_lane_kernel(npar=2)``, which interleaved
+    the two sets' DP chains in one VPU instruction stream.  On the card,
+    warps of independent pairs already interleave on each SM's schedulers,
+    so the set axis folds into the batch axis and the two sets are one
+    :func:`batch_final3` call over 2B pairs: one ``gotoh_batch`` launch up
+    to ``MAX_COLUMNS`` columns, one ``gotoh_fill`` final3 launch above.
+    Each set equals :func:`batch_final3` on that set alone.
+
+    Args:
+        tok_a2 / tok_b2: (2, B, M+1) / (2, B, N+1) int32 contiguous
+            1-origin tokens, on the CPU or on a CUDA device.
+        cost_mat / gap_id / gap_open: the costing scheme, as in
+            :func:`batch_final3`.
+        m2 / n2: (2, B) true lengths, host-side.
+
+    The launch counts on ``batch_final3.launches`` (``gotoh_batch``) or
+    ``fill_cuda.batch_moves.launches`` (``gotoh_fill``).
+    """
+    if tok_a2.dim() != 3 or tok_b2.dim() != 3 or tok_a2.shape[0] != 2 or (
+        tok_b2.shape[:2] != tok_a2.shape[:2]
+    ):
+        raise ValueError("tok_a2 / tok_b2 must be (2, B, M+1) / (2, B, N+1)")
+    if not (tok_a2.is_contiguous() and tok_b2.is_contiguous()):
+        raise ValueError("tok_a2 / tok_b2 must be contiguous")
+    sets, batch = tok_a2.shape[:2]
+    lengths = []
+    for name, x in (("m2", m2), ("n2", n2)):
+        x = torch.as_tensor(x, dtype=torch.int32)
+        if x.shape != (sets, batch):
+            raise ValueError(
+                f"{name} must have shape ({sets}, {batch}), got {tuple(x.shape)}"
+            )
+        lengths.append(x.reshape(-1))
+    final3 = batch_final3(
+        tok_a2.reshape(sets * batch, -1), tok_b2.reshape(sets * batch, -1),
+        cost_mat, gap_id, gap_open, *lengths,
+    )
+    return final3.reshape(sets, batch, 3)
+
+
 batch_final3.launches = 0

@@ -66,6 +66,17 @@ SIGNATURES = {
         ),
         "walk_block_error_string": ([_I32], ctypes.c_char_p),
     },
+    "wave_split": {
+        "wave_split_launch": (
+            [_PTR] * 4  # tok_a tok_b out scratch
+            # R m n cmatch cmismatch dcost icost go, the four capture
+            # waves, threads S
+            + [_I32] * 14
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "wave_split_error_string": ([_I32], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

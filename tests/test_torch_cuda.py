@@ -484,3 +484,116 @@ def test_world_of_one_pair_cost_launches_the_strip_mode(world_of_one):
     got = seqpar.sharded_pair_cost(world_of_one, *enc, block_rows=128)
     assert fill_cuda.strip_fill_block.launches - before == -(-1000 // 128)
     assert int(got.min()) == aligner.cost(s1, s2)
+
+
+# -- the wave kernel (TPU kernel #9) and the dual-set batch fill (#11) ------
+
+
+def _wave_case(rng, m, n, pad=(0, 0), **scheme_kw):
+    """Seeded DNA tokens (padded past m / n) and the scheme's uniform costs."""
+    from globalign_tpu_torch.ops import fill_wave
+
+    scheme = resolve_scheme("ACGT", "ACGT", **scheme_kw)
+    cm = np.asarray(scheme.costing.values, np.int32)
+    prm = fill_wave.uniform_scheme_params(cm, scheme.alphabet.gap_id)
+    ta = np.zeros(m + 1 + pad[0], np.int32)
+    tb = np.zeros(n + 1 + pad[1], np.int32)
+    ta[1:] = rng.integers(0, 4, m + pad[0])
+    tb[1:] = rng.integers(0, 4, n + pad[1])
+    return (torch.from_numpy(ta), torch.from_numpy(tb), *prm,
+            scheme.gap_open_cost, m, n), (torch.from_numpy(cm), scheme)
+
+
+@pytest.mark.parametrize("m,n,pad", [
+    (0, 0, (0, 0)), (0, 1, (2, 0)), (1, 0, (0, 3)), (1, 1, (0, 0)),
+    (2, 70, (5, 1)), (70, 2, (0, 0)), (1023, 1025, (0, 0)),
+    (1025, 1023, (7, 9)),
+    # more rows than threads (2 rows a thread), then state past shared memory
+    (2100, 900, (0, 0)), (13_000, 40, (3, 0)),
+])
+@pytest.mark.parametrize("scheme_kw", [
+    {},  # the default DNA scheme: the JAX bench's wave arm (bench.py:244-251)
+    dict(match_score=3, mismatch_score=-2, gap_open_score=-5,
+         gap_extension_score=-1),  # dcost != icost
+])
+def test_wave_kernel_matches_plain(cuda_device, m, n, pad, scheme_kw):
+    """All four captured waves at every row, and the cost: kernel == plain,
+    m + n <= 1 included, one launch a call; the cost also equals the
+    direct fill."""
+    from globalign_tpu_torch.ops import fill_wave
+
+    args, (cm, scheme) = _wave_case(np.random.default_rng(m * 7 + n), m, n, pad,
+                                    **scheme_kw)
+    on_card = (args[0].to(cuda_device), args[1].to(cuda_device), *args[2:])
+    want = fill_wave.wave_frontiers(*args)
+    before = fill_wave.wave_frontiers.launches
+    got = fill_wave.wave_frontiers(*on_card)
+    cost = fill_wave.wave_split_fill_cost(*on_card)
+    torch.cuda.synchronize()
+    assert fill_wave.wave_frontiers.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert int(cost) == int(fill_wave.wave_split_fill_cost(*args))
+    direct, _ = fill_cuda.batch_moves(
+        args[0][None], args[1][None], cm, scheme.alphabet.gap_id,
+        scheme.gap_open_cost, [m], [n], want_moves=False,
+    )
+    assert int(cost) == int(direct.min())
+
+
+def test_wave_kernel_rejects_mixed_devices(cuda_device):
+    from globalign_tpu_torch.ops import fill_wave
+
+    args, _ = _wave_case(np.random.default_rng(3), 5, 7)
+    before = fill_wave.wave_frontiers.launches
+    with pytest.raises(ValueError, match="is on"):
+        fill_wave.wave_frontiers(args[0].to(cuda_device), *args[1:])
+    with pytest.raises(ValueError, match="is on"):
+        fill_wave.wave_split_fill_cost(args[0], args[1].to(cuda_device), *args[2:])
+    assert fill_wave.wave_frontiers.launches == before
+
+
+def _dual_case(rng, letters, batch, n_cols, **scheme_kw):
+    """Two sets of ``batch`` ragged pairs of up to 40 x n_cols."""
+    shapes = [(int(rng.integers(0, 41)), int(rng.integers(0, n_cols + 1)))
+              for _ in range(2 * batch)]
+    shapes[0] = (40, n_cols)
+    ta, tb, cost, gid, go, mt, nt = _case(rng, letters, shapes, **scheme_kw)
+    return (ta.reshape(2, batch, -1), tb.reshape(2, batch, -1), cost, gid, go,
+            np.reshape(mt, (2, batch)), np.reshape(nt, (2, batch)))
+
+
+@pytest.mark.parametrize("batch,n_cols", [(1, 1), (33, 64), (5, 4096), (4, 5000)])
+@pytest.mark.parametrize("letters,scheme_kw", [
+    ("ACGT", {}), ("ARNDCQEGHILKMFPSTWYV", dict(scoring_mat_name="BLOSUM62")),
+])
+def test_batch_final3_dual_matches_plain(cuda_device, batch, n_cols, letters,
+                                         scheme_kw):
+    """Both sets in one launch, on either side of gotoh_batch's 4096-column
+    cap, equal to the plain version and to two single-set calls."""
+    from globalign_tpu_torch.ops import fill_batch
+
+    args = _dual_case(np.random.default_rng(batch + n_cols), letters, batch,
+                      n_cols, **scheme_kw)
+    want = fill_batch.batch_final3_dual(*args)
+    on_card = (args[0].to(cuda_device), args[1].to(cuda_device),
+               args[2].to(cuda_device), *args[3:])
+    before = fill_batch.batch_final3.launches + fill_cuda.batch_moves.launches
+    got = fill_batch.batch_final3_dual(*on_card)
+    torch.cuda.synchronize()
+    assert fill_batch.batch_final3.launches + fill_cuda.batch_moves.launches == (
+        before + 1
+    )
+    assert torch.equal(got.cpu(), want)
+    for s in range(2):
+        single = fill_batch.batch_final3(on_card[0][s], on_card[1][s],
+                                         *on_card[2:5], args[5][s], args[6][s])
+        assert torch.equal(single.cpu(), want[s])
+
+
+def test_batch_final3_dual_rejects_mixed_devices(cuda_device):
+    from globalign_tpu_torch.ops import fill_batch
+
+    args = _dual_case(np.random.default_rng(4), "ACGT", 3, 50)
+    with pytest.raises(ValueError, match="is on"):
+        fill_batch.batch_final3_dual(args[0].to(cuda_device),
+                                     args[1].to(cuda_device), *args[2:])

@@ -174,3 +174,48 @@ def test_row_walk_on_jax_moves_equals_jax_walk():
     assert traceback.traceback_moves(mv, s1, s2, f3) == jax_tb.traceback_moves(
         mv, s1, s2, f3, layout="row"
     )
+
+
+@pytest.mark.parametrize("alphabet,min_len,max_len,seed", [
+    (["A", "C", "T", "G"], 7, 10, 19),  # the reference's golden "GTTCGCA"
+    (["A", "C", "T", "G"], 5, 8, 345),
+    (["the", "fat", "cat"], 7, 10, 19),
+    (list("ACDEFGHIKLMNPQRSTVWY"), 0, 300, 7),
+])
+def test_draw_random_seq_matches_jax(alphabet, min_len, max_len, seed):
+    import globalign_tpu
+    import globalign_tpu_torch
+
+    want = globalign_tpu.draw_random_seq(alphabet, min_len, max_len, seed)
+    assert globalign_tpu_torch.draw_random_seq(
+        alphabet, min_len, max_len, seed
+    ) == want
+
+
+@pytest.mark.parametrize("divergence,seeds", [
+    (0.0, (1, 2)), (0.0, (5, 6)), (0.3, (19, 345)), (1.0, (7, 8)),
+])
+def test_draw_two_random_seqs_matches_jax(divergence, seeds):
+    """Seeded draws agree; the substitution letters are drawn unseeded
+    (reference start.py, as the JAX module), so past divergence 0 only
+    seq_1 and seq_2's length are pinned."""
+    import globalign_tpu
+    import globalign_tpu_torch
+
+    args = (["A", "C", "G", "T"], 20, 60, 10, 80, divergence, *seeds)
+    want = globalign_tpu.draw_two_random_seqs(*args)
+    got = globalign_tpu_torch.draw_two_random_seqs(*args)
+    if divergence == 0.0:
+        assert got == want
+    else:
+        assert got[0] == want[0] and len(got[1]) == len(want[1])
+
+
+def test_the_port_exports_the_jax_package_runner_and_draws():
+    import globalign_tpu
+    import globalign_tpu_torch
+    from globalign_tpu_torch.runner import BatchRunner
+
+    for name in ("BatchRunner", "draw_random_seq", "draw_two_random_seqs"):
+        assert name in globalign_tpu.__all__ and name in globalign_tpu_torch.__all__
+    assert globalign_tpu_torch.BatchRunner is BatchRunner
