@@ -14,13 +14,17 @@ phase fails:
      same seeded inputs, tolerance 0 (all integers): ``batch_moves``
      (final3 and every move code); ``batch_moves`` and ``batch_last_rows``
      seeded from a real checkpoint row (``row0`` / ``col0y_top``);
-     ``batch_last_rows`` with the default boundary; ``walk_block`` over the
+     ``batch_last_rows`` with the default boundary; the same at the launch
+     shapes of ``fill_cuda.plan`` (1, 2 and 8 bands a pair, band and pass
+     widths +-1, fewer than 32 columns, m_true 0 / 1, ragged batches whose
+     pairs get different band counts); ``walk_block`` over the
      same codes; the split cost; ``gotoh_batch`` (final3 and last rows) on
      ragged batches of 1 to 4096 columns, m_true in {0, 1, 7, ..., M}, under
      DNA, BLOSUM62, an odd asymmetric scheme and a 60-letter alphabet;
      ``gotoh_fill``'s strip mode (``strip_fill_block``) at RB in {1, 3,
      256} x W in {1, 31, 1024, 16 000}, its col0 a real neighbour's edge,
-     under the same four schemes (fin and every edge row); the wave kernel
+     under the same four schemes (fin and every edge row), and a 256-row
+     block 50 000 columns wide beside a neighbour; the wave kernel
      (``fill_wave.wave_frontiers``: all four captured waves at every row,
      and the cost) at (m, n) from (0, 0) to 12 345 x 3000, some buffers
      padded, under four uniform schemes; ``batch_final3_dual`` on two sets
@@ -53,7 +57,10 @@ phase fails:
      and without ``--shard`` (outputs merge to the single-process TSV);
      ``wave_split_fill_cost`` at 10 000^2 and 50 000^2 DNA (= ``cost()``,
      one wave_split launch a call) and ``batch_final3_dual`` on the DNA
-     chunk's two widest buckets (= ``align_pairs``, one launch);
+     chunk's two widest buckets (= ``align_pairs``, one launch); a custom
+     matrix over non-ASCII letters (single pairs and ``align_pairs`` in
+     both modes = ``device="cpu"``); every ``gotoh_fill`` launch of these
+     paths tallied by mode and (B, M, N) (the census);
   3. times with CUDA events: the fill kernel beside the plain row scan on
      the card; end-to-end ``align`` split into fill and D2H + walk; blocked
      ``align`` at 10 000² and 20 000² split into checkpoint pass, replay
@@ -73,7 +80,9 @@ phase fails:
      kernel at 10 000^2 and 50 000^2 beside the row split and the direct
      fill, its plain version on the card at 10 000^2, its bound and serial
      floor; the dual launch beside two single-set launches (64 x 4096^2 a
-     set, and the DNA chunk's two widest buckets) and its plain version.
+     set, and the DNA chunk's two widest buckets) and its plain version;
+     ``gotoh_fill`` at each census class (its most launched shape), its
+     bound, and launches x (time - bound) for the class.
 
 The last two lines of standard output are JSON: the kernels' record, then
 ``{"ok": true, "device": {...}}``.  It uses no JAX and no network.
@@ -81,6 +90,7 @@ The last two lines of standard output are JSON: the kernels' record, then
 
 from __future__ import annotations
 
+import collections
 import functools
 import io
 import json
@@ -152,6 +162,29 @@ def serving_chunk(rng, letters: str, count: int, lo: int, hi: int):
     return pairs
 
 
+def fill_census(fill_cuda):
+    """Tally every gotoh_fill launch on the card by (mode, B, M, N): wraps
+    ``fill_cuda._fill``, which each of its three wrappers calls once a
+    launch.  Returns the tally, a Counter the caller may clear."""
+    tally = collections.Counter()
+    real = fill_cuda._fill
+
+    def counted(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
+                row0, col0y_top, want_moves, want_last, counter, col0=None):
+        if tok_a.device.type == "cuda":
+            mode = ("strip" if col0 is not None else "codes" if want_moves
+                    else "last rows" if want_last else "final3")
+            if col0 is None and (row0 is not None or col0y_top is not None):
+                mode += ", injected"
+            tally[(mode, tok_a.shape[0], tok_a.shape[1] - 1,
+                   tok_b.shape[1] - 1)] += 1
+        return real(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
+                    row0, col0y_top, want_moves, want_last, counter, col0=col0)
+
+    fill_cuda._fill = counted
+    return tally
+
+
 def _rank_main(rank, world, store, jobs, queue, backend):
     """One spawned rank (gloo ranks share cuda:0; an NCCL rank takes card
     ``rank``): run ``jobs``
@@ -183,6 +216,7 @@ def _rank_main(rank, world, store, jobs, queue, backend):
             return out
 
         comm.shift = timed_shift
+        census = fill_census(fill_cuda)
         wrappers = (fill_cuda.strip_fill_block, fill_cuda.batch_moves,
                     fill_cuda.batch_last_rows, linear_tb.walk_block)
         answers = []
@@ -191,6 +225,7 @@ def _rank_main(rank, world, store, jobs, queue, backend):
             aligner = GotohAligner(scheme, device="cuda")
             for fn in wrappers:
                 fn.launches = 0
+            census.clear()
             shifts.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -221,6 +256,7 @@ def _rank_main(rank, world, store, jobs, queue, backend):
                 "out": out,
                 "seconds": time.perf_counter() - t0,
                 "launches": {fn.__name__: fn.launches for fn in wrappers},
+                "census": dict(census),
                 "shift_s": list(shifts),
             })
         queue.put((rank, "ok", answers))
@@ -343,11 +379,20 @@ def main() -> int:
         "wave_frontiers": fill_wave.wave_frontiers,
     }
 
+    # gotoh_fill launches on the main paths by (mode, B, M, N): those
+    # between reset_counts() and the read_counts() that add_main() takes.
+    census = collections.Counter()
+    fill_tally = fill_census(fill_cuda)
+    tally_read = collections.Counter()
+
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
+        fill_tally.clear()
 
     def read_counts():
+        tally_read.clear()
+        tally_read.update(fill_tally)
         return {name: fn.launches for name, fn in counters.items()}
 
     def launches(**kw):
@@ -359,6 +404,8 @@ def main() -> int:
     def add_main(counts):
         for name, k in counts.items():
             main_launches[name] += k
+        census.update(tally_read)
+        tally_read.clear()
 
     def tokens(scheme, seqs):
         enc = [scheme.alphabet.encode(s) for s in seqs]
@@ -451,9 +498,9 @@ def main() -> int:
     inj_cases = [
         ("dna", DNA, [(4096, 4096)], [2048]),
         # the main path's widths: a short block below row 1000 of a
-        # 10 000-column pair (w = 10), of a 20 000-column pair (w = 20,
-        # strip state in global memory), of a 9000-column BLOSUM62 pair,
-        # and a ragged batch with per-pair state in global memory
+        # 10 000-column pair, of a 20 000-column pair (the replay block's
+        # width: W = 16 over 8 bands of 5 warps), of a 9000-column
+        # BLOSUM62 pair, and a ragged batch of 12 500-20 000 columns
         ("dna", DNA, [(1300, 10_000)], [1000]),
         ("dna", DNA, [(1300, 20_000)], [1000]),
         ("blosum62", PROTEIN, [(1300, 9_000)], [1000]),
@@ -497,6 +544,76 @@ def main() -> int:
             raise SystemExit(f"phase 1 failed (injection): {name} {shapes}")
         if len(shapes) == 1 and shapes[0][1] in (4096, 20_000):
             walk_codes[shapes[0][1]] = (got_mv, got3)
+
+    # The launch shapes of gotoh_fill's plan (ops/fill_cuda.plan) against
+    # the plain version: one, two and the most bands a pair gets, band and
+    # pass widths +-1 (a pass is one cluster's columns: 32 768 with codes,
+    # 65 536 without), fewer than 32 columns, one column, m_true 0 and 1,
+    # and ragged batches whose pairs get different band counts.  Codes,
+    # final3, the default last rows, and the codes and last rows of the
+    # block below row m // 2 injected from the plain fill, tolerance 0.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dna_fill = schemes["dna"](DNA, DNA)
+    band_cases = [
+        [(40, 100)], [(40, 256)], [(300, 8000)],  # 1, 2 and 8 bands
+        [(30, 127)], [(30, 128)], [(30, 129)],
+        [(30, 1023)], [(30, 1024)], [(30, 1025)],
+        [(20, 2047)], [(20, 2048)], [(20, 2049)],
+        [(20, 8191)], [(20, 8192)], [(20, 8193)],
+        [(5, 32_767)], [(5, 32_768)], [(5, 32_769)],
+        [(3, 65_535)], [(3, 65_536)], [(3, 65_537)],
+        [(1, 1)], [(0, 1)], [(1, 0)], [(0, 0)], [(7, 5)], [(0, 31)],
+        [(1, 31)], [(33, 31)],
+        [(300, 8000), (0, 300), (1, 33), (64, 1)],
+        [(100, 4096), (100, 1), (7, 2049), (0, 0), (50, 700)],
+    ]
+    band_err = 0
+    for shapes in band_cases:
+        pairs = [(random_seq(rng, DNA, m), random_seq(rng, DNA, n))
+                 for m, n in shapes]
+        ta, tb, cost, gid, go, mt, nt = args = fill_args(dna_fill, pairs)
+        cuts = [m // 2 for m in mt]
+        top = fill_cuda.batch_last_rows(ta, tb, cost, gid, go, cuts, nt)
+        blk = torch.zeros_like(ta)
+        c0 = torch.empty(len(mt), dtype=torch.int32)
+        for b, i0 in enumerate(cuts):
+            blk[b, 1 : mt[b] - i0 + 1] = ta[b, i0 + 1 : mt[b] + 1]
+            c0[b] = go if i0 == 0 else int(top[b, 2, 0])
+        inj_args = (blk, tb, cost, gid, go, [m - i0 for m, i0 in zip(mt, cuts)], nt)
+        inj = dict(row0=top, col0y_top=c0)
+        dev_inj = dict(row0=top.to(dev), col0y_top=c0.to(dev))
+        calls = [
+            (lambda a, **k: fill_cuda.batch_moves(*a, **k), args, {}, {}),
+            (lambda a, **k: fill_cuda.batch_moves(*a, want_moves=False, **k)[0],
+             args, {}, {}),
+            (lambda a, **k: fill_cuda.batch_last_rows(*a, **k), args, {}, {}),
+            (lambda a, **k: fill_cuda.batch_moves(*a, **k), inj_args, inj,
+             dev_inj),
+            (lambda a, **k: fill_cuda.batch_last_rows(*a, **k), inj_args, inj, dev_inj),
+        ]
+        for fn, a, kw_cpu, kw_dev in calls:
+            want = fn(a, **kw_cpu)
+            got = fn(to_dev(a), **kw_dev)
+            torch.cuda.synchronize()
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            err = max(abs_err(g, w) for g, w in zip(got, want))
+            band_err = max(band_err, err)
+            if err != 0:
+                raise SystemExit(f"phase 1 failed: gotoh_fill plan shapes {shapes}")
+        plans = {
+            mode: fill_cuda.plan(len(mt), max(nt), mode == "codes", sms)
+            for mode in ("codes", "cost")
+        }
+        bands = [
+            -(-(-(-max(n, 1) // (32 * plans["cost"].width))) // plans["cost"].warps)
+            for n in nt
+        ]
+        log(f"phase 1: gotoh_fill plan shapes (m, n) {shapes}: plans "
+            f"{ {k: tuple(v) for k, v in plans.items()} } (W, warps, bands, "
+            f"passes), cost-only bands a pair {bands}; codes, final3, last "
+            f"rows, injected codes and last rows max abs err 0")
+    max_abs_err = max(max_abs_err, band_err)
 
     # The walk over the injected 4096- and 20 000-column blocks' codes,
     # from the block's corner and from inside it.
@@ -571,8 +688,8 @@ def main() -> int:
     # RB rows under a real checkpoint row, cut into a strip at the matrix
     # edge and the strip of W columns to its right, whose col0 is the edge
     # the plain fill of the left strip gives.  Both strips, fin and every
-    # edge row, m_true short of RB included; W = 16 000 keeps the strip
-    # state in global memory.
+    # edge row, m_true short of RB included; W = 16 000 runs 8 columns a
+    # lane over 8 bands.
     def strip_case(name, letters, rb, width, left=37, i0=5):
         scheme = schemes[name](letters, letters)
         cost = torch.from_numpy(
@@ -636,6 +753,21 @@ def main() -> int:
                 log(f"phase 1: strip mode {name} RB={rb} W={width} (and the "
                     f"37-column strip at the matrix edge), m_true {cuts}: fin "
                     f"and every edge row max abs err 0")
+    # At the pipeline's width: a 256-row block of a 50 000-column strip
+    # whose col0 is the real right edge of the strip to its left.
+    right_args = strip_case("dna", DNA, 256, 50_000)[1]
+    for m_true in (255, 256):
+        want = fill_cuda.strip_fill_block(*right_args, [m_true])
+        got = fill_cuda.strip_fill_block(*strip_on_card(right_args), [m_true])
+        torch.cuda.synchronize()
+        err = max(abs_err(g, w) for g, w in zip(got, want))
+        strip_err = max(strip_err, err)
+        if err != 0:
+            raise SystemExit(f"phase 1 failed: strip mode 256 x 50000 beside a "
+                             f"neighbour, m_true={m_true}")
+    log(f"phase 1: strip mode dna RB=256 W=50000 beside a 37-column neighbour "
+        f"strip (its real right edge as col0), m_true [255, 256]: fin and every "
+        f"edge row max abs err 0")
 
     # The wave kernel (TPU kernel #9) against its plain version (the wave
     # recurrence vectorised over rows, on the CPU): all four captured waves
@@ -770,6 +902,55 @@ def main() -> int:
         raise SystemExit(f"phase 2 failed: launches {counts} for "
                          f"{len(runs)} align calls")
     log(f"phase 2: launches on the full-matrix path: {counts}")
+
+    # A custom matrix over non-ASCII letters: single pairs and align_pairs
+    # in both modes on the card = device="cpu", strings and reports (the
+    # port renders any letter; ROADMAP C5 is the JAX native layer's fault).
+    uni_letters = "ΩЖ字A"  # Omega, Zhe, a CJK letter, A
+    uni_mtx = (
+        f"{' '.join(uni_letters)} -\n"
+        + "".join(
+            f"{a} " + " ".join(str(4 if a == b else -2) for b in uni_letters)
+            + " -3\n" for a in uni_letters
+        )
+        + "- " + " ".join("-3" for _ in uni_letters) + " 4\n"
+    )
+    uni_pairs = [(random_seq(rng, uni_letters, m), random_seq(rng, uni_letters, n))
+                 for m, n in ((300, 280), (1, 9), (700, 650), (64, 1), (90, 95))]
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = Path(tmp) / "unicode.mtx"
+        mtx.write_text(uni_mtx, encoding="utf-8")
+        uni_want = [find_global_alignment(seq_1=a, seq_2=b, scoring_mat_path=mtx,
+                                      device="cpu") for a, b in uni_pairs]
+        torch.cuda.synchronize()
+        reset_counts()
+        uni_got = [find_global_alignment(seq_1=a, seq_2=b, scoring_mat_path=mtx,
+                                     device="cuda") for a, b in uni_pairs]
+        uni_counts = read_counts()
+        add_main(uni_counts)
+        if uni_got != uni_want or [str(r) for r in uni_got] != [
+            str(r) for r in uni_want
+        ] or (
+            uni_counts != launches(batch_moves=len(uni_pairs))
+        ):
+            raise SystemExit(f"phase 2 failed: non-ASCII single pairs, "
+                             f"launches {uni_counts}")
+        for with_tb in (False, True):
+            want_b = align_pairs(uni_pairs, scoring_mat_path=mtx,
+                                 with_traceback=with_tb, device="cpu")
+            reset_counts()
+            got_b = align_pairs(uni_pairs, scoring_mat_path=mtx,
+                                with_traceback=with_tb)
+            add_main(read_counts())
+            if [(r.cost, r.score, r.seq_1_aligned, r.seq_2_aligned)
+                    for r in got_b] != [(r.cost, r.score, r.seq_1_aligned,
+                                         r.seq_2_aligned) for r in want_b]:
+                raise SystemExit(f"phase 2 failed: non-ASCII align_pairs "
+                                 f"traceback={with_tb}")
+    log(f"phase 2: a non-ASCII custom matrix ({uni_letters}): "
+        f"{len(uni_pairs)} single pairs (strings, cost, score, report) and "
+        f"align_pairs both modes on the card = device='cpu'; e.g. "
+        f"{uni_got[1].seq_1_aligned} / {uni_got[1].seq_2_aligned}")
 
     # Past the moves budget: the blocked route, held against the
     # full-matrix route (the same call with the budget raised).
@@ -1142,6 +1323,7 @@ def main() -> int:
         for ans in answers:
             for name, k in ans["launches"].items():
                 main_launches[name] += k
+            census.update(ans["census"])
         gloo_exchange.append(costs["shift_s"])
     log(f"phase 2: {ranks} gloo ranks: sharded_pair_cost 50000^2 DNA and "
         f"20000^2 BLOSUM62 = the world of one on every rank, "
@@ -1286,6 +1468,15 @@ def main() -> int:
         f"{per_set} pairs each, padded to {mm} x {nn}: every pair = align_pairs"
         f"(with_traceback=False); launches {counts}")
     log(f"phase 2: launches on the main paths: {main_launches}")
+    census_total = sum(census.values())
+    if census_total != (main_launches["batch_moves"]
+                        + main_launches["batch_last_rows"]
+                        + main_launches["strip_fill_block"]):
+        raise SystemExit(f"phase 2 failed: the gotoh_fill census counts "
+                         f"{census_total} launches, the wrappers "
+                         f"{main_launches}")
+    log(f"phase 2: gotoh_fill launches on the main paths by (mode, B, M, N): "
+        + "; ".join(f"{k}: {v}" for k, v in sorted(census.items())))
 
     # -- phase 3: times -------------------------------------------------
     def cuda_ms(fn, reps: int) -> float:
@@ -1347,7 +1538,7 @@ def main() -> int:
         log(f"phase 3: align {size}x{size} on {card}: end to end "
             f"{a_ms:.4f} ms ({cells / a_ms / 1e6:.4f} GCUPS); fill "
             f"{f_ms:.4f} ms, D2H + walk {w_ms:.4f} ms")
-        kernel_ms, plain_ms, fill_size = k_ms, p_ms, size
+        kernel_ms, plain_ms, fill_size, cost_only_ms = k_ms, p_ms, size, c_ms
 
     # The last-row mode, injected (a checkpoint fill), beside the plain
     # row scan on the card.
@@ -1384,6 +1575,7 @@ def main() -> int:
         return float(np.median(out))
 
     walk_ms = plain_walk_ms = walk_steps = walk_path = None
+    blocked_dev = {}  # size -> (checkpoint pass, replay fills) device ms
     for size in (10_000, 20_000):
         s1 = random_seq(rng, DNA, size)
         s2 = mutate(rng, s1, DNA)
@@ -1427,6 +1619,7 @@ def main() -> int:
         ck, fi, wa, fe, enq, wait, asm, tot = (
             float(np.median(c)) for c in zip(*parts)
         )
+        blocked_dev[size] = (ck, fi)
         nblocks = len(linear_tb.block_bounds(
             size, len(s2), block_moves_bytes=budget
         )) - 1
@@ -1658,14 +1851,22 @@ def main() -> int:
             cuda_ms(lambda: fill_cuda.batch_moves(*a, want_moves=False), 3)
             for a in buckets
         )
-        arm_cost[arm] = (buckets, gb, gf)
+        gm = sum(cuda_ms(lambda: fill_cuda.batch_moves(*a), 3) for a in buckets)
+        arm_cost[arm] = (buckets, gb, gf, gm)
         b_ms, b_by = bound(
             cells, "cost", sum(fill_bytes(a, 12 * len(a[5])) for a in buckets)
         )
+        m_ms, m_by = bound(cells, "moves", sum(
+            fill_bytes(a, 12 * len(a[5]) + a[0].shape[1] * a[1].shape[1] * len(a[5]))
+            for a in buckets
+        ))
         log(f"phase 3: cost fills of {arm} ({len(buckets)} buckets, one launch "
             f"each) on {card}: gotoh_batch {gb:.4f} ms ({cells / gb / 1e6:.4f} "
             f"GCUPS), gotoh_fill final3 {gf:.4f} ms ({cells / gf / 1e6:.4f} "
             f"GCUPS); bound {b_ms:.4f} ms ({b_by})")
+        log(f"phase 3: moves fills of {arm} ({len(buckets)} buckets, one "
+            f"gotoh_fill launch each) on {card}: {gm:.4f} ms "
+            f"({cells / gm / 1e6:.4f} GCUPS); bound {m_ms:.4f} ms ({m_by})")
 
     # The kernel record's bucket: the DNA chunk's largest bucket, one launch.
     dna_buckets = arm_cost["1024-pair DNA chunk"][0]
@@ -1995,6 +2196,72 @@ def main() -> int:
         f"{dual_plain_ms:.4f} ms; phase 2's (2, {len(m2[0])}, 3) final3 max abs "
         f"err {err}")
 
+    # gotoh_fill at each class of phase 2's census (mode, one pair or a
+    # batch, rows and columns by size): the class's most launched (B, M, N)
+    # on seeded DNA at full lengths (a bucket's pairs are its full width
+    # here), its bound, and launches x (time - bound) for the class.
+    def size_class(x):
+        return next((f"<={k}" for k in (1024, 4096, 10_000, 20_000) if x <= k),
+                    ">20000")
+
+    classes = {}
+    for (mode, nb, mm, nn), k in census.items():
+        key = (mode, "B=1" if nb == 1 else "B>1", f"M{size_class(mm)}",
+               f"N{size_class(nn)}")
+        cls = classes.setdefault(key, {"launches": 0, "shapes": collections.Counter()})
+        cls["launches"] += k
+        cls["shapes"][(nb, mm, nn)] += k
+
+    def census_call(mode, nb, mm, nn):
+        pairs = [(random_seq(rng, DNA, mm), random_seq(rng, DNA, nn))
+                 for _ in range(nb)]
+        ta, tb, cost, gid, go, mt, nt = to_dev(fill_args(dna_fill, pairs))
+        if mode == "strip" or mode.endswith("injected"):
+            rows, cols = zip(*(default_boundary(ta[b], tb[b], cost, gid, go)
+                               for b in range(nb)))
+            row0 = torch.stack(rows).contiguous()
+            col0 = torch.stack(cols).contiguous()
+        if mode == "strip":
+            return lambda: fill_cuda.strip_fill_block(ta, tb, cost, gid, go,
+                                                      row0, col0, mt)
+        inj = {}
+        if mode.endswith("injected"):
+            inj = dict(row0=row0, col0y_top=torch.full(
+                (nb,), go, dtype=torch.int32, device=dev))
+        if mode.startswith("codes"):
+            return lambda: fill_cuda.batch_moves(ta, tb, cost, gid, go, mt, nt,
+                                                 **inj)
+        if mode.startswith("last rows"):
+            return lambda: fill_cuda.batch_last_rows(ta, tb, cost, gid, go, mt,
+                                                     nt, **inj)
+        return lambda: fill_cuda.batch_moves(ta, tb, cost, gid, go, mt, nt,
+                                             want_moves=False, **inj)
+
+    census_rows = []
+    for key in sorted(classes):
+        cls = classes[key]
+        (nb, mm, nn), _ = max(cls["shapes"].items(),
+                              key=lambda kv: (kv[1], kv[0][0] * kv[0][1] * kv[0][2]))
+        mode = key[0]
+        cells = nb * mm * nn
+        t_ms = cuda_ms(census_call(mode, nb, mm, nn), 1 if cells > 2e8 else 3)
+        b_ms, _ = bound(cells, "moves" if mode.startswith("codes") else "cost",
+                        8 * nb * (mm + nn + 2))
+        loss = cls["launches"] * (t_ms - b_ms)
+        census_rows.append(dict(
+            mode=mode, cls=list(key[1:]), launches=cls["launches"],
+            shape=[nb, mm, nn], ms=t_ms, bound_ms=b_ms, loss_ms=loss,
+            shapes=len(cls["shapes"]),
+        ))
+        log(f"phase 3: gotoh_fill census {mode}, {' '.join(key[1:])} on {card}: "
+            f"{cls['launches']} launches over {len(cls['shapes'])} shapes; at "
+            f"the most launched, B x M x N = {nb} x {mm} x {nn}: {t_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms; launches x (time - bound) {loss:.4f} ms")
+
+    log("earlier times, NOT measured in this run: the last chip_smoke.py run "
+        "before gotoh_fill's redesign (one block a pair), on an NVIDIA H100 "
+        "80GB HBM3 at 700.00 W, gave the 8000^2 moves fill 73.3129 ms and the "
+        "256 x 50000 strip block 17.1011 ms")
     log(json.dumps({"kernels": [
         {
             "name": "gotoh_fill",
@@ -2020,6 +2287,12 @@ def main() -> int:
             "library_ms": None,
             "last_rows_ms": last_ms,
             "plain_last_rows_ms": plain_last_ms,
+            "census": [r for r in census_rows if r["mode"] != "strip"],
+            "cost_only_ms": cost_only_ms,
+            "checkpoint_pass_20000_ms": blocked_dev[20_000][0],
+            "replay_fills_20000_ms": blocked_dev[20_000][1],
+            "dna_chunk_moves_fills_ms": arm_cost["1024-pair DNA chunk"][3],
+            "dna_chunk_final3_fills_ms": arm_cost["1024-pair DNA chunk"][2],
         },
         {
             "name": "walk_block",
@@ -2069,6 +2342,7 @@ def main() -> int:
             "bound_ms": strip_bound,
             "bound_by": strip_by,
             "library_ms": None,
+            "census": [r for r in census_rows if r["mode"] == "strip"],
         },
         {
             "name": "wave_split",

@@ -1,7 +1,8 @@
 """Batched Gotoh fills — the CUDA kernel and its plain version.
 
-Three wrappers of one kernel, ``csrc/gotoh_fill.cu`` (one block per pair;
-see the note at the head of that file):
+Three wrappers of one kernel, ``csrc/gotoh_fill.cu`` (a pair's columns
+over a cluster of blocks, the strip state in registers; see the note at
+the head of that file, and :func:`plan` for the launch):
 
   * ``batch_moves`` — final3 and row-major move codes for B pairs, the
     counterpart of ``globalign_tpu/ops/fill_pallas.py:batch_moves`` and,
@@ -36,19 +37,66 @@ point at the injected row's argmins.  Either may be given alone.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .fill_rows import row_fill
 from .fill_scan import BIG
 
-MAX_THREADS = 1024  # the kernel's __launch_bounds__
+WIDTHS = (4, 8, 16, 32)  # the kernel's instances: columns a lane (W)
+MOVES_WIDTHS = (4, 8, 16)  # with codes: 32 staged rows of 32 W bytes a warp
+MAX_WARPS = 8  # warps a block (the kernel's __launch_bounds__)
+MAX_BANDS = 8  # blocks a pair: the portable cluster size
 
 
-def _plan(n_cols: int) -> tuple[int, int]:
-    """(threads, W): the block size and the widest strip for N columns."""
-    width = max(1, -(-n_cols // MAX_THREADS))
-    strips = max(1, -(-n_cols // width))
-    return 32 * -(-strips // 32), width
+class FillPlan(NamedTuple):
+    """A launch of ``gotoh_fill``: ``width`` columns a lane, ``warps``
+    warps a block (a band of warps * 32 * width columns), ``bands`` blocks
+    a pair (one cluster), and the ``passes`` the widest pair takes over its
+    columns."""
+
+    width: int
+    warps: int
+    bands: int
+    passes: int
+
+    @property
+    def band_columns(self) -> int:
+        return self.warps * 32 * self.width
+
+
+def plan(batch: int, n_cols: int, want_moves: bool, sms: int) -> FillPlan:
+    """The launch for ``batch`` pairs of up to ``n_cols`` columns on a card
+    of ``sms`` SMs.
+
+    W is the narrowest instance whose chain of warps (one a 32 W columns)
+    fits one cluster of MAX_BANDS blocks of MAX_WARPS warps — or one block,
+    once the batch fills the card: narrow strips keep the serial Ix chain of
+    a wave short.  The bands are as many as fill the card (batch * bands >=
+    sms) without a band of no warp, and no fewer than the chain needs, so a
+    batch that fills the card gets one block a pair where the widest
+    instance allows.  Wider pairs than a cluster holds take several
+    passes."""
+    widths = MOVES_WIDTHS if want_moves else WIDTHS
+    n = max(1, n_cols)
+    fill = -(-sms // max(1, batch))  # bands a pair that fill the card
+    for width in widths:
+        if -(-n // (32 * width)) <= MAX_WARPS * (MAX_BANDS if fill > 1 else 1):
+            break
+    chain = -(-n // (32 * width))  # warps a pair needs
+    bands = min(MAX_BANDS, chain, max(-(-chain // MAX_WARPS), fill))
+    warps = min(MAX_WARPS, -(-chain // bands))
+    bands = min(MAX_BANDS, -(-chain // warps))
+    passes = -(-n // (bands * warps * 32 * width))
+    return FillPlan(width, warps, bands, passes)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    """The SM count of card ``index`` (a query is too slow for every launch)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lengths(lengths, batch: int, cap: int, name: str) -> torch.Tensor:
@@ -198,7 +246,7 @@ def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
     lib = cuda_build.load()
     batch, m1 = tok_a.shape
     n1 = tok_b.shape[1]
-    threads, width = _plan(n1 - 1)
+    lp = plan(batch, n1 - 1, want_moves, _sms(device.index))
     final3 = torch.empty((batch, 3), dtype=torch.int32, device=device)
     moves = (
         torch.empty((batch, m1, n1), dtype=torch.uint8, device=device)
@@ -215,8 +263,10 @@ def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
         if col0 is not None
         else None
     )
-    scratch = torch.empty(
-        (batch, 4, width * threads), dtype=torch.int32, device=device
+    pass_edge = (  # (B, 2, M+1) int4: a pass's right edge for the next
+        torch.empty((batch, 2, m1, 4), dtype=torch.int32, device=device)
+        if lp.passes > 1
+        else None
     )
     m_dev = m_true.pin_memory().to(device, non_blocking=True)
     n_dev = n_true.pin_memory().to(device, non_blocking=True)
@@ -231,9 +281,9 @@ def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
             tok_a.data_ptr(), tok_b.data_ptr(), cost_mat.data_ptr(),
             m_dev.data_ptr(), n_dev.data_ptr(), ptr(row0), ptr(col0y_top),
             ptr(col0), final3.data_ptr(), ptr(moves), ptr(last), ptr(edge),
-            scratch.data_ptr(),
+            ptr(pass_edge),
             batch, m1 - 1, n1 - 1, cost_mat.shape[0], int(gap_id),
-            int(gap_open), threads, width, stream,
+            int(gap_open), lp.width, lp.warps, lp.bands, stream,
         )
     if err != 0:
         msg = lib.gotoh_fill_error_string(err).decode()

@@ -38,9 +38,9 @@ SIGNATURES = {
     "gotoh_fill": {
         "gotoh_fill_launch": (
             # tok_a tok_b cost m n row0 col0y_top col0 final3 moves last
-            # edge scratch
+            # edge pass_edge
             [_PTR] * 13
-            + [_I32] * 8  # B M N A gap go threads W
+            + [_I32] * 9  # B M N A gap go W warps P
             + [_PTR],  # stream
             _I32,
         ),

@@ -352,3 +352,110 @@ def test_cuda_request_without_a_gpu_raises(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
     with pytest.raises(ValueError, match="unsupported device"):
         torch_gotoh.resolve_device("meta")
+
+
+# -- ROADMAP C5: non-ASCII letters (the JAX native layer's fault) ----------
+
+UNICODE_LETTERS = "ΩЖ字A"
+UNICODE_MTX = (
+    "# a custom scoring matrix over non-ASCII letters\n"
+    "Ω Ж 字 A -\n"
+    "Ω 4 -2 -3 -1 -3\n"
+    "Ж -2 5 -1 -3 -3\n"
+    "字 -3 -1 4 -2 -3\n"
+    "A -1 -3 -2 5 -3\n"
+    "- -3 -3 -3 -3 4\n"
+)
+
+
+@pytest.fixture
+def unicode_mtx(tmp_path):
+    path = tmp_path / "unicode.mtx"
+    path.write_text(UNICODE_MTX, encoding="utf-8")
+    return path
+
+
+@pytest.fixture
+def jax_without_native(monkeypatch):
+    """The JAX package with its C++ host layer off (``native.load`` gives
+    None): its pure-Python walk and render, which handle any letter."""
+    from globalign_tpu.utils import native
+
+    monkeypatch.setattr(native, "load", lambda: None)
+
+
+def test_non_ascii_single_pairs_match_jax_without_native(
+    unicode_mtx, jax_without_native, tmp_path
+):
+    """Strings, cost, score and report bytes under a non-ASCII custom matrix
+    equal the JAX package's once its native layer is off."""
+    for k, (s1, s2) in enumerate(_pairs(41, UNICODE_LETTERS, 5, 1, 60)):
+        got, want = _both(seq_1=s1, seq_2=s2, scoring_mat_path=unicode_mtx)
+        _assert_same(got, want)
+        got.write(file=tmp_path / f"port{k}.txt")
+        want.write(file=tmp_path / f"jax{k}.txt")
+        assert (tmp_path / f"port{k}.txt").read_bytes() == (
+            tmp_path / f"jax{k}.txt"
+        ).read_bytes()
+
+
+def test_non_ascii_blocked_pair_matches_jax_without_native(
+    monkeypatch, unicode_mtx, jax_without_native
+):
+    """A pair past a lowered moves budget (the blocked traceback in both
+    packages) under the non-ASCII matrix."""
+    import functools
+
+    import globalign_tpu.api as jax_api
+    import globalign_tpu_torch.api as torch_api
+
+    monkeypatch.setattr(
+        jax_api, "GotohAligner",
+        functools.partial(JaxAligner, moves_budget_bytes=256),
+    )
+    monkeypatch.setattr(
+        torch_api, "GotohAligner",
+        functools.partial(tga.GotohAligner, moves_budget_bytes=256),
+    )
+    blocked = []
+    real = torch_gotoh.linear_tb.align_blocked
+    monkeypatch.setattr(
+        torch_gotoh.linear_tb, "align_blocked",
+        lambda *a, **k: blocked.append(1) or real(*a, **k),
+    )
+    for s1, s2 in _pairs(43, UNICODE_LETTERS, 2, 60, 90):
+        got, want = _both(seq_1=s1, seq_2=s2, scoring_mat_path=unicode_mtx)
+        _assert_same(got, want)
+    assert blocked == [1, 1]
+
+
+def test_jax_native_layer_fails_on_non_ascii_letters(unicode_mtx):
+    """ROADMAP C5, recorded: with its native layer on, the JAX package
+    walks and renders UTF-8 bytes as letters, so on these pairs it raises
+    or returns strings other than the port's (costs agree where it
+    returns).  The port has no such layer and matches the pure-Python
+    JAX path (the tests above)."""
+    from globalign_tpu.utils import native
+
+    if not native.available():  # no native layer: nothing to get wrong
+        for s1, s2 in _pairs(41, UNICODE_LETTERS, 5, 1, 60):
+            got, want = _both(seq_1=s1, seq_2=s2, scoring_mat_path=unicode_mtx)
+            _assert_same(got, want)
+        return
+    wrong = 0
+    for s1, s2 in _pairs(41, UNICODE_LETTERS, 5, 1, 60):
+        got = tga.find_global_alignment(
+            seq_1=s1, seq_2=s2, scoring_mat_path=unicode_mtx, device="cpu"
+        )
+        try:
+            want = jga.find_global_alignment(
+                seq_1=s1, seq_2=s2, scoring_mat_path=unicode_mtx
+            )
+        except UnicodeDecodeError:
+            wrong += 1
+            continue
+        assert want.cost == got.cost
+        wrong += (want.seq_1_aligned, want.seq_2_aligned) != (
+            got.seq_1_aligned, got.seq_2_aligned
+        )
+    assert wrong > 0

@@ -150,6 +150,24 @@ def test_align_pairs_cost_only():
         assert c.seq_1_aligned is c.middle_part is c.seq_2_aligned is None
 
 
+def test_time_serving_chunk_is_seeded_and_related():
+    """The timing script's chunk: the same pairs from the same seed, each
+    length in range, and seq_2 a relative of its own seq_1 (lower costs
+    than against another pair's seq_1)."""
+    from globalign_tpu_torch.time_serving import dna_chunk
+
+    pairs = dna_chunk(5, count=12, lo=40, hi=60)
+    assert pairs == dna_chunk(5, count=12, lo=40, hi=60)
+    assert pairs != dna_chunk(6, count=12, lo=40, hi=60)
+    for a, b in pairs:
+        assert 40 <= len(a) <= 60 and 40 <= len(b) <= 60
+        assert set(a + b) <= set("ACGT")
+    own = align_pairs(pairs, with_traceback=False, device="cpu")
+    swapped = [(a, pairs[i - 1][1]) for i, (a, _) in enumerate(pairs)]
+    other = align_pairs(swapped, with_traceback=False, device="cpu")
+    assert sum(r.cost for r in own) < sum(r.cost for r in other)
+
+
 def test_align_pairs_custom_scheme():
     batched = align_pairs(
         [("TT", "TA"), ("GGAGGACGTT", "GAG")],
@@ -477,3 +495,88 @@ def test_encode_bucket_names_an_unknown_character():
 
     with pytest.raises(ValueError, match="'N' not present"):
         batch_mod._encode_bucket(Alphabet.from_sequences("ACGT"), ["ACG", "ANT"], 4)
+
+
+# -- ROADMAP C5: non-ASCII letters (the JAX native layer's fault) ----------
+
+UNICODE_LETTERS = "ΩЖ字A"
+UNICODE_MTX = (
+    "# a custom scoring matrix over non-ASCII letters\n"
+    "Ω Ж 字 A -\n"
+    "Ω 4 -2 -3 -1 -3\n"
+    "Ж -2 5 -1 -3 -3\n"
+    "字 -3 -1 4 -2 -3\n"
+    "A -1 -3 -2 5 -3\n"
+    "- -3 -3 -3 -3 4\n"
+)
+
+
+@pytest.fixture
+def unicode_mtx(tmp_path):
+    path = tmp_path / "unicode.mtx"
+    path.write_text(UNICODE_MTX, encoding="utf-8")
+    return path
+
+
+@pytest.mark.parametrize("with_traceback", [False, True])
+def test_align_pairs_non_ascii_matches_jax_without_native(
+    monkeypatch, unicode_mtx, with_traceback
+):
+    """``align_pairs`` under a non-ASCII custom matrix equals JAX
+    ``align_pairs`` with the JAX native layer off, in both modes, across
+    several buckets."""
+    from globalign_tpu.utils import native
+
+    monkeypatch.setattr(native, "load", lambda: None)
+    rng = np.random.default_rng(53 + with_traceback)
+    pairs = _ragged_pairs(rng, UNICODE_LETTERS, 12, lo=1, hi=80)
+    want = jax_align_pairs(pairs, with_traceback=with_traceback,
+                           scoring_mat_path=unicode_mtx)
+    got = align_pairs(pairs, with_traceback=with_traceback, device="cpu",
+                      scoring_mat_path=unicode_mtx)
+    assert _fields(got) == _fields(want)
+    if with_traceback:
+        assert [r.cigar() for r in got] == [r.cigar() for r in want]
+
+
+def test_align_pairs_non_ascii_blocked_matches_jax_without_native(
+    monkeypatch, unicode_mtx
+):
+    """Traceback pairs past a lowered batch budget go through the blocked
+    per-pair traceback and equal JAX (native off) under the matrix."""
+    from globalign_tpu.utils import native
+
+    monkeypatch.setattr(native, "load", lambda: None)
+    rng = np.random.default_rng(59)
+    pairs = _ragged_pairs(rng, UNICODE_LETTERS, 3, lo=60, hi=80)
+    want = jax_align_pairs(pairs, with_traceback=True,
+                           scoring_mat_path=unicode_mtx)
+    monkeypatch.setattr(batch_mod, "DEFAULT_BATCH_MOVES_BUDGET", 64)
+    blocked = _count_calls(monkeypatch, linear_tb, "align_blocked")
+    got = align_pairs(pairs, with_traceback=True, device="cpu",
+                      scoring_mat_path=unicode_mtx)
+    assert _fields(got) == _fields(want)
+    assert len(blocked) == 3
+
+
+def test_jax_align_pairs_native_fails_on_non_ascii(unicode_mtx):
+    """ROADMAP C5, recorded: JAX ``align_pairs(with_traceback=True)``
+    renders through its native layer, which reads UTF-8 bytes as letters:
+    it raises, or its strings differ from the port's.  Cost-only results
+    agree."""
+    from globalign_tpu.utils import native
+
+    rng = np.random.default_rng(53)
+    pairs = _ragged_pairs(rng, UNICODE_LETTERS, 12, lo=1, hi=80)
+    got = align_pairs(pairs, with_traceback=True, device="cpu",
+                      scoring_mat_path=unicode_mtx)
+    costs = jax_align_pairs(pairs, with_traceback=False,
+                            scoring_mat_path=unicode_mtx)
+    assert [r.cost for r in costs] == [r.cost for r in got]
+    try:
+        want = jax_align_pairs(pairs, with_traceback=True,
+                               scoring_mat_path=unicode_mtx)
+    except UnicodeDecodeError:
+        assert native.available()
+        return
+    assert (_fields(want) != _fields(got)) == native.available()

@@ -101,8 +101,9 @@ def test_kernel_matches_plain_with_the_table_in_global_memory(cuda_device):
 
 
 def test_kernel_matches_plain_with_the_strip_state_in_global_memory(cuda_device):
-    """20 000 columns: the strips' row state (16 bytes a column) exceeds
-    shared memory and lives in the per-pair global scratch."""
+    """20 000 columns: the strip state (16 bytes a column) is more than
+    a block's shared memory holds; it lives in registers, W = 16 columns a
+    lane over a cluster of 8 blocks."""
     rng = np.random.default_rng(7)
     _assert_kernel_equals_plain(cuda_device, _case(rng, "ACGT", [(9, 20000)]))
 
@@ -116,6 +117,43 @@ def test_main_path_runs_the_kernel(cuda_device):
     assert fill_cuda.batch_moves.launches == before + 1
     want = find_global_alignment(seq_1=s1, seq_2=s2, device="cpu")
     assert got == want and str(got) == str(want)
+
+
+# The launch shapes of fill_cuda.plan: 1, 2 and 8 bands, band widths +-1,
+# passes (32 768 columns a cluster with codes, 65 536 without) +-1, fewer
+# than 32 columns, one column, m_true 0 and 1, and ragged batches whose
+# pairs get different band counts.
+PLAN_SHAPES = [
+    [(40, 100)], [(40, 256)], [(90, 8000)],
+    [(30, 127)], [(30, 129)], [(30, 1023)], [(30, 1025)],
+    [(20, 2047)], [(20, 2049)], [(20, 8191)], [(20, 8193)],
+    [(4, 32_767)], [(4, 32_769)], [(2, 65_535)], [(2, 65_537)],
+    [(1, 1)], [(0, 1)], [(1, 0)], [(0, 31)], [(1, 31)], [(33, 31)],
+    [(90, 8000), (0, 300), (1, 33), (64, 1)],
+    [(50, 4096), (50, 1), (7, 2049), (0, 0), (30, 700)],
+]
+
+
+@pytest.mark.parametrize("shapes", PLAN_SHAPES)
+def test_plan_shapes_match_plain(cuda_device, shapes):
+    """Codes, final3 and last rows, plain and injected below row m // 2, at
+    the plan's band and pass edges; one launch a call."""
+    rng = np.random.default_rng(sum(n for _, n in shapes) + len(shapes))
+    args = _case(rng, "ACGT", shapes)
+    _assert_kernel_equals_plain(cuda_device, args)
+    want = fill_cuda.batch_last_rows(*args)
+    got = fill_cuda.batch_last_rows(*_on(cuda_device, args))
+    assert torch.equal(got.cpu(), want)
+    blk, top, c0 = _checkpointed(args, [m // 2 for m in args[5]])
+    inj = dict(row0=top, col0y_top=c0)
+    dev_inj = {k: v.to(cuda_device) for k, v in inj.items()}
+    want3, want_mv = fill_cuda.batch_moves(*blk, **inj)
+    got3, got_mv = fill_cuda.batch_moves(*_on(cuda_device, blk), **dev_inj)
+    assert torch.equal(got3.cpu(), want3) and torch.equal(got_mv.cpu(), want_mv)
+    want = fill_cuda.batch_last_rows(*blk, **inj)
+    got = fill_cuda.batch_last_rows(*_on(cuda_device, blk), **dev_inj)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
 
 
 def test_kernel_rejects_mixed_devices(cuda_device):
@@ -148,7 +186,7 @@ def _checkpointed(args, split_rows):
         ("ARNDCQEGHILKMFPSTWYV", [(200, 230)], [77], dict(scoring_mat_name="BLOSUM62")),
         ("ACGT", [(150, 97)], [100], dict(match_score=3, mismatch_score=-2,
                                            gap_open_score=-5, gap_extension_score=-1)),
-        # 20 000 columns: the strip state lives in global memory
+        # 20 000 columns: W = 16 over 8 bands of 5 warps (a replay block)
         ("ACGT", [(100, 20000)], [60], {}),
     ],
 )
@@ -409,7 +447,7 @@ def _strip_case(rng, letters, rb, width, **scheme_kw):
 
 
 @pytest.mark.parametrize("rb,width", [(1, 1), (5, 0), (3, 31), (17, 1024),
-                                      (64, 13_000)])
+                                      (64, 13_000), (256, 50_000)])
 @pytest.mark.parametrize("letters,scheme_kw", [
     ("ACGT", {}),
     ("ACDEFGHIKLMNPQRSTVWY", {"scoring_mat_name": "BLOSUM62"}),

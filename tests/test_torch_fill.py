@@ -21,7 +21,7 @@ import torch
 from globalign_tpu.ops import fill_lanes, fill_pallas
 from globalign_tpu.ops import fill_rows as jax_rows
 from globalign_tpu.ops import fill_scan as jax_scan
-from globalign_tpu_torch.ops import fill_cuda, fill_rows, fill_scan
+from globalign_tpu_torch.ops import fill_batch, fill_cuda, fill_rows, fill_scan
 
 
 def _t(x):
@@ -253,11 +253,117 @@ def test_batch_moves_has_no_route_off_cpu_and_cuda():
     assert fill_cuda.batch_moves.launches == before
 
 
-def test_plan_covers_every_column():
-    for n in (0, 1, 31, 32, 500, 1000, 1024, 1025, 4096, 8000, 20000):
-        threads, width = fill_cuda._plan(n)
-        assert threads % 32 == 0 and 32 <= threads <= fill_cuda.MAX_THREADS
-        assert threads * width >= n and width >= 1
+SMS = 132  # the H100 SXM's SMs
+REGISTERS = 65_536  # 32-bit registers an SM
+PLAN_BATCHES = (1, 2, 7, 21, 64, 131, 132, 133, 500, 1024)
+
+
+def _plan_widths():
+    """Every n the plan tests visit: all of 1..300, each band and pass
+    width of every instance +-1, and a geometric walk to 50 000."""
+    ns = set(range(1, 301)) | {50_000}
+    for w in fill_cuda.WIDTHS:
+        for warps in range(1, fill_cuda.MAX_WARPS + 1):
+            for bands in range(1, fill_cuda.MAX_BANDS + 1):
+                edge = bands * warps * 32 * w
+                ns |= {edge - 1, edge, edge + 1}
+    x = 300.0
+    while x < 50_000:
+        ns.add(int(x))
+        x *= 1.07
+    return sorted(n for n in ns if 1 <= n <= 50_000)
+
+
+def _kernel_constants():
+    """The launch limits and instances that csrc/gotoh_fill.cu builds."""
+    import re
+
+    from globalign_tpu_torch.utils import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "gotoh_fill.cu").read_text()
+    consts = {
+        name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+        for name in ("MAX_WARPS", "MAX_BANDS", "RING", "CH")
+    }
+    pick = src[src.index("Kernel pick_width"):]
+    pick = pick[: pick.index("\n}\n")]
+    consts["widths"] = tuple(int(w) for w in re.findall(r"case (\d+):", pick))
+    return consts
+
+
+def test_plan_limits_match_the_kernel():
+    """The plan's constants are the kernel's: warps a block, bands a
+    cluster, the W instances (codes stop at W = 16)."""
+    k = _kernel_constants()
+    assert k["MAX_WARPS"] == fill_cuda.MAX_WARPS
+    assert k["MAX_BANDS"] == fill_cuda.MAX_BANDS
+    assert k["widths"] == fill_cuda.WIDTHS
+    assert set(fill_cuda.MOVES_WIDTHS) < set(fill_cuda.WIDTHS)
+
+
+@pytest.mark.parametrize("want_moves", [False, True])
+@pytest.mark.parametrize("batch", PLAN_BATCHES)
+def test_plan_covers_every_column(batch, want_moves):
+    """Over n = 1..50 000: every column lies in exactly one strip (pass,
+    band, warp, lane) of the launch, every band of the first pass holds a
+    column, and W is a built instance."""
+    widths = fill_cuda.MOVES_WIDTHS if want_moves else fill_cuda.WIDTHS
+    for n in _plan_widths():
+        lp = fill_cuda.plan(batch, n, want_moves, SMS)
+        assert lp.width in widths
+        assert 1 <= lp.warps <= fill_cuda.MAX_WARPS
+        assert 1 <= lp.bands <= fill_cuda.MAX_BANDS
+        per_pass = lp.bands * lp.band_columns
+        assert (lp.passes - 1) * per_pass < n <= lp.passes * per_pass
+        assert (lp.bands - 1) * lp.band_columns < min(n, per_pass)
+        # the kernel's map: column j -> pass, band, warp, lane, slot
+        j = np.arange(n, dtype=np.int64)
+        q, r = np.divmod(j, per_pass)
+        g, s = np.divmod(r, 32 * lp.width)
+        band, warp = np.divmod(g, lp.warps)
+        lane, slot = np.divmod(s, lp.width)
+        assert band.max() < lp.bands and q.max() < lp.passes
+        key = (((q * lp.bands + band) * lp.warps + warp) * 32 + lane) * lp.width + slot
+        assert np.array_equal(np.sort(key), j)
+
+
+@pytest.mark.parametrize("want_moves", [False, True])
+@pytest.mark.parametrize("batch", PLAN_BATCHES)
+def test_plan_fits_the_card(batch, want_moves):
+    """The block's shared memory (rings, flags, staged codes) leaves room
+    for a 60-letter cost table; its threads can hold 255 registers each;
+    a batch that fills the card gets one block a pair where one block of
+    the widest instance holds the pair, and a small batch spreads a pair
+    over more SMs."""
+    widest = (fill_cuda.MOVES_WIDTHS if want_moves else fill_cuda.WIDTHS)[-1]
+    k = _kernel_constants()
+    barriers = 2 * k["MAX_WARPS"] * (k["RING"] // k["CH"] * 8 + 4)
+    for n in _plan_widths():
+        lp = fill_cuda.plan(batch, n, want_moves, SMS)
+        # a warp's edge ring of int4s and, with codes, its 32 staged rows of
+        # 32 W bytes and at most 8 of bank padding; the launcher refuses
+        # whatever the card itself cannot place
+        smem = lp.warps * k["RING"] * 16 + barriers
+        if want_moves:
+            smem += lp.warps * 32 * (32 * lp.width + 8)
+        assert smem + 4 * 60 * 60 <= fill_batch.SMEM_OPTIN
+        assert lp.warps * 32 * 255 <= REGISTERS
+        if batch >= SMS and n <= fill_cuda.MAX_WARPS * 32 * widest:
+            assert lp.bands == 1
+        if batch < SMS and n > 32 * lp.width:  # a chain of 2+ warps
+            assert lp.bands > 1
+
+
+def test_plan_main_shapes():
+    """The launches of the main paths' shapes (PERF.md section 6)."""
+    P = fill_cuda.FillPlan
+    assert fill_cuda.plan(1, 8000, True, SMS) == P(4, 8, 8, 1)
+    assert fill_cuda.plan(1, 8000, False, SMS) == P(4, 8, 8, 1)
+    assert fill_cuda.plan(1, 20_000, True, SMS) == P(16, 5, 8, 1)
+    assert fill_cuda.plan(1, 50_000, False, SMS) == P(32, 7, 7, 1)
+    assert fill_cuda.plan(21, 1024, True, SMS) == P(4, 2, 4, 1)
+    assert fill_cuda.plan(1024, 1024, False, SMS) == P(4, 8, 1, 1)
+    assert fill_cuda.plan(1, 100_000, False, SMS).passes == 2
 
 
 # -- boundary injection and last rows (the blocked traceback's fills) -----
