@@ -19,8 +19,11 @@ phase fails:
      widths +-1, fewer than 32 columns, m_true 0 / 1, ragged batches whose
      pairs get different band counts); ``walk_block`` over the
      same codes; the split cost; ``gotoh_batch`` (final3 and last rows) on
-     ragged batches of 1 to 4096 columns, m_true in {0, 1, 7, ..., M}, under
-     DNA, BLOSUM62, an odd asymmetric scheme and a 60-letter alphabet;
+     ragged launches of three buckets (every width class, 1 to 1024
+     columns, and 1023 / 1024 / 1025, the last past the cap on
+     ``gotoh_fill``), m_true in {0, 1, 7, ..., M}, under DNA, BLOSUM62, an
+     odd asymmetric scheme and a 60-letter alphabet, and one width class
+     at B = 1 and B = 2 x SMs;
      ``gotoh_fill``'s strip mode (``strip_fill_block``) at RB in {1, 3,
      256} x W in {1, 31, 1024, 16 000}, its col0 a real neighbour's edge,
      under the same four schemes (fin and every edge row), and a 256-row
@@ -29,7 +32,7 @@ phase fails:
      and the cost) at (m, n) from (0, 0) to 12 345 x 3000, some buffers
      padded, under four uniform schemes; ``batch_final3_dual`` on two sets
      of B in {1, 33, 132} ragged pairs, 1 to 5000 columns (across the
-     4096-column cap), DNA, BLOSUM62 and the 60-letter alphabet;
+     1024-column cap), DNA, BLOSUM62 and the 60-letter alphabet;
   2. the main paths, with every launch count set to 0 before each and read
      after it: ``find_global_alignment(..., device="cuda")`` on the
      reference goldens and pairs up to the moves budget (one fill each,
@@ -43,7 +46,8 @@ phase fails:
      ``align_pairs`` on 1024-pair DNA and BLOSUM62 chunks (lengths
      819-1024), cost-only and traceback, equal pair by pair to the
      single-pair path on the card and, on 32 pairs, to ``device="cpu"``,
-     with one fill (and one walk) per bucket; a lowered moves budget
+     cost-only with one ``gotoh_batch`` launch a width class (one a
+     chunk), traceback with one fill and one walk per bucket; a lowered moves budget
      (sub-batches and a blocked pair); ``flush=False`` + ``resolve()``; the
      batch CLI on the card and on the CPU (byte-identical TSVs); the
      parallel layer: on an NCCL world of one, ``align_pairs(mesh=)`` on both
@@ -68,12 +72,17 @@ phase fails:
      split ``cost`` beside the direct cost-only fill, from a golden-sized
      pair up; the walk kernel beside the plain walk; ``align_pairs`` at
      64 x 1024², 64 x 4096² and the two chunks, both modes, split into
-     device fill and walk and host enqueue, fetch and render;
-     ``gotoh_batch`` beside ``gotoh_fill``'s final3 mode on the same
-     buckets; the batch runner over 4 chunks of 1024 pairs; the probes
+     device fill and walk and host enqueue, fetch and render; the chunk's
+     one ragged cost call, its largest bucket and the chunk as one padded
+     launch beside ``gotoh_fill``'s final3 mode and the bound (device
+     time: the host's enqueue hidden behind a sleep kernel); the crossover
+     sweep, B in {1, 33, ..., 1024} pairs of 1024^2 and 256^2, both
+     kernels; the batch runner over 4 chunks of 1024 pairs; the probes
      (checked against the row scan first): the peak cell rate of a fill's
      arithmetic and the latency of a dependent load, from which each
-     kernel's bound is computed; the strip mode on a 256 x 50 000 block
+     kernel's bound is computed; ``walk_block`` on a traceback bucket of
+     the DNA chunk beside its bound (the longest walk's chain of dependent
+     loads); the strip mode on a 256 x 50 000 block
      beside its plain version and its bound; the 50 000^2 cost on a world
      of one beside ``cost()`` and the direct fill; the gloo exchange per
      super-step; ``align_pairs`` on a world of one beside no mesh; the wave
@@ -94,6 +103,7 @@ import collections
 import functools
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -364,11 +374,38 @@ def main() -> int:
     log(smi)
     card = f"({smi})"
     t0 = time.perf_counter()
+    # gotoh_batch's registers and spills a width instance (ptxas -v), in
+    # parallel with the build.
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ptxas = subprocess.Popen(
+        [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
+         str(cuda_build.BUILD_DIR / "gotoh_batch-ptxas.cubin"),
+         str(cuda_build.CSRC_DIR / "gotoh_batch.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
     libs = cuda_build.build(cuda_build.sources() + [peaks.SOURCE])
     cuda_build.load()
     peaks.load()
     log(f"phase 0: built {', '.join(p.name for p in libs)} in "
         f"{time.perf_counter() - t0:.3f} s")
+    ptxas_out, _ = ptxas.communicate(timeout=300)
+    if ptxas.returncode != 0:
+        raise SystemExit(f"phase 0 failed: ptxas -v of gotoh_batch\n{ptxas_out}")
+    batch_regs = {}  # "W=32" / "W=32 last" -> registers, spill bytes, warps/SM
+    for block in ptxas_out.split("Compiling entry function")[1:]:
+        width, last = re.search(r"kernelILi(\d+)ELb([01])E", block).groups()
+        regs = int(re.search(r"Used (\d+) registers", block).group(1))
+        spills = [int(x) for x in re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", block).groups()]
+        per_warp = -(-regs * 32 // 256) * 256  # allocated in units of 256
+        warps = min(64, 65536 // per_warp) // fill_batch.WARPS * fill_batch.WARPS
+        batch_regs[f"W={width}{' last' if last == '1' else ''}"] = dict(
+            registers=regs, spill_bytes=sum(spills), warps_per_sm=warps)
+    log(f"phase 0: gotoh_batch (ptxas -v, sm_90a): " + "; ".join(
+        f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes, "
+        f"{v['warps_per_sm']} warps an SM in blocks of {fill_batch.WARPS}"
+        for k, v in sorted(batch_regs.items())))
 
     counters = {
         "batch_moves": fill_cuda.batch_moves,
@@ -655,31 +692,76 @@ def main() -> int:
         if err != 0:
             raise SystemExit(f"phase 1 failed (split): {name} {m} x {n}")
 
-    # gotoh_batch (the batch cost fill) on ragged batches: final3 and the
+    # gotoh_batch (the batch cost fill) on ragged launches: final3 and the
     # last rows at every column, on the card against the plain version on
-    # the CPU, at widths from one column to the cap, every scheme.
+    # the CPU.  Each call holds three buckets: one of n_cols columns (m_true
+    # 0, 1, 7 and M, partial and zero widths), one of every width class
+    # (n < 32 and 33-1024 columns) and one of 1023 / 1024 / 1025 columns,
+    # the last past the 1024-column cap (gotoh_fill's final3 / last-row
+    # mode, one launch each); gotoh_batch launches once per width class.
     batch_err = 0
     for name, letters in (("dna", DNA), ("blosum62", PROTEIN),
                           ("odd_asym", DNA), ("wide60", WIDE)):
-        for n_cols in (1, 31, 32, 33, 255, 1024, fill_batch.MAX_COLUMNS):
-            rows = 300 if n_cols <= 1024 else 64
-            shapes = [(rows, n_cols), (0, n_cols), (1, n_cols),
-                      (rows, max(0, n_cols - 7)), (rows // 2, n_cols // 3),
-                      (rows, 0), (7, n_cols), (rows, 1)]
-            args = make_pairs(name, letters, shapes)
-            want3, _, want_last = fill_cuda._plain(*args, None, None, False, True)
-            before = fill_batch.batch_final3.launches
-            got3 = fill_batch.batch_final3(*to_dev(args))
-            got_last = fill_batch.batch_final3(*to_dev(args), last_rows=True)
+        for n_cols in (1, 31, 33, 255, 1023, fill_batch.MAX_COLUMNS, 1025):
+            rows = 300 if n_cols <= 255 else 200
+            buckets = [
+                [(rows, n_cols), (0, n_cols), (1, n_cols),
+                 (rows, max(0, n_cols - 7)), (rows // 2, n_cols // 3),
+                 (rows, 0), (7, n_cols), (rows, 1)],
+                [(40, 20), (1, 100), (33, 129), (70, 256), (7, 257),
+                 (90, 511), (0, 700), (64, 1000)],
+                [(50, 1023), (1, 1024), (7, 1024)],
+            ]
+            scheme = schemes[name](letters, letters)  # one for the launch
+            made = [fill_args(scheme, [
+                (random_seq(rng, letters, m), random_seq(rng, letters, n))
+                for m, n in shapes]) for shapes in buckets]
+            cost, gid, go = made[0][2:5]
+            args = ([m[0] for m in made], [m[1] for m in made], cost, gid, go,
+                    [m[5] for m in made], [m[6] for m in made])
+            on_card = ([t.to(dev) for t in args[0]], [t.to(dev) for t in args[1]],
+                       cost.to(dev), gid, go, *args[5:])
+            want3 = fill_batch.batch_final3_ragged(*args)
+            want_last = fill_batch.batch_final3_ragged(*args, last_rows=True)
+            classes = {fill_batch.width_class(n) for m in made for n in m[6]
+                       if m[1].shape[1] - 1 <= fill_batch.MAX_COLUMNS}
+            wide = sum(m[1].shape[1] - 1 > fill_batch.MAX_COLUMNS for m in made)
+            before = (fill_batch.batch_final3.launches,
+                      fill_cuda.batch_moves.launches,
+                      fill_cuda.batch_last_rows.launches)
+            got3 = fill_batch.batch_final3_ragged(*on_card)
+            got_last = fill_batch.batch_final3_ragged(*on_card, last_rows=True)
             torch.cuda.synchronize()
-            if fill_batch.batch_final3.launches != before + 2:
-                raise SystemExit(f"phase 1 failed: gotoh_batch not launched "
-                                 f"for {name} N={n_cols}")
-            err = max(abs_err(got3, want3), abs_err(got_last, want_last))
+            after = (fill_batch.batch_final3.launches,
+                     fill_cuda.batch_moves.launches,
+                     fill_cuda.batch_last_rows.launches)
+            if [a - b for a, b in zip(after, before)] != [2 * len(classes), wide, wide]:
+                raise SystemExit(f"phase 1 failed: gotoh_batch launches for "
+                                 f"{name} N={n_cols}: {before} -> {after}, "
+                                 f"{len(classes)} width classes")
+            err = max([abs_err(got3, want3)]
+                      + [abs_err(g, w) for g, w in zip(got_last, want_last)])
             batch_err = max(batch_err, err)
-            log(f"phase 1: gotoh_batch {name} {len(shapes)} pairs, N={n_cols}, "
-                f"m_true {[m for m, _ in shapes]}: final3 and last rows max "
-                f"abs err {err}")
+            log(f"phase 1: gotoh_batch ragged {name}, buckets of N={n_cols}, "
+                f"{args[1][1].shape[1] - 1} and {args[1][2].shape[1] - 1} "
+                f"({sum(len(m[5]) for m in made)} pairs, width classes "
+                f"{sorted(classes)}, {wide} bucket past the cap): final3 and "
+                f"last rows max abs err {err}")
+    # One width class at a batch of 1 and of 2 x SMs (a lone warp on the
+    # card, and two pairs an SM): one launch each, equal to the plain
+    # version.
+    for nb in (1, 2 * sms):
+        args = make_pairs("dna", DNA, [(1024, 1024)] + [(300, 1000)] * (nb - 1))
+        want3 = fill_batch.batch_final3(*args)
+        before = fill_batch.batch_final3.launches
+        got3 = fill_batch.batch_final3(*to_dev(args))
+        torch.cuda.synchronize()
+        err = abs_err(got3, want3)
+        batch_err = max(batch_err, err)
+        if fill_batch.batch_final3.launches != before + 1 or err:
+            raise SystemExit(f"phase 1 failed: gotoh_batch B={nb}")
+        log(f"phase 1: gotoh_batch B={nb} of up to 1024 x 1024: one launch, "
+            f"final3 max abs err {err}")
     if batch_err != 0:
         raise SystemExit("phase 1 failed: gotoh_batch != plain version")
 
@@ -829,8 +911,9 @@ def main() -> int:
             f"four captured waves at every row and the cost max abs err 0")
 
     # batch_final3_dual (TPU kernel #11's entry points) against its plain
-    # version: two sets of B ragged pairs in one launch, across
-    # gotoh_batch's 4096-column cap (5000: gotoh_fill final3); short rows
+    # version: two sets of B ragged pairs in one call, one gotoh_batch
+    # launch a width class, across gotoh_batch's 1024-column cap (1025 and
+    # 5000: one gotoh_fill final3 launch); short rows
     # (m_true 0..32) for many pairs, and rows near a 1024 bucket's top
     # (m_true 992..1024, the DNA chunk's widest buckets) for a few.
     dual_err = 0
@@ -838,7 +921,7 @@ def main() -> int:
     for name, letters in (("dna", DNA), ("blosum62", PROTEIN),
                           ("wide60", WIDE)):
         for batch, lo, hi in dual_cases:
-            for n_cols in (1, 64, 1024, fill_batch.MAX_COLUMNS, 5000):
+            for n_cols in (1, 64, fill_batch.MAX_COLUMNS, 1025, 5000):
                 shapes = [(int(rng.integers(lo, hi + 1)),
                            int(rng.integers(0, n_cols + 1)))
                           for _ in range(2 * batch)]
@@ -854,10 +937,12 @@ def main() -> int:
                     args[0].to(dev), args[1].to(dev), cost.to(dev), *args[3:]
                 )
                 torch.cuda.synchronize()
+                design = 1 if n_cols > fill_batch.MAX_COLUMNS else len(
+                    {fill_batch.width_class(n) for n in nt})
                 if (fill_batch.batch_final3.launches
-                        + fill_cuda.batch_moves.launches) != before + 1:
+                        + fill_cuda.batch_moves.launches) != before + design:
                     raise SystemExit("phase 1 failed: batch_final3_dual is not "
-                                     "one launch")
+                                     "one launch a width class")
                 err = abs_err(got, want)
                 dual_err = max(dual_err, err)
                 if err != 0:
@@ -865,7 +950,8 @@ def main() -> int:
                                      f"B={batch} N={n_cols}")
         log(f"phase 1: batch_final3_dual {name}, 2 sets of (B, m_true) in "
             f"{[(b, f'{lo}..{hi}') for b, lo, hi in dual_cases]} x N in (1, 64, "
-            f"1024, 4096, 5000): (2, B, 3) max abs err 0, one launch a call")
+            f"1024, 1025, 5000): (2, B, 3) max abs err 0, one launch a width "
+            f"class")
 
     # -- phase 2: the main path -----------------------------------------
     runs = [
@@ -1068,6 +1154,13 @@ def main() -> int:
                    for (mm, nn), k in keys.items())
         return len(keys), subs
 
+    def cost_launches(pairs):
+        """gotoh_batch launches of a cost-only align_pairs call: one per
+        width class of the pairs (every bucket within the cap)."""
+        if any(bucket_length(len(b)) > fill_batch.MAX_COLUMNS for _, b in pairs):
+            raise SystemExit("phase 2 failed: a chunk bucket past the cap")
+        return len({fill_batch.width_class(len(b)) for _, b in pairs})
+
     chunks = {"dna": (serving_chunk(rng, DNA, 1024, 819, 1024), {}),
               "blosum62": (serving_chunk(rng, PROTEIN, 1024, 819, 1024),
                            dict(scoring_mat_name="BLOSUM62"))}
@@ -1085,9 +1178,9 @@ def main() -> int:
             counts = read_counts()
             add_main(counts)
             chunk_results[name, with_tb] = (got, counts)
-            design = (
+            design = (  # cost-only: one gotoh_batch launch a width class
                 launches(batch_moves=nsubs, walk_block=nsubs)
-                if with_tb else launches(batch_final3=nbuckets)
+                if with_tb else launches(batch_final3=cost_launches(pairs))
             )
             if counts != design:
                 raise SystemExit(f"phase 2 failed: align_pairs {name} "
@@ -1116,7 +1209,9 @@ def main() -> int:
                                  f"traceback={with_tb} != device='cpu'")
             log(f"phase 2: align_pairs {name} 1024 pairs ({nbuckets} buckets), "
                 f"traceback={with_tb}: = single-pair path on the card, first "
-                f"32 = device='cpu'; launches {counts}")
+                f"32 = device='cpu'; launches {counts} (cost-only: one "
+                f"gotoh_batch launch a width class, where a launch a bucket "
+                f"made {nbuckets})")
 
     # A lowered budget: the 300-nt bucket splits into sub-batches and the
     # 1200 x 1100 pair goes blocked; equal to the default budget's result
@@ -1196,7 +1291,8 @@ def main() -> int:
     # -- phase 2, the parallel layer --------------------------------------
     # A world of one on NCCL (the production mesh on one H100): align_pairs
     # over the mesh on both chunks, both modes, equal to the unsharded
-    # call with the same launches; sharded_pair_cost on a 50 000 x 50 000
+    # call, with its launches in traceback mode and a gotoh_batch launch a
+    # bucket cost-only (the mesh path shards each bucket); sharded_pair_cost on a 50 000 x 50 000
     # DNA pair, one strip-mode launch a block, equal to cost() (the split).
     from globalign_tpu_torch.parallel import make_pair_mesh, multihost, seqpar
 
@@ -1208,6 +1304,8 @@ def main() -> int:
         scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
         for with_tb in (False, True):
             want, want_counts = chunk_results[name, with_tb]
+            if not with_tb:  # the mesh path keeps a launch a bucket shard
+                want_counts = launches(batch_final3=bucket_counts(pairs)[0])
             torch.cuda.synchronize()
             reset_counts()
             got = align_pairs(pairs, scheme=scheme, with_traceback=with_tb,
@@ -1491,6 +1589,22 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def device_ms(fn, reps: int) -> float:
+        """Device time a call: as cuda_ms, with the card held in a sleep
+        kernel while the host enqueues the timed calls, so gaps of host
+        work between launches do not count."""
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)  # ~0.1 s at 1.98 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
     kernel_ms = plain_ms = fill_size = None
     for size in (4096, 8000):
         s1 = random_seq(rng, DNA, size)
@@ -1722,9 +1836,10 @@ def main() -> int:
         rows = []
         for _ in range(reps):
             spans = {"fill": [], "walk": []}
-            patched = [(fill_batch, "batch_final3", "fill"),
-                       (fill_cuda, "batch_moves", "fill"),
-                       (linear_tb, "walk_block", "walk")]
+            patched = (  # each launch under one wrapper's span
+                [(fill_cuda, "batch_moves", "fill"), (linear_tb, "walk_block", "walk")]
+                if with_tb else [(fill_batch, "batch_final3_ragged", "fill")]
+            )
             saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
             phases = {}
             try:
@@ -1745,6 +1860,7 @@ def main() -> int:
                 1e3 * phases.get("fill", 0.0),
                 1e3 * phases.get("fetch", 0.0),
                 1e3 * phases.get("traceback", 0.0),
+                1e3 * phases.get("encode", 0.0),
             ))
         return [float(np.median(col)) for col in zip(*rows)]
 
@@ -1837,16 +1953,19 @@ def main() -> int:
         scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
         cells = sum(len(a) * len(b) for a, b in pairs)
         for with_tb in (False, True):
-            tot, fill_ms, walk_ms_b, enq, fetch, render = time_align_pairs(
+            tot, fill_ms, walk_ms_b, enq, fetch, render, enc = time_align_pairs(
                 pairs, scheme, with_tb
             )
             log(f"phase 3: align_pairs {arm} traceback={with_tb} on {card}: "
                 f"{tot:.4f} ms ({len(pairs) / tot * 1e3:.2f} pairs/s, "
                 f"{cells / tot / 1e6:.4f} GCUPS); device: fill {fill_ms:.4f} ms"
-                f", walk {walk_ms_b:.4f} ms; host: enqueue {enq:.4f} ms, fetch "
-                f"(wait + copy) {fetch:.4f} ms, render {render:.4f} ms")
+                f", walk {walk_ms_b:.4f} ms; host: encode {enc:.4f} ms, enqueue "
+                f"{enq:.4f} ms, fetch (wait + copy) {fetch:.4f} ms, render "
+                f"{render:.4f} ms")
         buckets = bucket_inputs(pairs, scheme)
-        gb = sum(cuda_ms(lambda: fill_batch.batch_final3(*a), 3) for a in buckets)
+        ragged = [list(x) for x in zip(*buckets)]  # the main path's one call
+        ragged[2:5] = buckets[0][2:5]
+        gb = cuda_ms(lambda: fill_batch.batch_final3_ragged(*ragged), 3)
         gf = sum(
             cuda_ms(lambda: fill_cuda.batch_moves(*a, want_moves=False), 3)
             for a in buckets
@@ -1860,10 +1979,11 @@ def main() -> int:
             fill_bytes(a, 12 * len(a[5]) + a[0].shape[1] * a[1].shape[1] * len(a[5]))
             for a in buckets
         ))
-        log(f"phase 3: cost fills of {arm} ({len(buckets)} buckets, one launch "
-            f"each) on {card}: gotoh_batch {gb:.4f} ms ({cells / gb / 1e6:.4f} "
-            f"GCUPS), gotoh_fill final3 {gf:.4f} ms ({cells / gf / 1e6:.4f} "
-            f"GCUPS); bound {b_ms:.4f} ms ({b_by})")
+        log(f"phase 3: cost fills of {arm} ({len(buckets)} buckets) on {card}: "
+            f"batch_final3_ragged over all of them (align_pairs' one call) "
+            f"{gb:.4f} ms ({cells / gb / 1e6:.4f} GCUPS), gotoh_fill final3 a "
+            f"launch a bucket {gf:.4f} ms ({cells / gf / 1e6:.4f} GCUPS); "
+            f"bound {b_ms:.4f} ms ({b_by})")
         log(f"phase 3: moves fills of {arm} ({len(buckets)} buckets, one "
             f"gotoh_fill launch each) on {card}: {gm:.4f} ms "
             f"({cells / gm / 1e6:.4f} GCUPS); bound {m_ms:.4f} ms ({m_by})")
@@ -1872,8 +1992,8 @@ def main() -> int:
     dna_buckets = arm_cost["1024-pair DNA chunk"][0]
     bucket = max(dna_buckets, key=lambda a: len(a[5]))
     bucket_cells = sum(m * n for m, n in zip(bucket[5], bucket[6]))
-    batch_ms = cuda_ms(lambda: fill_batch.batch_final3(*bucket), 5)
-    batch_fill_ms = cuda_ms(
+    batch_ms = device_ms(lambda: fill_batch.batch_final3(*bucket), 5)
+    batch_fill_ms = device_ms(
         lambda: fill_cuda.batch_moves(*bucket, want_moves=False), 5
     )
     ta_b, tb_b, cost_b, gid_b, go_b, mt_b, nt_b = bucket
@@ -1888,8 +2008,8 @@ def main() -> int:
         bucket_cells, "cost", fill_bytes(bucket, 12 * len(mt_b))
     )
     log(f"phase 3: gotoh_batch on one {ta_b.shape[1] - 1} x {tb_b.shape[1] - 1} "
-        f"bucket of {len(mt_b)} pairs on {card}: {batch_ms:.4f} ms, gotoh_fill "
-        f"final3 {batch_fill_ms:.4f} ms, plain row scan on the card "
+        f"bucket of {len(mt_b)} pairs on {card} (device time): {batch_ms:.4f} "
+        f"ms, gotoh_fill final3 {batch_fill_ms:.4f} ms, plain row scan on the card "
         f"{plain_batch_ms:.4f} ms, bound {batch_bound:.4f} ms ({batch_bound_by})")
 
     # The whole DNA chunk as one launch, padded to its widest bucket (the
@@ -1899,8 +2019,8 @@ def main() -> int:
     whole = to_dev(fill_args(
         resolve_scheme(*("".join(s) for s in zip(*dna_pairs))), dna_pairs
     ))
-    one_batch = cuda_ms(lambda: fill_batch.batch_final3(*whole), 5)
-    one_fill = cuda_ms(
+    one_batch = device_ms(lambda: fill_batch.batch_final3(*whole), 5)
+    one_fill = device_ms(
         lambda: fill_cuda.batch_moves(*whole, want_moves=False), 3
     )
     same = torch.equal(
@@ -1910,11 +2030,58 @@ def main() -> int:
     if not same:
         raise SystemExit("phase 3 failed: gotoh_batch != gotoh_fill final3")
     whole_cells = sum(m * n for m, n in zip(whole[5], whole[6]))
+    whole_bound, whole_by = bound(whole_cells, "cost",
+                                  fill_bytes(whole, 12 * len(whole[5])))
     log(f"phase 3: the DNA chunk as one launch of 1024 pairs padded to "
-        f"{whole[0].shape[1] - 1} x {whole[1].shape[1] - 1} on {card}: "
-        f"gotoh_batch {one_batch:.4f} ms ({whole_cells / one_batch / 1e6:.4f} "
-        f"GCUPS), gotoh_fill final3 {one_fill:.4f} ms "
-        f"({whole_cells / one_fill / 1e6:.4f} GCUPS); final3 equal")
+        f"{whole[0].shape[1] - 1} x {whole[1].shape[1] - 1} on {card} (device "
+        f"time): gotoh_batch {one_batch:.4f} ms ({whole_cells / one_batch / 1e6:.4f} "
+        f"GCUPS, {whole_cells / (one_batch * 1e-3) / (sms * sm_hz):.4f} cells a "
+        f"clock an SM), gotoh_fill final3 {one_fill:.4f} ms "
+        f"({whole_cells / one_fill / 1e6:.4f} GCUPS); bound {whole_bound:.4f} ms "
+        f"({whole_by}); final3 equal")
+
+    # The main path's call on the DNA chunk (align_pairs' one ragged fill
+    # over its 49 buckets), device time and host + device.
+    chunk_args = [list(x) for x in zip(*dna_buckets)]
+    chunk_args[2:5] = dna_buckets[0][2:5]
+    chunk_dev_ms = device_ms(lambda: fill_batch.batch_final3_ragged(*chunk_args), 5)
+    chunk_host_ms = arm_cost["1024-pair DNA chunk"][1]
+    chunk_bound, chunk_by = bound(
+        sum(m * n for a in dna_buckets for m, n in zip(a[5], a[6])), "cost",
+        sum(fill_bytes(a, 12 * len(a[5])) for a in dna_buckets),
+    )
+    before = fill_batch.batch_final3.launches
+    fill_batch.batch_final3_ragged(*chunk_args)
+    chunk_call_launches = fill_batch.batch_final3.launches - before
+    log(f"phase 3: the DNA chunk's {len(dna_buckets)} buckets in one "
+        f"batch_final3_ragged call ({chunk_call_launches} gotoh_batch launch) "
+        f"on {card}: device {chunk_dev_ms:.4f} ms, host + device "
+        f"{chunk_host_ms:.4f} ms; bound {chunk_bound:.4f} ms ({chunk_by})")
+
+    # The crossover: gotoh_batch (a warp a pair) against gotoh_fill final3
+    # (a pair over several SMs) at B pairs of n x n, device time; plan()
+    # routes by width alone, which holds only if gotoh_batch wins at every
+    # B.
+    crossover = []
+    for nn in (1024, 256):
+        for nb in (1, 33, 66, 132, 264, 528, 1024):
+            sweep = [(random_seq(rng, DNA, nn), random_seq(rng, DNA, nn))
+                     for _ in range(nb)]
+            a = to_dev(fill_args(dna_fill, sweep))
+            t_batch = device_ms(lambda: fill_batch.batch_final3(*a), 3)
+            t_fill = device_ms(
+                lambda: fill_cuda.batch_moves(*a, want_moves=False), 3)
+            if not torch.equal(fill_batch.batch_final3(*a),
+                               fill_cuda.batch_moves(*a, want_moves=False)[0]):
+                raise SystemExit(f"phase 3 failed: crossover {nb} x {nn}^2")
+            crossover.append(dict(B=nb, n=nn, gotoh_batch_ms=t_batch,
+                                  gotoh_fill_ms=t_fill))
+            log(f"phase 3: crossover {nb} x {nn}^2 on {card} (device time): "
+                f"gotoh_batch {t_batch:.4f} ms, gotoh_fill final3 {t_fill:.4f} "
+                f"ms; final3 equal")
+    lost = [c for c in crossover if c["gotoh_fill_ms"] < c["gotoh_batch_ms"]]
+    log(f"phase 3: crossover: gotoh_fill final3 faster at "
+        f"{[(c['B'], c['n']) for c in lost] or 'no shape'} of the sweep")
 
     # The runner over 4 chunks of 1024 DNA pairs, both modes.  Its one-deep
     # pipeline overlaps a chunk's host work with the next chunk's fills, so
@@ -1968,6 +2135,40 @@ def main() -> int:
         f"{walk_new} loads opening a sector at {peak['l2_load_clocks']:.2f} "
         f"clocks (L2) and {walk_near} at {peak['l1_load_clocks']:.2f} (L1): "
         f"{walk_lat:.4f} ms; bytes {walk_bytes:.6f} ms")
+
+    # walk_block at the shape of most of its launches: one traceback bucket
+    # of the DNA chunk (its largest), walked from each pair's (m, n) as
+    # align_pairs walks it.  A thread walks a pair, so the bound is the
+    # longest walk's chain of dependent loads (walk_bound of each pair's
+    # own tape, codes at its offset in the bucket), against its bytes.
+    ta_w, tb_w, cost_w, gid_w, go_w, mt_w, nt_w = bucket
+    bucket_f3, bucket_mv = fill_cuda.batch_moves(*bucket)
+    n_w = torch.tensor(nt_w, dtype=torch.int32, device=dev)
+    lvl_w = bucket_f3.argmin(-1).to(torch.int32)
+    walk_bucket_ms = cuda_ms(
+        lambda: linear_tb.walk_block(bucket_mv, mt_w, n_w, lvl_w), 5)
+    ops_w, count_w, _, _ = (x.cpu() for x in
+                            linear_tb.walk_block(bucket_mv, mt_w, n_w, lvl_w))
+    wb_plain = linear_tb.walk_block(bucket_mv.cpu(), mt_w, n_w.cpu(), lvl_w.cpu())
+    err = max(abs_err(g, w) for g, w in zip((ops_w, count_w), wb_plain[:2]))
+    if err != 0:
+        raise SystemExit("phase 3 failed: walk_block != plain on a bucket")
+    n1_w, m1_w = bucket_mv.shape[2], bucket_mv.shape[1]
+    chains = []
+    for b in range(len(mt_w)):
+        # the pair's codes start at b (M+1)(N+1): shift its rows by that
+        lat, _ = walk_bound(ops_w[b, : int(count_w[b])].numpy(),
+                           mt_w[b] + b * m1_w, nt_w[b], n1_w)
+        chains.append(lat)
+    walk_b_bytes = 1e3 * (int(count_w.sum()) * 2 + 24 * len(mt_w)) / hbm_bytes_s
+    walk_b_bound = max(max(chains), walk_b_bytes)
+    walk_b_by = "operations" if max(chains) >= walk_b_bytes else "bytes"
+    walk_steps_b = int(count_w.max())
+    log(f"phase 3: walk_block on one traceback bucket of the DNA chunk "
+        f"({len(mt_w)} pairs, {m1_w - 1} x {n1_w - 1}, longest walk "
+        f"{walk_steps_b} steps) on {card}: {walk_bucket_ms:.4f} ms; bound "
+        f"{walk_b_bound:.4f} ms ({walk_b_by}: the longest walk's chain of "
+        f"dependent loads); = plain walk, max abs err {err}")
 
     # -- phase 3, the parallel layer ---------------------------------------
     # The strip mode at its main-path shape: the first block of the
@@ -2308,6 +2509,11 @@ def main() -> int:
             "bound_by": walk_by,
             "bound_note": "latency: a chain of dependent code loads",
             "library_ms": None,
+            "bucket_shape": f"one traceback bucket of the 1024-pair DNA chunk, "
+                            f"{len(mt_w)} pairs of {m1_w - 1} x {n1_w - 1}",
+            "bucket_ms": walk_bucket_ms,
+            "bucket_bound_ms": walk_b_bound,
+            "bucket_bound_by": walk_b_by,
         },
         {
             "name": "gotoh_batch",
@@ -2317,16 +2523,26 @@ def main() -> int:
             "also_replaces": ["globalign_tpu/ops/fill_pallas.py:458"],
             "launches": main_launches["batch_final3"],
             "max_abs_err": batch_err,
-            "shape": f"one {ta_b.shape[1] - 1} x {tb_b.shape[1] - 1} bucket of "
-                     f"{len(mt_b)} DNA pairs (1024-pair chunk)",
-            "ms": batch_ms,
+            "shape": f"the 1024-pair DNA chunk's {len(dna_buckets)} buckets in "
+                     f"one batch_final3_ragged call ({chunk_call_launches} "
+                     "launch), device time",
+            "ms": chunk_dev_ms,
             "plain_ms": plain_batch_ms,
-            "bound_ms": batch_bound,
-            "bound_by": batch_bound_by,
+            "plain_shape": f"the chunk's largest bucket alone, {len(mt_b)} "
+                           f"pairs of {ta_b.shape[1] - 1} x {tb_b.shape[1] - 1}",
+            "bound_ms": chunk_bound,
+            "bound_by": chunk_by,
             "library_ms": None,
-            "gotoh_fill_final3_ms": batch_fill_ms,
-            "chunk_ms": arm_cost["1024-pair DNA chunk"][1],
+            "host_and_device_ms": chunk_host_ms,
             "chunk_gotoh_fill_final3_ms": arm_cost["1024-pair DNA chunk"][2],
+            "bucket_ms": batch_ms,
+            "bucket_gotoh_fill_final3_ms": batch_fill_ms,
+            "bucket_bound_ms": batch_bound,
+            "one_launch_padded_ms": one_batch,
+            "one_launch_padded_gotoh_fill_ms": one_fill,
+            "one_launch_padded_bound_ms": whole_bound,
+            "crossover": crossover,
+            "ptxas": batch_regs,
         },
         {
             "name": "gotoh_fill_strip",

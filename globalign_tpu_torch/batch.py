@@ -1,12 +1,16 @@
-"""Batched many-pair alignment: length bucketing, one fill per bucket.
+"""Batched many-pair alignment: length bucketing, fused cost fills.
 
 The port of ``globalign_tpu/batch.py`` (``align_pairs`` and its result
-types).  Pairs are padded into (M, N) length buckets; each bucket (or
-sub-batch of one, under the moves budget) is one launch on the card:
+types).  Pairs are padded into (M, N) length buckets:
 
-  * cost-only: ``ops.fill_batch.batch_final3`` — ``gotoh_batch``, a warp
-    per pair, or ``gotoh_fill``'s final3 mode past its width cap;
-  * traceback: one ``gotoh_fill`` moves launch (``fill_cuda.batch_moves``,
+  * cost-only: every bucket of the call in one
+    ``ops.fill_batch.batch_final3_ragged`` call — one ``gotoh_batch``
+    launch (a warp per pair) per width class present, or, for a bucket
+    past its width cap, ``gotoh_fill``'s final3 mode a bucket: the
+    counterpart of the JAX package's fused cost chunk (``COST_CHUNK_JIT``,
+    ``_chunk_costs_jit``);
+  * traceback, a launch per bucket (or sub-batch of one, under the moves
+    budget): one ``gotoh_fill`` moves launch (``fill_cuda.batch_moves``,
     row-major (B, M+1, N+1) codes), then one ``walk_block`` launch over the
     whole sub-batch from each pair's (m, n) at the argmin level of its
     final3.  The codes never leave the device.
@@ -34,9 +38,10 @@ come back in input order with the single-pair API's cost, score and
 alignment.
 
 Not ported, by design:
-  * the chunk-fusion executables (``COST_CHUNK_JIT`` / ``TB_CHUNK_JIT``) bound
-    XLA compiles per bucket composition — the kernels take lengths at run
-    time, so there is nothing to fuse;
+  * the chunk-fusion executables' compile cache (``COST_CHUNK_JIT`` /
+    ``TB_CHUNK_JIT``), which bounds XLA compiles per bucket composition:
+    the kernels take lengths at run time, so the cost fusion is always on
+    and compiles nothing; traceback buckets keep a launch each;
   * the mega-walk blob and its pad quanta: one ``walk_block`` launch per
     bucket walks the row-major codes where they lie;
   * ``_moves_backend_estimate``'s per-backend byte models: a pair's codes
@@ -228,6 +233,7 @@ def align_pairs(
     (module docstring); ``device`` is then this rank's.
 
     ``phase_seconds`` (optional dict) accumulates host wall-clock per phase:
+    "encode" (buckets' tokens encoded and, unsharded, sent to the device),
     "fill" (bucket fills and walks queued), "fetch" (waiting for the device
     and the device-to-host copies), "traceback" (rendering the strings),
     "blocked" (pairs past the moves budget, fill to strings).  Each phase is
@@ -297,6 +303,7 @@ def align_pairs(
     dispatched: list[_Dispatched] = []
     budget = _moves_budget(dev)
     ranks = 1 if mesh is None else mesh.size
+    costed = []  # unsharded cost-only buckets: (group, tok_a, tok_b, m, n)
     for (M, N), indices in buckets.items():
         groups = [indices]
         if with_traceback:
@@ -330,14 +337,17 @@ def align_pairs(
             ]
 
         for group in groups:
-            tok_a = _encode_bucket(
-                scheme.alphabet, [pairs[i][0] for i in group], M
-            )
-            tok_b = _encode_bucket(
-                scheme.alphabet, [pairs[i][1] for i in group], N
-            )
-            m_true = [len(pairs[i][0]) for i in group]
-            n_true = [len(pairs[i][1]) for i in group]
+            with _phase("encode"):
+                tok_a = _encode_bucket(
+                    scheme.alphabet, [pairs[i][0] for i in group], M
+                )
+                tok_b = _encode_bucket(
+                    scheme.alphabet, [pairs[i][1] for i in group], N
+                )
+                m_true = [len(pairs[i][0]) for i in group]
+                n_true = [len(pairs[i][1]) for i in group]
+                if mesh is None:
+                    tok_a, tok_b = _to_device(tok_a, dev), _to_device(tok_b, dev)
             if mesh is not None:
                 with _phase("fill"):
                     dispatched.append(_sharded_bucket(
@@ -345,14 +355,10 @@ def align_pairs(
                         m_true, n_true, with_traceback,
                     ))
                 continue
-            tok_a, tok_b = _to_device(tok_a, dev), _to_device(tok_b, dev)
+            if not with_traceback:  # filled with the call's other buckets
+                costed.append((group, tok_a, tok_b, m_true, n_true))
+                continue
             with _phase("fill"):
-                if not with_traceback:
-                    final3 = fill_batch.batch_final3(
-                        tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true
-                    )
-                    dispatched.append(_Dispatched(group, final3))
-                    continue
                 final3, moves = fill_cuda.batch_moves(
                     tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true
                 )
@@ -364,6 +370,15 @@ def align_pairs(
                     final3.argmin(-1).to(torch.int32),
                 )
                 dispatched.append(_Dispatched(group, final3, ops, count, j_exit))
+    if costed:  # every cost-only bucket of the call in one ragged fill
+        groups, tok_as, tok_bs, m_trues, n_trues = zip(*costed)
+        with _phase("fill"):
+            final3 = fill_batch.batch_final3_ragged(
+                tok_as, tok_bs, cost_mat, gap_id, gap_open, m_trues, n_trues
+            )
+        dispatched.append(
+            _Dispatched([idx for group in groups for idx in group], final3)
+        )
 
     def _flush() -> list[PairResult]:
         if not dispatched:

@@ -1,24 +1,32 @@
 """Cost-only fills of a batch of pairs — the batch serving path's fill.
 
-``batch_final3`` mirrors ``globalign_tpu/ops/fill_pallas.py:batch_final3``:
-(B, 3) int32 final lanes (M, Ix, Iy) at (m_true[b], n_true[b]); with
-``last_rows=True`` it returns each pair's row m_true[b] instead, (B, 3,
-N+1), with the contract of ``fill_cuda.batch_last_rows`` (column 0 is
-(BIG, BIG, Iy(m, 0)), columns past n_true[b] are BIG).
+``batch_final3_ragged`` fills every pair of several length buckets in one
+call: the counterpart of the JAX package's fused cost chunk
+(``globalign_tpu/batch.py:_chunk_costs_jit``), which dispatches a call's
+cost buckets together.  ``batch_final3`` (one bucket) mirrors
+``globalign_tpu/ops/fill_pallas.py:batch_final3`` and is a thin caller of
+it: (B, 3) int32 final lanes (M, Ix, Iy) at (m_true[b], n_true[b]); with
+``last_rows=True`` each pair's row m_true[b] instead, (B, 3, N+1), with
+the contract of ``fill_cuda.batch_last_rows`` (column 0 is (BIG, BIG,
+Iy(m, 0)), columns past n_true[b] are BIG).
 
-Routes, by the tensors' device and the bucket's shape only:
+Routes, by the tensors' device and the call's shape only:
 
   * CPU tensors: the plain version, the row scan of ``ops.fill_rows`` pair
     by pair (``fill_cuda._plain``);
-  * CUDA tensors whose width and table fit ``gotoh_batch``'s shared-memory
-    plan (:func:`plan`): one launch of ``csrc/gotoh_batch.cu``, a warp per
-    pair — the counterpart of TPU kernels #8
+  * CUDA tensors, when :func:`plan` picks ``gotoh_batch`` for the buckets
+    of at most ``MAX_COLUMNS`` columns: one launch of
+    ``csrc/gotoh_batch.cu`` (a warp per pair, the strip state in
+    registers) per width class present — W = 4, 8, 16 or 32 columns a
+    lane, the narrowest with 32 W >= the pair's n — over every such pair
+    of the call, longest first: the counterpart of TPU kernels #8
     (``stacked_uniform_fill_last_rows``) and #7
     (``row_fill_last_rows_batch``);
-  * wider CUDA buckets: ``gotoh_fill``'s final3 / last-row mode
+  * the other CUDA buckets (wider than ``MAX_COLUMNS``, or a table that
+    does not fit in shared memory): ``gotoh_fill``'s final3 / last-row mode
     (``fill_cuda.batch_moves(want_moves=False)`` /
-    ``fill_cuda.batch_last_rows``), a block per pair — #7's grid-per-pair
-    form for long pairs.
+    ``fill_cuda.batch_last_rows``), one launch a bucket, a pair over
+    several SMs.
 
 No probe and no fallback: a CUDA tensor the chosen kernel cannot take
 raises.  ``batch_final3.launches`` counts ``gotoh_batch`` launches; the
@@ -27,31 +35,207 @@ raises.  ``batch_final3.launches`` counts ``gotoh_batch`` launches; the
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import fill_cuda
 
 WARP = 32
-MAX_COLUMNS = 4096  # the width cap: W = 128 columns a lane (csrc note)
-MAX_WARPS = 4  # warps (pairs) a block
+WIDTHS = (4, 8, 16, 32)  # the kernel's instances: columns a lane (W)
+MAX_COLUMNS = WARP * WIDTHS[-1]  # the width cap: 1024
+WARPS = 2  # warps (pairs) a block
+MAX_ALPHABET = 256  # tokens are bytes in the kernel's registers
 SMEM_OPTIN = 227 * 1024  # shared memory a block may opt in to on sm_90
-COLUMN_BYTES = 13  # a strip column: M, Ix, Iy int32 + a token byte
+DESC_WORDS = 8  # int64 words of a pair descriptor (csrc/gotoh_batch.cu)
 
 
-def plan(batch: int, n_cols: int, alphabet: int, sms: int) -> tuple[int, int] | None:
-    """``(warps a block, W)`` for a ``gotoh_batch`` launch over B pairs of
-    N columns with an (A, A) table on a card of ``sms`` SMs, or None when
-    the bucket goes to ``gotoh_fill`` (wider than ``MAX_COLUMNS``, or a
-    table that does not fit in shared memory beside one warp's state)."""
-    width = max(1, -(-n_cols // WARP))
-    if n_cols > MAX_COLUMNS or alphabet > 256:
+def width_class(n_cols: int) -> int:
+    """W of the narrowest ``gotoh_batch`` instance that holds ``n_cols``
+    columns (32 W >= n); ``n_cols`` must not pass ``MAX_COLUMNS``."""
+    for width in WIDTHS:
+        if n_cols <= WARP * width:
+            return width
+    raise ValueError(f"{n_cols} columns exceed gotoh_batch's {MAX_COLUMNS}")
+
+
+def plan(n_cols: int, alphabet: int) -> int | None:
+    """W of the ``gotoh_batch`` launch that takes a bucket of ``n_cols``
+    columns with an (A, A) table, or None when the bucket goes to
+    ``gotoh_fill``: wider than ``MAX_COLUMNS``, an alphabet past
+    ``MAX_ALPHABET``, or a table past the shared memory of a block.
+
+    The batch size plays no part: on an H100 ``gotoh_batch`` beats
+    ``gotoh_fill`` final3 at every B from 1 to 1024 pairs of 256^2 and
+    1024^2, a lone warp a pair included (``chip_smoke.py`` Phase 3's
+    crossover sweep; PERF.md section 6), so no launch of at most
+    ``MAX_COLUMNS`` columns is small enough for ``gotoh_fill``."""
+    if n_cols > MAX_COLUMNS or alphabet > MAX_ALPHABET:
         return None
-    table = 4 * alphabet * alphabet
-    per_warp = COLUMN_BYTES * WARP * width
-    warps = min(MAX_WARPS, max(1, batch // max(1, sms)))
-    while warps > 0 and table + warps * per_warp > SMEM_OPTIN:
-        warps -= 1
-    return (warps, width) if warps else None
+    if 4 * alphabet * alphabet > SMEM_OPTIN:
+        return None
+    return width_class(n_cols)
+
+
+def _descriptors(tok_a, tok_b, lasts, m_host, n_host, offsets):
+    """(P, 8) int64 descriptors of the buckets' pairs: seq_1 / seq_2 /
+    last-row addresses (0: no last row), m, n, the last row's stride, the
+    final3 row, a pad (csrc/gotoh_batch.cu)."""
+    parts = []
+    for k, (ta, tb) in enumerate(zip(tok_a, tok_b)):
+        batch, m1 = ta.shape
+        n1 = tb.shape[1]
+        rows = np.arange(batch, dtype=np.int64)
+        d = np.zeros((batch, DESC_WORDS), np.int64)
+        d[:, 0] = ta.data_ptr() + rows * 4 * m1
+        d[:, 1] = tb.data_ptr() + rows * 4 * n1
+        if lasts is not None:
+            d[:, 2] = lasts[k].data_ptr() + rows * 12 * n1
+        d[:, 3] = m_host[k].numpy()
+        d[:, 4] = n_host[k].numpy()
+        d[:, 5] = n1
+        d[:, 6] = offsets[k] + rows
+        parts.append(d)
+    return np.concatenate(parts)
+
+
+def batch_final3_ragged(
+    tok_a,
+    tok_b,
+    cost_mat: torch.Tensor,
+    gap_id: int,
+    gap_open: int,
+    m_true,
+    n_true,
+    *,
+    last_rows: bool = False,
+):
+    """Final lanes of every pair of several buckets, one call.
+
+    Args:
+        tok_a / tok_b: sequences of (B_k, M_k+1) / (B_k, N_k+1) int32
+            contiguous 1-origin tokens (column 0 unused), one a bucket, all
+            on the CPU or all on one CUDA device.
+        cost_mat: (A, A) int32 contiguous costing matrix on that device.
+        gap_id / gap_open: the gap token and the gap-open cost.
+        m_true / n_true: sequences of (B_k,) host-side true lengths.
+
+    Returns (sum B_k, 3) final lanes in bucket order, pairs in their
+    bucket's order — or, with ``last_rows``, the list of each bucket's
+    (B_k, 3, N_k+1) rows m_true.
+    """
+    tok_a, tok_b = list(tok_a), list(tok_b)
+    if not tok_a or len(tok_b) != len(tok_a) or len(m_true) != len(tok_a) or (
+        len(n_true) != len(tok_a)
+    ):
+        raise ValueError("tok_a, tok_b, m_true and n_true must list the same "
+                         "buckets, at least one")
+    device = tok_a[0].device
+    lengths = []
+    for ta, tb, mt, nt in zip(tok_a, tok_b, m_true, n_true):
+        if ta.device != device:
+            raise ValueError(f"a bucket is on {ta.device}, the first on {device}")
+        lengths.append(fill_cuda._check(ta, tb, cost_mat, gap_id, mt, nt, None, None))
+    m_host = [m for m, _ in lengths]
+    n_host = [n for _, n in lengths]
+    if device.type == "cpu":
+        outs = [
+            fill_cuda._plain(ta, tb, cost_mat, gap_id, gap_open, mt, nt, None,
+                             None, False, last_rows)
+            for ta, tb, mt, nt in zip(tok_a, tok_b, m_host, n_host)
+        ]
+        if last_rows:
+            return [last for _, _, last in outs]
+        return torch.cat([final3 for final3, _, _ in outs])
+    if device.type != "cuda":
+        raise ValueError(f"no batch_final3 route for device {device}")
+
+    alphabet = cost_mat.shape[0]
+    sizes = [ta.shape[0] for ta in tok_a]
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    routes = [plan(tb.shape[1] - 1, alphabet) for tb in tok_b]
+    on_batch = [k for k, route in enumerate(routes) if route is not None]
+    rest = [k for k, route in enumerate(routes) if route is None]
+    if len(tok_a) == 1 and rest:  # one bucket on gotoh_fill: its own outputs
+        out = _gotoh_fill(tok_a[0], tok_b[0], cost_mat, gap_id, gap_open,
+                          m_host[0], n_host[0], last_rows)
+        return [out] if last_rows else out
+
+    final3 = torch.empty((int(offsets[-1]), 3), dtype=torch.int32, device=device)
+    lasts = [None] * len(tok_a)
+    if on_batch:
+        lasts_b = (
+            [torch.empty((sizes[k], 3, tok_b[k].shape[1]), dtype=torch.int32,
+                         device=device) for k in on_batch]
+            if last_rows else None
+        )
+        desc = _descriptors(
+            [tok_a[k] for k in on_batch], [tok_b[k] for k in on_batch], lasts_b,
+            [m_host[k] for k in on_batch], [n_host[k] for k in on_batch],
+            [int(offsets[k]) for k in on_batch],
+        )
+        _gotoh_batch(desc, cost_mat, gap_id, gap_open, final3, last_rows)
+        if last_rows:
+            for k, last in zip(on_batch, lasts_b):
+                lasts[k] = last
+    for k in rest:
+        out = _gotoh_fill(tok_a[k], tok_b[k], cost_mat, gap_id, gap_open,
+                          m_host[k], n_host[k], last_rows)
+        if last_rows:
+            lasts[k] = out
+        else:
+            final3[int(offsets[k]) : int(offsets[k + 1])] = out
+    return lasts if last_rows else final3
+
+
+def _gotoh_fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host,
+                last_rows):
+    """One bucket through ``gotoh_fill``'s final3 / last-row mode."""
+    if last_rows:
+        return fill_cuda.batch_last_rows(
+            tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host
+        )
+    final3, _ = fill_cuda.batch_moves(
+        tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host,
+        want_moves=False,
+    )
+    return final3
+
+
+def _gotoh_batch(desc: np.ndarray, cost_mat: torch.Tensor, gap_id: int,
+                 gap_open: int, final3: torch.Tensor, last_rows: bool) -> None:
+    """Launch ``gotoh_batch`` over the pairs of ``desc`` ((P, 8) int64
+    host descriptors, each pair's n <= ``MAX_COLUMNS``): one launch per
+    width class present, pairs longest (m * n) first, final3 into the rows
+    the descriptors name (and the last rows through their addresses, with
+    ``last_rows``).  Every launch counts on ``batch_final3.launches``; a
+    refused or failed launch raises."""
+    device = final3.device
+    caps = WARP * np.array(WIDTHS)
+    widths = np.array(WIDTHS)[np.searchsorted(caps, desc[:, 4])]
+    order = np.lexsort((-(desc[:, 3] * desc[:, 4]), widths))
+    desc, widths = np.ascontiguousarray(desc[order]), widths[order]
+    starts = np.flatnonzero(np.diff(widths, prepend=-1))
+    ends = np.append(starts[1:], len(widths))
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    desc_dev = torch.from_numpy(desc).pin_memory().to(device, non_blocking=True)
+    row_bytes = DESC_WORDS * 8
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for lo, hi in zip(starts.tolist(), ends.tolist()):
+            batch_final3.launches += 1
+            err = lib.gotoh_batch_launch(
+                desc_dev.data_ptr() + lo * row_bytes, hi - lo,
+                cost_mat.data_ptr(), cost_mat.shape[0], int(gap_id),
+                int(gap_open), final3.data_ptr(), int(last_rows),
+                int(widths[lo]), WARPS, stream,
+            )
+            if err != 0:
+                msg = lib.gotoh_batch_error_string(err).decode()
+                raise RuntimeError(
+                    f"gotoh_batch launch failed: CUDA error {err} ({msg})"
+                )
 
 
 def batch_final3(
@@ -65,7 +249,8 @@ def batch_final3(
     *,
     last_rows: bool = False,
 ) -> torch.Tensor:
-    """Final lanes (B, 3) — or, with ``last_rows``, rows m_true (B, 3, N+1).
+    """Final lanes (B, 3) — or, with ``last_rows``, rows m_true (B, 3, N+1)
+    — of one bucket: :func:`batch_final3_ragged` on it alone.
 
     Args:
         tok_a / tok_b: (B, M+1) / (B, N+1) int32 contiguous 1-origin tokens
@@ -74,60 +259,11 @@ def batch_final3(
         gap_id / gap_open: the gap token and the gap-open cost.
         m_true / n_true: (B,) true lengths, host-side.
     """
-    m_host, n_host = fill_cuda._check(
-        tok_a, tok_b, cost_mat, gap_id, m_true, n_true, None, None
+    out = batch_final3_ragged(
+        [tok_a], [tok_b], cost_mat, gap_id, gap_open, [m_true], [n_true],
+        last_rows=last_rows,
     )
-    device = tok_a.device
-    if device.type == "cpu":
-        final3, _, last = fill_cuda._plain(
-            tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host, None,
-            None, False, last_rows,
-        )
-        return last if last_rows else final3
-    if device.type != "cuda":
-        raise ValueError(f"no batch_final3 route for device {device}")
-
-    batch, m1 = tok_a.shape
-    n1 = tok_b.shape[1]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    launch = plan(batch, n1 - 1, cost_mat.shape[0], sms)
-    if launch is None:  # wider than the cap: a block per pair
-        if last_rows:
-            return fill_cuda.batch_last_rows(
-                tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host
-            )
-        final3, _ = fill_cuda.batch_moves(
-            tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host,
-            want_moves=False,
-        )
-        return final3
-
-    from ..utils import cuda_build
-
-    lib = cuda_build.load()
-    warps, width = launch
-    final3 = torch.empty((batch, 3), dtype=torch.int32, device=device)
-    last = (
-        torch.empty((batch, 3, n1), dtype=torch.int32, device=device)
-        if last_rows
-        else None
-    )
-    m_dev = m_host.pin_memory().to(device, non_blocking=True)
-    n_dev = n_host.pin_memory().to(device, non_blocking=True)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        batch_final3.launches += 1
-        err = lib.gotoh_batch_launch(
-            tok_a.data_ptr(), tok_b.data_ptr(), cost_mat.data_ptr(),
-            m_dev.data_ptr(), n_dev.data_ptr(), final3.data_ptr(),
-            None if last is None else last.data_ptr(),
-            batch, m1 - 1, n1 - 1, cost_mat.shape[0], int(gap_id),
-            int(gap_open), warps, width, stream,
-        )
-    if err != 0:
-        msg = lib.gotoh_batch_error_string(err).decode()
-        raise RuntimeError(f"gotoh_batch launch failed: CUDA error {err} ({msg})")
-    return last if last_rows else final3
+    return out[0] if last_rows else out
 
 
 def batch_final3_dual(
@@ -149,8 +285,9 @@ def batch_final3_dual(
     warps of independent pairs already interleave on each SM's schedulers,
     so the set axis folds into the batch axis and the two sets are one
     :func:`batch_final3` call over 2B pairs: one ``gotoh_batch`` launch up
-    to ``MAX_COLUMNS`` columns, one ``gotoh_fill`` final3 launch above.
-    Each set equals :func:`batch_final3` on that set alone.
+    to ``MAX_COLUMNS`` columns (a launch a width class), one ``gotoh_fill``
+    final3 launch past it (:func:`plan`).  Each set
+    equals :func:`batch_final3` on that set alone.
 
     Args:
         tok_a2 / tok_b2: (2, B, M+1) / (2, B, N+1) int32 contiguous

@@ -6,7 +6,8 @@ For cost-only and traceback calls, unsharded and over an NCCL world of one
 (``parallel.make_pair_mesh``), it prints one JSON line: per arm the median,
 least and greatest over 7 calls (after one warm-up) of the
 end-to-end time (host clock around a synchronised call) and of
-``align_pairs``' host phases (``phase_seconds``: enqueue, fetch, render),
+``align_pairs``' host phases (``phase_seconds``: encode, enqueue, fetch,
+render; a checkout whose ``align_pairs`` has no encode phase reports 0),
 in ms, beside the card's name and power limit.
 
 ``--root DIR`` imports ``globalign_tpu_torch`` from the checkout at DIR
@@ -98,11 +99,13 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 rows.append((
                     1e3 * (time.perf_counter() - t0),
+                    1e3 * phases.get("encode", 0.0),
                     1e3 * phases.get("fill", 0.0),
                     1e3 * phases.get("fetch", 0.0),
                     1e3 * phases.get("traceback", 0.0),
                 ))
-            cols = dict(zip(("e2e", "enqueue", "fetch", "render"), zip(*rows)))
+            cols = dict(zip(("e2e", "encode", "enqueue", "fetch", "render"),
+                            zip(*rows)))
             arms[f"{mesh_name}, {'traceback' if with_tb else 'cost'}"] = {
                 k: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
                 for k, v in cols.items()

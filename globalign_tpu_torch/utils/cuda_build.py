@@ -48,9 +48,10 @@ SIGNATURES = {
     },
     "gotoh_batch": {
         "gotoh_batch_launch": (
-            # tok_a tok_b cost m n final3 last
-            [_PTR] * 7
-            + [_I32] * 8  # B M N A gap go warps W
+            [_PTR, _I32, _PTR]  # desc B cost
+            + [_I32] * 3  # A gap go
+            + [_PTR]  # final3
+            + [_I32] * 3  # last W warps
             + [_PTR],  # stream
             _I32,
         ),

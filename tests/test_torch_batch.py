@@ -25,6 +25,7 @@ from globalign_tpu_torch import align_pairs, find_global_alignment
 from globalign_tpu_torch import batch as batch_mod
 from globalign_tpu_torch.batch import PairResult, bucket_length
 from globalign_tpu_torch.ops import fill_batch, fill_cuda, linear_tb
+from globalign_tpu_torch.ops.fill_scan import BIG
 from globalign_tpu_torch.ops.traceback import alignment_cost
 from globalign_tpu_torch.utils.matrices import SubstitutionMatrix
 
@@ -268,19 +269,26 @@ def test_the_card_budget_governs_device_walked_buckets(monkeypatch):
 
 @pytest.mark.parametrize("with_traceback", [False, True])
 def test_one_fill_per_bucket(monkeypatch, with_traceback):
-    """Cost-only: one batch_final3 per bucket; traceback: one moves fill and
-    one walk per bucket — never a launch per pair."""
+    """Cost-only: one ragged fill a call, over every bucket; traceback: one
+    moves fill and one walk per bucket — never a launch per pair."""
     rng = np.random.default_rng(11)
     pairs = _ragged_pairs(rng, "ACGT", 16, lo=1, hi=90)
     buckets = {(bucket_length(len(a)), bucket_length(len(b))) for a, b in pairs}
+    assert len(buckets) > 1
+    ragged = _count_calls(monkeypatch, fill_batch, "batch_final3_ragged")
     finals = _count_calls(monkeypatch, fill_batch, "batch_final3")
     fills = _count_calls(monkeypatch, fill_cuda, "batch_moves")
     walks = _count_calls(monkeypatch, linear_tb, "walk_block")
     align_pairs(pairs, with_traceback=with_traceback, device="cpu")
-    want = (0, len(buckets), len(buckets)) if with_traceback else (
-        len(buckets), 0, 0
+    want = (0, 0, len(buckets), len(buckets)) if with_traceback else (
+        1, 0, 0, 0
     )
-    assert (len(finals), len(fills), len(walks)) == want
+    assert (len(ragged), len(finals), len(fills), len(walks)) == want
+    if not with_traceback:  # the call's buckets, each in one tensor pair
+        assert len(ragged[0][0]) == len(buckets)
+        assert sorted(t.shape[1] - 1 for t in ragged[0][1]) == sorted(
+            n for _, n in buckets
+        )
 
 
 @pytest.mark.parametrize("with_traceback", [False, True])
@@ -409,23 +417,147 @@ def test_batch_final3_checks_its_inputs_and_has_no_other_route():
     assert fill_batch.batch_final3.launches == before
 
 
-@pytest.mark.parametrize("batch,n_cols,alphabet,want", [
-    (21, 1024, 5, (1, 32)),  # a serving bucket: a warp a block
-    (1024, 1000, 5, (4, 32)),  # a full chunk: 4 warps a block
-    (300, 4096, 61, (2, 128)),  # the cap with the 60-letter table
-    (1024, 4096, 61, (4, 128)),
-    (64, 4097, 5, None),  # past the width cap: gotoh_fill
-    (64, 4096, 230, None),  # table and one warp's state exceed the block
-    (64, 64, 257, None),  # tokens are bytes in shared memory
-    (64, 0, 5, (1, 1)),
+@pytest.mark.parametrize("n_cols,alphabet,want", [
+    (1024, 5, 32),  # the serving chunk's widest bucket
+    (1000, 61, 32),  # the 60-letter table
+    (512, 25, 16),
+    (513, 25, 32),
+    (129, 5, 8),
+    (128, 5, 4),
+    (0, 5, 4),
+    (1025, 5, None),  # past the width cap: gotoh_fill
+    (4096, 5, None),
+    (64, 257, None),  # tokens are bytes in registers
+    (64, 242, None),  # a table past a block's shared memory
+    (64, 241, 4),
 ])
-def test_gotoh_batch_plan(batch, n_cols, alphabet, want):
-    plan = fill_batch.plan(batch, n_cols, alphabet, 132)
-    assert plan == want
-    if plan is not None:
-        warps, width = plan
-        assert width * 32 >= n_cols
-        assert 4 * alphabet**2 + warps * 13 * 32 * width <= fill_batch.SMEM_OPTIN
+def test_gotoh_batch_plan(n_cols, alphabet, want):
+    """plan() routes by width and table alone: W is the narrowest instance
+    that holds the columns, up to the 1024-column cap."""
+    width = fill_batch.plan(n_cols, alphabet)
+    assert width == want
+    if width is not None:
+        assert width * 32 >= n_cols and width in fill_batch.WIDTHS
+        assert width == 4 or width * 16 < n_cols
+        assert 4 * alphabet**2 <= fill_batch.SMEM_OPTIN
+    assert fill_batch.MAX_COLUMNS == 1024
+
+
+@pytest.mark.parametrize("n_cols,want", [
+    (0, 4), (1, 4), (128, 4), (129, 8), (256, 8), (257, 16), (512, 16),
+    (513, 32), (1024, 32),
+])
+def test_width_class(n_cols, want):
+    assert fill_batch.width_class(n_cols) == want
+
+
+def test_width_class_refuses_past_the_cap():
+    with pytest.raises(ValueError, match="exceed"):
+        fill_batch.width_class(1025)
+
+
+def _scheme_costs(name):
+    """(cost matrix, gap id, gap open, token choices) of a named scheme."""
+    from globalign_tpu_torch import resolve_scheme
+
+    letters, kw = {
+        "dna": ("ACGT", {}),
+        "blosum62": (PROTEIN, dict(scoring_mat_name="BLOSUM62")),
+        # odd max score: dcost != icost
+        "odd": ("ACGT", dict(match_score=3, mismatch_score=-2,
+                             gap_open_score=-5, gap_extension_score=-1)),
+    }[name]
+    scheme = resolve_scheme(letters, letters, **kw)
+    gid = scheme.alphabet.gap_id
+    cm = np.ascontiguousarray(scheme.costing.values, np.int32)
+    toks = [t for t in range(scheme.alphabet.size) if t != gid]
+    return cm, gid, scheme.gap_open_cost, toks
+
+
+@pytest.mark.parametrize("scheme", ["dna", "blosum62", "odd"])
+def test_batch_final3_ragged_matches_jax_bucket_by_bucket(scheme):
+    """The ragged entry on CPU tensors over three buckets (lengths 0 and 1
+    among them) against JAX ``batch_final3`` and TPU kernel #7
+    (``row_fill_last_rows_batch``) in interpret mode, bucket by bucket:
+    final3 and every column of the last rows, tolerance 0."""
+    cm, gid, go, toks = _scheme_costs(scheme)
+    rng = np.random.default_rng(len(scheme))
+    shapes = [(64, 64, [64, 0, 1, 33], [0, 64, 1, 17]),
+              (8, 40, [8, 5, 1], [40, 1, 0]),
+              (33, 2, [33, 20], [2, 1])]
+    buckets = []
+    for m_pad, n_pad, mt, nt in shapes:
+        ta, tb, mt, _ = _batch(rng, len(mt), m_pad, n_pad, toks, mt)
+        buckets.append((ta, tb, mt, np.asarray(nt, np.int32)))
+    args = ([_t(b[0]) for b in buckets], [_t(b[1]) for b in buckets], _t(cm),
+            gid, go, [b[2] for b in buckets], [b[3] for b in buckets])
+    final3 = fill_batch.batch_final3_ragged(*args)
+    lasts = fill_batch.batch_final3_ragged(*args, last_rows=True)
+    assert final3.shape == (sum(len(b[2]) for b in buckets), 3)
+    lo = 0
+    for (ta, tb, mt, nt), last in zip(buckets, lasts):
+        jargs = (jnp.asarray(ta), jnp.asarray(tb), jnp.asarray(cm),
+                 jnp.int32(gid), jnp.int32(go), jnp.asarray(mt), jnp.asarray(nt))
+        want3 = np.asarray(fill_pallas.batch_final3(*jargs, interpret=True))
+        assert (final3[lo : lo + len(mt)].numpy() == want3).all()
+        want_rows = np.asarray(
+            fill_pallas.row_fill_last_rows_batch(*jargs, interpret=True)
+        )
+        assert last.shape == (len(mt), 3, tb.shape[1])
+        for b, n in enumerate(nt.tolist()):
+            assert (last[b, :, : n + 1].numpy() == want_rows[b, :, : n + 1]).all()
+            assert (last[b, :, n + 1 :] == BIG).all()
+        lo += len(mt)
+
+
+def test_batch_final3_is_the_ragged_entry_on_one_bucket():
+    cm, gid, go, toks = _scheme_costs("dna")
+    ta, tb, mt, nt = _batch(np.random.default_rng(5), 6, 20, 30, toks)
+    args = (_t(ta), _t(tb), _t(cm), gid, go, mt, nt)
+    assert torch.equal(
+        fill_batch.batch_final3(*args),
+        fill_batch.batch_final3_ragged([args[0]], [args[1]], *args[2:5], [mt], [nt]),
+    )
+    assert torch.equal(
+        fill_batch.batch_final3(*args, last_rows=True),
+        fill_batch.batch_final3_ragged([args[0]], [args[1]], *args[2:5], [mt],
+                                       [nt], last_rows=True)[0],
+    )
+
+
+def test_batch_final3_ragged_checks_its_buckets():
+    cm, gid, go, _ = _scheme_costs("dna")
+    ta = torch.ones((2, 9), dtype=torch.int32)
+    tb = torch.ones((2, 7), dtype=torch.int32)
+    with pytest.raises(ValueError, match="same buckets"):
+        fill_batch.batch_final3_ragged([ta], [tb, tb], _t(cm), gid, go,
+                                       [[8, 2]], [[6, 0]])
+    with pytest.raises(ValueError, match="same buckets"):
+        fill_batch.batch_final3_ragged([], [], _t(cm), gid, go, [], [])
+    with pytest.raises(ValueError, match="lie in"):
+        fill_batch.batch_final3_ragged([ta, ta], [tb, tb], _t(cm), gid, go,
+                                       [[8, 2], [9, 2]], [[6, 0], [6, 0]])
+    meta = torch.ones((2, 9), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="is on meta"):
+        fill_batch.batch_final3_ragged([ta, meta], [tb, tb], _t(cm), gid, go,
+                                       [[8, 2], [8, 2]], [[6, 0], [6, 0]])
+
+
+@pytest.mark.parametrize("quantum", [16, 32])
+def test_align_pairs_cost_only_fused_matches_jax(monkeypatch, quantum):
+    """Cost-only align_pairs over many buckets (one ragged fill) equal to
+    the JAX package's align_pairs on the CPU, DNA and BLOSUM62."""
+    rng = np.random.default_rng(40 + quantum)
+    for letters, kw in (("ACGT", {}), (PROTEIN, dict(scoring_mat_name="BLOSUM62"))):
+        pairs = _ragged_pairs(rng, letters, 16, lo=1, hi=70)
+        want = jax_align_pairs(pairs, with_traceback=False, bucket_quantum=quantum,
+                               **kw)
+        ragged = _count_calls(monkeypatch, fill_batch, "batch_final3_ragged")
+        got = align_pairs(pairs, with_traceback=False, bucket_quantum=quantum,
+                          device="cpu", **kw)
+        assert len(ragged) == 1 and len(ragged[0][0]) > 3
+        assert _fields(got) == _fields(want)
+        monkeypatch.undo()
 
 
 # -- the op-tape render against the Python assembly -------------------------

@@ -311,40 +311,55 @@ def test_blocked_align_matches_full_matrix(cuda_device):
         ("ACGT", 1, {}),
         ("ACGT", 31, {}),
         ("ACGT", 33, {}),
+        ("ACGT", 1023, {}),
         ("ACGT", 1024, {}),
-        ("ACGT", 4096, {}),
         ("ARNDCQEGHILKMFPSTWYV", 255, dict(scoring_mat_name="BLOSUM62")),
         ("ACGT", 200, dict(match_score=3, mismatch_score=-2, gap_open_score=-5,
                            gap_extension_score=-1)),
     ],
 )
 def test_gotoh_batch_matches_plain(cuda_device, letters, n_cols, scheme_kw):
-    """Ragged batches (m_true 0, 1 and M, zero and partial widths): final3
-    and the last rows at every column, kernel == plain, one launch each."""
+    """Ragged launches: a bucket of ``n_cols`` columns (m_true 0, 1 and M,
+    zero and partial widths) beside buckets of other width classes; final3
+    and the last rows at every column, kernel == plain, one launch a width
+    class present."""
     from globalign_tpu_torch.ops import fill_batch
 
-    rows = 40 if n_cols > 1024 else 150
+    rows = 40 if n_cols > 512 else 150
     shapes = [(rows, n_cols), (0, n_cols), (1, n_cols), (rows, n_cols // 2),
               (rows, 0), (rows // 3, max(1, n_cols - 5))]
-    args = _case(np.random.default_rng(n_cols), letters, shapes, **scheme_kw)
-    want3 = fill_batch.batch_final3(*args)
-    want_last = fill_batch.batch_final3(*args, last_rows=True)
+    rng = np.random.default_rng(n_cols)
+    buckets = [_case(rng, letters, shapes, **scheme_kw),
+               _case(rng, letters, [(7, 600), (30, 129), (1, 1000)], **scheme_kw),
+               _case(rng, letters, [(60, 100), (0, 3)], **scheme_kw)]
+    args = ([b[0] for b in buckets], [b[1] for b in buckets], *buckets[0][2:5],
+            [b[5] for b in buckets], [b[6] for b in buckets])
+    on_card = ([t.to(cuda_device) for t in args[0]],
+               [t.to(cuda_device) for t in args[1]], args[2].to(cuda_device),
+               *args[3:])
+    classes = {fill_batch.width_class(n) for b in buckets for n in b[6]}
+    want3 = fill_batch.batch_final3_ragged(*args)
+    want_last = fill_batch.batch_final3_ragged(*args, last_rows=True)
     before = fill_batch.batch_final3.launches
-    got3 = fill_batch.batch_final3(*_on(cuda_device, args))
-    got_last = fill_batch.batch_final3(*_on(cuda_device, args), last_rows=True)
+    got3 = fill_batch.batch_final3_ragged(*on_card)
+    got_last = fill_batch.batch_final3_ragged(*on_card, last_rows=True)
     torch.cuda.synchronize()
-    assert fill_batch.batch_final3.launches == before + 2
+    assert fill_batch.batch_final3.launches == before + 2 * len(classes)
     assert torch.equal(got3.cpu(), want3)
-    assert torch.equal(got_last.cpu(), want_last)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got_last, want_last))
+    one = _on(cuda_device, buckets[0])  # the bucket alone: batch_final3
+    assert torch.equal(fill_batch.batch_final3(*one).cpu(), want3[: len(shapes)])
 
 
 @pytest.mark.parametrize("letters,shapes", [
     ("ACGT", [(30, 4200), (3, 4097)]),  # wider than the cap
+    ("ACGT", [(30, 1025), (3, 1000)]),  # one column past it
     ("".join(chr(0x4E00 + k) for k in range(399)), [(40, 60), (5, 9)]),  # table
 ])
 def test_batch_final3_past_the_plan_runs_gotoh_fill(cuda_device, letters, shapes):
-    """Buckets wider than gotoh_batch's cap, or with a table too large for
-    its shared memory, run gotoh_fill's final3 / last-row mode."""
+    """Buckets wider than gotoh_batch's 1024-column cap, or with a table
+    too large for its shared memory, run gotoh_fill's final3 / last-row
+    mode."""
     from globalign_tpu_torch.ops import fill_batch
 
     args = _case(np.random.default_rng(15), letters, shapes)
@@ -360,14 +375,37 @@ def test_batch_final3_past_the_plan_runs_gotoh_fill(cuda_device, letters, shapes
     assert torch.equal(got_last.cpu(), fill_batch.batch_final3(*args, last_rows=True))
 
 
+@pytest.mark.parametrize("batch", [1, 33, 264])
+def test_batch_final3_routing_on_either_side_of_the_cap(cuda_device, batch):
+    """One ragged call over a bucket of 1024 columns and one of 1025: one
+    gotoh_batch launch for the first, one gotoh_fill final3 launch for the
+    second, at any batch size; final3 == plain."""
+    from globalign_tpu_torch.ops import fill_batch
+
+    rng = np.random.default_rng(batch)
+    narrow = _case(rng, "ACGT", [(20, 1024)] * batch)
+    wide = _case(rng, "ACGT", [(20, 1025)] * batch)
+    args = ([narrow[0], wide[0]], [narrow[1], wide[1]], *narrow[2:5],
+            [narrow[5], wide[5]], [narrow[6], wide[6]])
+    on_card = ([t.to(cuda_device) for t in args[0]],
+               [t.to(cuda_device) for t in args[1]], args[2].to(cuda_device),
+               *args[3:])
+    before = (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches)
+    got = fill_batch.batch_final3_ragged(*on_card)
+    assert (fill_batch.batch_final3.launches - before[0],
+            fill_cuda.batch_moves.launches - before[1]) == (1, 1)
+    assert torch.equal(got.cpu(), fill_batch.batch_final3_ragged(*args))
+
+
 @pytest.mark.parametrize("with_traceback", [False, True])
 @pytest.mark.parametrize("letters,kw", [
     ("ACGT", {}), ("ARNDCQEGHILKMFPSTWYV", dict(scoring_mat_name="BLOSUM62")),
 ])
 def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
                                              with_traceback):
-    """Ragged pairs over several buckets: the card (one fill, and one walk,
-    a bucket) == ``device="cpu"``, pair by pair; flush=False too."""
+    """Ragged pairs over several buckets: the card (cost-only, one
+    gotoh_batch launch a width class; traceback, one fill and one walk a
+    bucket) == ``device="cpu"``, pair by pair; flush=False too."""
     from globalign_tpu_torch import align_pairs
     from globalign_tpu_torch.batch import bucket_length
     from globalign_tpu_torch.ops import fill_batch
@@ -379,6 +417,7 @@ def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
         for _ in range(40)
     ]
     buckets = {(bucket_length(len(a)), bucket_length(len(b))) for a, b in pairs}
+    classes = {fill_batch.width_class(len(b)) for _, b in pairs}
     before = (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches,
               linear_tb.walk_block.launches)
     got = align_pairs(pairs, with_traceback=with_traceback, **kw)
@@ -386,7 +425,7 @@ def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
     assert (fill_batch.batch_final3.launches - before[0],
             fill_cuda.batch_moves.launches - before[1],
             linear_tb.walk_block.launches - before[2]) == (
-        (0, k, k) if with_traceback else (k, 0, 0)
+        (0, k, k) if with_traceback else (len(classes), 0, 0)
     )
     want = align_pairs(pairs, with_traceback=with_traceback, device="cpu", **kw)
     assert got == want
@@ -600,14 +639,15 @@ def _dual_case(rng, letters, batch, n_cols, **scheme_kw):
             np.reshape(mt, (2, batch)), np.reshape(nt, (2, batch)))
 
 
-@pytest.mark.parametrize("batch,n_cols", [(1, 1), (33, 64), (5, 4096), (4, 5000)])
+@pytest.mark.parametrize("batch,n_cols", [(1, 1), (33, 64), (5, 1024), (4, 5000)])
 @pytest.mark.parametrize("letters,scheme_kw", [
     ("ACGT", {}), ("ARNDCQEGHILKMFPSTWYV", dict(scoring_mat_name="BLOSUM62")),
 ])
 def test_batch_final3_dual_matches_plain(cuda_device, batch, n_cols, letters,
                                          scheme_kw):
-    """Both sets in one launch, on either side of gotoh_batch's 4096-column
-    cap, equal to the plain version and to two single-set calls."""
+    """Both sets in one call (a gotoh_batch launch a width class, or one
+    gotoh_fill launch), on either side of gotoh_batch's 1024-column cap,
+    equal to the plain version and to two single-set calls."""
     from globalign_tpu_torch.ops import fill_batch
 
     args = _dual_case(np.random.default_rng(batch + n_cols), letters, batch,
@@ -618,8 +658,10 @@ def test_batch_final3_dual_matches_plain(cuda_device, batch, n_cols, letters,
     before = fill_batch.batch_final3.launches + fill_cuda.batch_moves.launches
     got = fill_batch.batch_final3_dual(*on_card)
     torch.cuda.synchronize()
+    design = 1 if n_cols > fill_batch.MAX_COLUMNS else len(
+        {fill_batch.width_class(int(n)) for n in np.ravel(args[6])})
     assert fill_batch.batch_final3.launches + fill_cuda.batch_moves.launches == (
-        before + 1
+        before + design
     )
     assert torch.equal(got.cpu(), want)
     for s in range(2):
