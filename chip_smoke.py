@@ -9,7 +9,8 @@ phase fails:
   0. print the card's name and power limit (nvidia-smi), build the kernels
      from ``globalign_tpu_torch/csrc`` and the probes of
      ``globalign_tpu_torch/utils/peaks.py`` (one nvcc per source, in
-     parallel) and print the build time;
+     parallel) and print the build time, and ``ptxas -v`` of
+     ``gotoh_batch`` and ``wave_split`` (registers, spills, occupancy);
   1. kernel vs plain, on the card against the plain versions on the CPU,
      same seeded inputs, tolerance 0 (all integers): ``batch_moves``
      (final3 and every move code); ``batch_moves`` and ``batch_last_rows``
@@ -29,7 +30,8 @@ phase fails:
      under the same four schemes (fin and every edge row), and a 256-row
      block 50 000 columns wide beside a neighbour; the wave kernel
      (``fill_wave.wave_frontiers``: all four captured waves at every row,
-     and the cost) at (m, n) from (0, 0) to 12 345 x 3000, some buffers
+     and the cost) at (m, n) from (0, 0) to 12 345 x 3000, the tile edges
+     of its plan (k H +- 1, k 32 W +- 1) and lopsided pairs, some buffers
      padded, under four uniform schemes; ``batch_final3_dual`` on two sets
      of B in {1, 33, 132} ragged pairs, 1 to 5000 columns (across the
      1024-column cap), DNA, BLOSUM62 and the 60-letter alphabet;
@@ -86,10 +88,13 @@ phase fails:
      beside its plain version and its bound; the 50 000^2 cost on a world
      of one beside ``cost()`` and the direct fill; the gloo exchange per
      super-step; ``align_pairs`` on a world of one beside no mesh; the wave
-     kernel at 10 000^2 and 50 000^2 beside the row split and the direct
-     fill, its plain version on the card at 10 000^2, its bound and serial
-     floor; the dual launch beside two single-set launches (64 x 4096^2 a
-     set, and the DNA chunk's two widest buckets) and its plain version;
+     kernel at 10 000^2 and 50 000^2 beside the row split in turns (wave,
+     split, split, wave) and the direct fill, its plain version on the
+     card at both shapes, its bound, and the two measured parts of its
+     critical path (a tile's time on a pair one tile column wide, and the
+     chain of dependent tiles at each shape); the dual launch beside two
+     single-set launches (64 x 4096^2 a set, and the DNA chunk's two
+     widest buckets) and its plain version;
      ``gotoh_fill`` at each census class (its most launched shape), its
      bound, and launches x (time - bound) for the class.
 
@@ -374,38 +379,63 @@ def main() -> int:
     log(smi)
     card = f"({smi})"
     t0 = time.perf_counter()
-    # gotoh_batch's registers and spills a width instance (ptxas -v), in
-    # parallel with the build.
+    # Registers, spills and stack of each kernel instance (ptxas -v) of
+    # gotoh_batch and wave_split, compiled in parallel with the build.
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ptxas = subprocess.Popen(
-        [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
-         str(cuda_build.BUILD_DIR / "gotoh_batch-ptxas.cubin"),
-         str(cuda_build.CSRC_DIR / "gotoh_batch.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
+    ptxas = {
+        stem: subprocess.Popen(
+            [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
+             str(cuda_build.BUILD_DIR / f"{stem}-ptxas.cubin"),
+             str(cuda_build.CSRC_DIR / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for stem in ("gotoh_batch", "wave_split")
+    }
     libs = cuda_build.build(cuda_build.sources() + [peaks.SOURCE])
     cuda_build.load()
     peaks.load()
     log(f"phase 0: built {', '.join(p.name for p in libs)} in "
         f"{time.perf_counter() - t0:.3f} s")
-    ptxas_out, _ = ptxas.communicate(timeout=300)
-    if ptxas.returncode != 0:
-        raise SystemExit(f"phase 0 failed: ptxas -v of gotoh_batch\n{ptxas_out}")
+
+    def ptxas_report(stem):
+        """(template arguments or None, registers, spill bytes, stack bytes)
+        a kernel instance, and the registers a warp is given (units of 256)."""
+        out, _ = ptxas[stem].communicate(timeout=300)
+        if ptxas[stem].returncode != 0:
+            raise SystemExit(f"phase 0 failed: ptxas -v of {stem}\n{out}")
+        for block in out.split("Compiling entry function")[1:]:
+            args = re.search(r"kernel(?:I(\w+?)EEv)?", block).group(1)
+            regs = int(re.search(r"Used (\d+) registers", block).group(1))
+            spills = sum(int(x) for x in re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                block).groups())
+            stack = int(re.search(r"(\d+) bytes stack frame", block).group(1))
+            yield args, regs, spills, stack, -(-regs * 32 // 256) * 256
+
     batch_regs = {}  # "W=32" / "W=32 last" -> registers, spill bytes, warps/SM
-    for block in ptxas_out.split("Compiling entry function")[1:]:
-        width, last = re.search(r"kernelILi(\d+)ELb([01])E", block).groups()
-        regs = int(re.search(r"Used (\d+) registers", block).group(1))
-        spills = [int(x) for x in re.search(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", block).groups()]
-        per_warp = -(-regs * 32 // 256) * 256  # allocated in units of 256
+    for args, regs, spills, _, per_warp in ptxas_report("gotoh_batch"):
+        width, last = re.match(r"Li(\d+)ELb([01])", args).groups()
         warps = min(64, 65536 // per_warp) // fill_batch.WARPS * fill_batch.WARPS
         batch_regs[f"W={width}{' last' if last == '1' else ''}"] = dict(
-            registers=regs, spill_bytes=sum(spills), warps_per_sm=warps)
+            registers=regs, spill_bytes=spills, warps_per_sm=warps)
     log(f"phase 0: gotoh_batch (ptxas -v, sm_90a): " + "; ".join(
         f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes, "
         f"{v['warps_per_sm']} warps an SM in blocks of {fill_batch.WARPS}"
         for k, v in sorted(batch_regs.items())))
+    # wave_split: one instance, W = 4; blocks of 4 warps, each staging
+    # 32 W + 1 edge cells, and the launch keeps one block an SM.
+    (_, regs, spills, stack, per_warp), = ptxas_report("wave_split")
+    smem_block = 4 * (32 * fill_wave.WIDTH + 1) * fill_wave.EDGE_BYTES
+    wave_regs = dict(
+        width=fill_wave.WIDTH, registers=regs, spill_bytes=spills,
+        stack_bytes=stack, launched_warps_per_sm=4,
+        warps_per_sm=4 * min(65536 // (per_warp * 4), 16,
+                             232_448 // smem_block))
+    log(f"phase 0: wave_split (ptxas -v, sm_90a): W = {fill_wave.WIDTH}: "
+        f"{regs} registers, {spills} spill bytes, {stack} stack bytes, "
+        f"occupancy {wave_regs['warps_per_sm']} warps an SM (H = 32 W), "
+        f"the launch keeps 4")
 
     counters = {
         "batch_moves": fill_cuda.batch_moves,
@@ -872,6 +902,17 @@ def main() -> int:
         ((2, 70), (5, 0)), ((70, 2), (0, 0)), ((1023, 1025), (0, 0)),
         ((1025, 1023), (0, 9)), ((4096, 4096), (0, 0)),
         ((12_345, 3000), (7, 7)), ((3000, 12_345), (0, 0)),
+    ]
+    # The tile edges of the kernel's plan: m, n = k H +- 1 and k 32 W +- 1.
+    wave_plan = fill_wave.plan(4096, 4096)
+    tile_h, tile_w = wave_plan.height, fill_wave.WARP * wave_plan.width
+    wave_shapes += [
+        ((tile_h - 1, tile_w + 1), (0, 0)), ((tile_h + 1, tile_w - 1), (2, 1)),
+        ((2 * tile_h - 1, 2 * tile_w + 1), (0, 0)),
+        ((2 * tile_h + 1, 3 * tile_w - 1), (0, 3)),
+        ((3 * tile_h + 1, 2 * tile_w - 1), (1, 0)),
+        ((5 * tile_h, 5 * tile_w), (0, 0)), ((3000, tile_w + 1), (0, 0)),
+        ((tile_h - 1, 3000), (0, 0)),
     ]
 
     def wave_args(scheme, m, n, pad=(0, 0)):
@@ -2245,28 +2286,50 @@ def main() -> int:
 
     # -- phase 3, the wave kernel and the dual-set fill --------------------
     # The wave kernel at the two main-path shapes beside the row split
-    # (fill_split: one 2-pair last-rows launch + join; cost() end to end)
-    # and the direct cost-only fill: does the anti-diagonal split beat the
-    # row split on this card?  Its bound: the cells both problems reach at
-    # the probe's cost-only cell rate (the function needs no more than the
-    # probe's cost-only cell; as in every fill bound, the substitution cost
-    # is free), against tokens read once and four captured waves written
-    # once; beside it the serial floor, tmax dependent waves of at least
-    # one L1 load each (a wave reads the neighbour's edge through shared
-    # memory after a barrier).
+    # (fill_split: one 2-pair last-rows launch + join), in turns (wave,
+    # split, split, wave), then cost() end to end and the direct cost-only
+    # fill: does the anti-diagonal split beat the row split on this card?
+    # Its bound: the cells both problems reach at the probe's cost-only
+    # cell rate (the function needs no more than the probe's cost-only
+    # cell; as in every fill bound, the substitution cost is free), against
+    # tokens read once and four captured waves written once.  Beside it the
+    # parts of the critical path: the longest chain of dependent tiles (b +
+    # c + 1 at the last ticketed tile anti-diagonal), and a tile's time,
+    # measured on a pair one tile column wide (50 000 x 32 W), whose tiles
+    # run one after another; their product is a model, logged as one.
     def wave_cells(m, n, tend):
         """Cells that waves 1..tend reach: rows max(0, t-n)..min(t, m)."""
         return sum(max(0, min(t, m) - max(0, t - n) + 1)
                    for t in range(1, tend + 1))
 
+    def chain_tiles(m, n):
+        pl = fill_wave.plan(m, n)
+        order = fill_wave.tile_order(m, n, pl.width, pl.height)
+        return int(((order[:, 0] >> 1) + order[:, 1]).max()) + 1 if len(order) else 0
+
+    enc50 = wave_main["50000^2 DNA"][0]
+    col_n = fill_wave.WARP * wave_plan.width
+    enc_col = (enc50[0], enc50[1][: col_n + 1].contiguous(), *enc50[2:8], col_n)
+    col_ms = cuda_ms(lambda: fill_wave.wave_frontiers(*enc_col), 3)
+    col_chain = chain_tiles(enc50[7], col_n)
+    tile_ms = col_ms / col_chain
+    log(f"phase 3: wave_split one tile column, {enc50[7]} x {col_n} on {card}: "
+        f"{col_ms:.4f} ms over a chain of {col_chain} tiles of "
+        f"{wave_plan.height} x {col_n}: {1e3 * tile_ms:.4f} us a tile")
+
     wave_rec = {}
     for label, (enc, aligner, (s1, s2)) in wave_main.items():
         ta, tb, *prm_go, m, n = enc
         big = m > 10_000
-        reps = 2 if big else 5
-        w_ms = cuda_ms(lambda: fill_wave.wave_frontiers(*enc), reps)
+        reps = 3 if big else 5
         cost_args = (ta, tb, aligner.cost_mat, aligner.gap_id, aligner.gap_open)
-        split_k_ms = cuda_ms(lambda: fill_split.split_fill_cost(*cost_args), reps)
+        turns = []
+        for arm in ("wave", "split", "split", "wave"):
+            fn = ((lambda: fill_wave.wave_frontiers(*enc)) if arm == "wave"
+                  else (lambda: fill_split.split_fill_cost(*cost_args)))
+            turns.append(cuda_ms(fn, reps))
+        w_ms = (turns[0] + turns[3]) / 2
+        split_k_ms = (turns[1] + turns[2]) / 2
         direct_k_ms = cuda_ms(
             lambda: fill_cuda.batch_moves(ta[None], tb[None], *cost_args[2:],
                                           [m], [n], want_moves=False),
@@ -2281,18 +2344,22 @@ def main() -> int:
         w_bound, w_by = bound(
             cells, "cost", 4 * (ta.numel() + tb.numel()) + 4 * 12 * ta.numel()
         )
-        floor_ms = 1e3 * tmax * peak["l1_load_clocks"] / sm_hz
+        chain = chain_tiles(m, n)
         wave_rec[label] = dict(ms=w_ms, bound_ms=w_bound, bound_by=w_by,
-                               serial_floor_ms=floor_ms, cells=cells,
+                               chain_tiles=chain, cells=cells,
                                split_ms=split_k_ms, direct_ms=direct_k_ms,
-                               e2e_ms=wave_e2e, cost_e2e_ms=cost_e2e)
+                               e2e_ms=wave_e2e, cost_e2e_ms=cost_e2e,
+                               turns_ms=turns)
         log(f"phase 3: wave_split {label} on {card}: kernel {w_ms:.4f} ms "
             f"({cells / w_ms / 1e6:.4f} Gcells/s over the {cells} cells both "
-            f"problems reach), wave_split_fill_cost end to end {wave_e2e:.4f} "
-            f"ms; row split (fill_split) {split_k_ms:.4f} ms, cost() end to "
-            f"end {cost_e2e:.4f} ms; direct cost-only fill {direct_k_ms:.4f} "
-            f"ms; bound {w_bound:.4f} ms ({w_by}), serial floor {tmax} waves x "
-            f"{peak['l1_load_clocks']:.2f} clocks = {floor_ms:.4f} ms")
+            f"problems reach; turns wave / split / split / wave "
+            f"{' / '.join(f'{t:.4f}' for t in turns)} ms), "
+            f"wave_split_fill_cost end to end {wave_e2e:.4f} ms; row split "
+            f"(fill_split) {split_k_ms:.4f} ms, cost() end to end "
+            f"{cost_e2e:.4f} ms; direct cost-only fill {direct_k_ms:.4f} ms; "
+            f"bound {w_bound:.4f} ms ({w_by}); critical path model: a chain "
+            f"of {chain} tiles x {1e3 * tile_ms:.4f} us a tile (the one-tile-"
+            f"column pair) = {chain * tile_ms:.4f} ms")
     # Its plain version on the card at 10 000^2, one run, held against the
     # kernel there.
     enc10 = wave_main["10000^2 DNA"][0]
@@ -2311,7 +2378,6 @@ def main() -> int:
         f"waves max abs err {err}")
     # And once at the 50 000^2 main-path shape: phase 2 holds the kernel
     # there only as a cost against cost().
-    enc50 = wave_main["50000^2 DNA"][0]
     got = fill_wave.wave_frontiers(*enc50)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2573,11 +2639,13 @@ def main() -> int:
             "bound_ms": wave_rec["10000^2 DNA"]["bound_ms"],
             "bound_by": wave_rec["10000^2 DNA"]["bound_by"],
             "library_ms": None,
-            "serial_floor_ms": wave_rec["10000^2 DNA"]["serial_floor_ms"],
+            "tile_us": 1e3 * tile_ms,
+            "chain_tiles": wave_rec["10000^2 DNA"]["chain_tiles"],
+            "ptxas": wave_regs,
             "row_split_ms": wave_rec["10000^2 DNA"]["split_ms"],
             "ms_50000": wave_rec["50000^2 DNA"]["ms"],
             "bound_ms_50000": wave_rec["50000^2 DNA"]["bound_ms"],
-            "serial_floor_ms_50000": wave_rec["50000^2 DNA"]["serial_floor_ms"],
+            "chain_tiles_50000": wave_rec["50000^2 DNA"]["chain_tiles"],
             "row_split_ms_50000": wave_rec["50000^2 DNA"]["split_ms"],
             "plain_ms_50000": wave_plain50_ms,
         },

@@ -22,9 +22,12 @@ compare and select and the row-0 / column-0 boundaries are the closed
 forms ``go + t*d`` / ``go + t*ic``.
 
 ``wave_frontiers`` computes the captured waves: on CUDA tensors one launch
-of ``csrc/wave_split.cu`` (a block per problem), on CPU tensors the plain
-version, the same recurrence as a loop over waves vectorised over DP rows.
-There is no other route: a CUDA tensor the kernel cannot take raises.
+of ``csrc/wave_split.cu``, on CPU tensors the plain version, the same
+recurrence as a loop over waves vectorised over DP rows.  There is no
+other route: a CUDA tensor the kernel cannot take raises.  The kernel
+fills both problems' triangles i + j <= cap as tiles of 32 W columns by H
+rows (``plan``), a warp a tile, in the ticket order of ``tile_order``;
+the tiles hand their edges on through buffers the wrapper allocates.
 
 The reference is wrong when m + n <= 1 ((0, 0) gives -4, (0, 1) and
 (1, 0) give 3).  There the crossing wave T = 0 is the (0, 0) corner,
@@ -37,13 +40,18 @@ defined (all BIG), and the join masks the corner's Ix / Iy lanes, as
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from .fill_scan import BIG
 
-MAX_THREADS = 1024  # the kernel's __launch_bounds__
-STATE_BYTES = 16  # a row's state: (M, Ix, Iy, min3 of the wave before)
+WARP = 32
+WIDTH = 4  # W, columns a lane, fixed in the kernel: tiles of 32 W x 32 W
+EDGE_BYTES = 16  # an edge cell in the buffers: (M, Ix, Iy, unused) int32
+FLAG_STRIDE = 32  # int32 a flag: one 128-byte line each
 
 
 def uniform_scheme_params(cost_mat, gap_id) -> tuple[int, int, int, int] | None:
@@ -79,11 +87,69 @@ def capture_waves(m: int, n: int) -> tuple[tuple[int, int], tuple[int, int]]:
     return (t_split - 1, t_split), (tmax - 1, tmax)
 
 
-def plan(m: int) -> tuple[int, int]:
-    """(threads, rows a thread) of the kernel's block for DP rows 0..m:
-    contiguous segments, one a thread."""
-    threads = min(MAX_THREADS, 32 * -(-(m + 1) // 32))
-    return threads, -(-(m + 1) // threads)
+class WavePlan(NamedTuple):
+    """The kernel's tiling of an m x n pair: W columns a lane, H rows a
+    tile, the tiles of both problems' triangles (tickets), and the bytes
+    of the buffers the wrapper allocates beside the output (edges, flags,
+    the ticket table)."""
+
+    width: int
+    height: int
+    tiles: int
+    scratch_bytes: int
+
+
+def tile_grid(m: int, n: int, width: int, height: int) -> tuple[int, int]:
+    """(B, C): tile rows over DP rows 1..m, tile columns over 1..n."""
+    return -(-m // height), -(-n // (WARP * width))
+
+
+@functools.lru_cache(maxsize=8)
+def tile_order(m: int, n: int, width: int, height: int) -> np.ndarray:
+    """The kernel's ticket table: (tiles, 2) int32 rows (2 b + p, c), one
+    for tile (b, c) of problem p, in the order warps take them.
+
+    Tile (b, c) covers rows b*H+1 .. (b+1)*H and columns c*32W+1 ..
+    (c+1)*32W.  A problem's tile is in the table iff its first cell lies
+    on or before the problem's last capture wave (b*H + c*32W + 2 <=
+    cap); those are the tiles the triangle reaches, and a tile's producers
+    (b-1, c) and (b, c-1) are among them.  Order: tile anti-diagonal b + c,
+    then b, then the problem, so a tile's producers hold smaller tickets.
+    The array is read-only (cached)."""
+    B, C = tile_grid(m, n, width, height)
+    b, c = np.meshgrid(np.arange(B), np.arange(C), indexing="ij")
+    b, c = b.ravel(), c.ravel()
+    first = b * height + c * (WARP * width) + 2
+    rows = []
+    for p, (_, cap) in enumerate(capture_waves(m, n)):
+        keep = first <= cap
+        rows.append(np.stack([b[keep], c[keep], np.full(keep.sum(), p)], 1))
+    t = np.concatenate(rows)
+    t = t[np.lexsort((t[:, 2], t[:, 0], t[:, 0] + t[:, 1]))]
+    out = np.stack([2 * t[:, 0] + t[:, 2], t[:, 1]], 1).astype(np.int32)
+    out.flags.writeable = False
+    return out
+
+
+def plan(m: int, n: int) -> WavePlan:
+    """The tiling ``wave_frontiers`` launches for an m x n pair: square
+    tiles (the kernel's), so the critical path of tiles runs as fast down
+    as across."""
+    width, height = WIDTH, WARP * WIDTH
+    B, C = tile_grid(m, n, width, height)
+    tiles = len(tile_order(m, n, width, height))
+    scratch = (
+        2 * (C * WARP * width + 1) * EDGE_BYTES  # row buffers
+        + 2 * B * (height + 1) * EDGE_BYTES  # column buffers
+        + 4 * FLAG_STRIDE * (1 + 2 * C)  # the ticket counter, column flags
+        + 8 * tiles  # the ticket table
+    )
+    return WavePlan(width, height, tiles, scratch)
+
+
+@functools.lru_cache(maxsize=4)
+def _device_order(m, n, width, height, device) -> torch.Tensor:
+    return torch.from_numpy(tile_order(m, n, width, height).copy()).to(device)
 
 
 def _check(tok_a, tok_b, m_true, n_true):
@@ -205,19 +271,26 @@ def wave_frontiers(
     from ..utils import cuda_build
 
     lib = cuda_build.load()
-    threads, seg = plan(m)
+    pl = plan(m, n)
+    B, C = tile_grid(m, n, pl.width, pl.height)
     (f0, f1), (r0, r1) = capture_waves(m, n)
-    out = torch.empty((2, 2, 3, tok_a.shape[0]), dtype=torch.int32, device=device)
-    scratch = torch.empty(
-        (2, seg * threads, STATE_BYTES // 4), dtype=torch.int32, device=device
-    )
     with torch.cuda.device(device):
+        order = _device_order(m, n, pl.width, pl.height, device)
+        out = torch.empty((2, 2, 3, tok_a.shape[0]), dtype=torch.int32,
+                          device=device)
+        rowbuf = torch.empty((2, C * WARP * pl.width + 1, EDGE_BYTES // 4),
+                             dtype=torch.int32, device=device)
+        colbuf = torch.empty((2, B, pl.height + 1, EDGE_BYTES // 4),
+                             dtype=torch.int32, device=device)
+        flags = torch.zeros(FLAG_STRIDE * (1 + 2 * C), dtype=torch.int32,
+                            device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         wave_frontiers.launches += 1
         err = lib.wave_split_launch(
             tok_a.data_ptr(), tok_b.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), tok_a.shape[0], m, n, *costs, f0, f1, r0, r1,
-            threads, seg, stream,
+            order.data_ptr(), rowbuf.data_ptr(), colbuf.data_ptr(),
+            flags.data_ptr(), tok_a.shape[0], m, n, *costs, f0, f1, r0, r1,
+            pl.tiles, stream,
         )
     if err != 0:
         msg = lib.wave_split_error_string(err).decode()

@@ -69,10 +69,10 @@ SIGNATURES = {
     },
     "wave_split": {
         "wave_split_launch": (
-            [_PTR] * 4  # tok_a tok_b out scratch
+            [_PTR] * 7  # tok_a tok_b out order rowbuf colbuf flags
             # R m n cmatch cmismatch dcost icost go, the four capture
-            # waves, threads S
-            + [_I32] * 14
+            # waves, tiles
+            + [_I32] * 13
             + [_PTR],  # stream
             _I32,
         ),

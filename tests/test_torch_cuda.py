@@ -585,8 +585,12 @@ def _wave_case(rng, m, n, pad=(0, 0), **scheme_kw):
     (0, 0, (0, 0)), (0, 1, (2, 0)), (1, 0, (0, 3)), (1, 1, (0, 0)),
     (2, 70, (5, 1)), (70, 2, (0, 0)), (1023, 1025, (0, 0)),
     (1025, 1023, (7, 9)),
-    # more rows than threads (2 rows a thread), then state past shared memory
-    (2100, 900, (0, 0)), (13_000, 40, (3, 0)),
+    # tile edges: m, n = k H +- 1 and k 32 W +- 1 (H = 32 W = 128)
+    (127, 129, (0, 0)), (129, 127, (2, 1)), (255, 257, (0, 0)),
+    (257, 383, (1, 0)), (385, 255, (0, 3)),
+    # lopsided: one tile column, one tile row, and many of each
+    (3000, 129, (0, 0)), (127, 2049, (0, 4)), (2100, 900, (0, 0)),
+    (13_000, 40, (3, 0)),
 ])
 @pytest.mark.parametrize("scheme_kw", [
     {},  # the default DNA scheme: the JAX bench's wave arm (bench.py:244-251)

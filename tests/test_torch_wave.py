@@ -5,7 +5,9 @@ the JAX package on the CPU.
 plain version and the join) against JAX ``wave_split_fill_cost`` (TPU
 kernel ``_make_wave_kernel`` in interpret mode) on the JAX tests' cases,
 against the direct fill on every (m, n) in 0..5 x 0..5, and its captured
-waves against the row scan's DP planes; ``ops.fill_batch.batch_final3_dual``
+waves against the row scan's DP planes; the CUDA kernel's tiling (``plan``),
+its ticket table (``tile_order``) and its tile schedule, emulated in Python
+at tiny tiles, against the plain version; ``ops.fill_batch.batch_final3_dual``
 against JAX ``lanes_batch_final3_dual`` / ``lanes_general_final3_dual``
 (TPU kernel ``_make_lane_kernel(npar=2)``, interpret mode).
 
@@ -213,12 +215,189 @@ def test_wave_frontiers_check_inputs_and_have_no_other_route():
     assert fill_wave.wave_frontiers.launches == before
 
 
-@pytest.mark.parametrize("m,want", [(0, (32, 1)), (31, (32, 1)), (32, (64, 1)),
-                                    (1023, (1024, 1)), (1024, (1024, 2)),
-                                    (50_000, (1024, 49))])
-def test_wave_kernel_plan(m, want):
-    threads, seg = fill_wave.plan(m)
-    assert (threads, seg) == want and threads * seg >= m + 1
+# (W, H, tiles, scratch bytes): 128 x 128 tiles; tiles = both problems'
+# (b, c) with 128 (b + c) + 2 <= cap; scratch = row buffers 2 (128 C + 1)
+# x 16 + column buffers 2 B 129 x 16 + flags 128 (1 + 2 C) + table 8 tiles.
+@pytest.mark.parametrize("m,n,want", [
+    (0, 0, (4, 128, 0, 160)),
+    (32, 0, (4, 128, 0, 4288)),
+    (1, 1, (4, 128, 1, 8648)),  # forward T = 1: its tile starts on wave 2
+    (31, 32, (4, 128, 2, 8656)),
+    (1024, 31, (4, 128, 10, 37_616)),
+    (1024, 1024, (4, 128, 72, 68_576)),
+    (50_000, 1, (4, 128, 392, 1_621_696)),
+    (1, 50_000, (4, 128, 392, 1_709_056)),
+    (12_345, 3000, (4, 128, 2328, 523_648)),
+    (3000, 12_345, (4, 128, 2328, 540_000)),
+    (50_000, 50_000, (4, 128, 153_272, 4_542_016)),
+])
+def test_wave_kernel_plan(m, n, want):
+    pl = fill_wave.plan(m, n)
+    assert tuple(pl) == want
+    assert pl.width * fill_wave.WARP == pl.height  # square tiles
+
+
+def _order_shapes():
+    rng = np.random.default_rng(9)
+    shapes = [(0, 0), (0, 5), (5, 0), (1, 1), (2, 1), (31, 30), (96, 95),
+              (97, 1), (1, 97), (200, 40), (40, 200)]
+    shapes += [tuple(int(x) for x in rng.integers(0, 300, 2)) for _ in range(6)]
+    return shapes
+
+
+@pytest.mark.parametrize("width,height", [(1, 3), (1, 32), (2, 5), (4, 128)])
+@pytest.mark.parametrize("m,n", _order_shapes())
+def test_tile_order_is_a_schedule_of_the_triangles(m, n, width, height):
+    """Every tile the triangle reaches appears once, no tile past the last
+    capture wave or past (m, n), and each tile's top and left producers
+    come before it."""
+    order = fill_wave.tile_order(m, n, width, height)
+    bw = fill_wave.WARP * width
+    tiles = [(int(x) & 1, int(x) >> 1, int(c)) for x, c in order]
+    assert len(set(tiles)) == len(tiles)
+    caps = [cap for _, cap in fill_wave.capture_waves(m, n)]
+    reached = {
+        (p, (i - 1) // height, (j - 1) // bw)
+        for p in range(2) for i in range(1, m + 1) for j in range(1, n + 1)
+        if i + j <= caps[p]
+    }
+    assert set(tiles) == reached
+    rank = {t: k for k, t in enumerate(tiles)}
+    for (p, b, c), k in rank.items():
+        assert (b == 0 or rank[(p, b - 1, c)] < k) and (c == 0 or rank[(p, b, c - 1)] < k)
+    diag = [b + c for _, b, c in tiles]
+    assert diag == sorted(diag)
+    assert fill_wave.plan(m, n).tiles == len(fill_wave.tile_order(
+        m, n, fill_wave.WIDTH, fill_wave.WARP * fill_wave.WIDTH))
+
+
+# -- the kernel's tile schedule, emulated ------------------------------------
+
+_GARBAGE = -777  # what an edge buffer holds before a tile writes it
+
+
+def _emulate_kernel(ta, tb, costs, m, n, width, height, order):
+    """csrc/wave_split.cu's schedule in Python: the boundary rows, then the
+    tiles in ticket order, a warp's 32 lanes skewed a row apart (a lane's
+    left cell is the left lane's last cell of the step before, lane 0's
+    the staged left edge), captures written by the lane that owns column
+    cap - i, and after a tile's steps its edges handed on through one row
+    buffer and one column buffer (slot 0 the corner) a problem: the bottom
+    row from the lanes in use, the right column and corner only when all
+    32 lanes are in use.  Python ints; the kernel's integer operations."""
+    cmatch, cmismatch, d, ic, go = costs
+    R = len(ta)
+    bw = fill_wave.WARP * width
+    B, C = fill_wave.tile_grid(m, n, width, height)
+    caps = fill_wave.capture_waves(m, n)
+    out = np.full((2, 2, 3, R), -999, np.int64)  # -999: never written
+    for p in range(2):
+        for k in range(2):
+            for i in range(R):
+                j = caps[p][k] - i
+                if 1 <= i <= m and 1 <= j <= n:
+                    continue
+                v = (BIG, BIG, BIG)
+                if i <= m and 0 <= j <= n:
+                    v = ((0, 0, 0) if i == j == 0 else (BIG, go + j * d, BIG)
+                         if i == 0 else (BIG, BIG, go + i * ic))
+                out[p, k, :, i] = v
+    rowbuf = np.full((2, C * bw + 1, 3), _GARBAGE, np.int64)
+    colbuf = np.full((2, B, height + 1, 3), _GARBAGE, np.int64)
+    done = np.zeros((2, C), np.int64)
+    for code, c in order:
+        p, b = int(code) & 1, int(code) >> 1
+        c = int(c)
+        assert (c == 0 or done[p, c - 1] >= b + 1) and (b == 0 or done[p, c] >= b)
+        r0, c0 = b * height, c * bw
+        cap0, cap1 = caps[p]
+        hh = min(height, m - r0, cap1 - c0 - 1 - r0)
+        lanes = min(32, -(-(min(n, cap1 - r0 - 1) - c0) // width))
+        edge = []
+        for k in range(hh + 1):
+            i = r0 + k
+            if c == 0:
+                v = (0, 0, 0) if i == 0 else (BIG, BIG, go + i * ic)
+            elif b == 0 and k == 0:
+                v = (BIG, go + c0 * d, BIG)
+            else:
+                v = tuple(int(x) for x in colbuf[p, b, k])
+            edge.append((*v, int(ta[m + 1 - i if p else i]) if k else 0))
+        prev, tok, diag = [], [], []
+        for lane in range(32):
+            j0 = c0 + lane * width + 1
+            row = [(BIG, go + j * d, BIG) if b == 0 else
+                   tuple(int(x) for x in rowbuf[p, j]) for j in range(j0, j0 + width)]
+            prev.append([list(x) for x in row])
+            tok.append([int(tb[n + 1 - j if p else j]) if j <= n else -1
+                        for j in range(j0, j0 + width)])
+            diag.append(edge[0][:3] if lane == 0 else tuple(prev[lane - 1][-1]))
+        corner = tuple(prev[31][-1])
+        right = [None] * hh
+        last = [(BIG, BIG, BIG, 0)] * 32
+        for k in range(hh + lanes - 1):
+            before = list(last)
+            for lane in range(32):
+                left = edge[min(k + 1, hh)] if lane == 0 else before[lane - 1]
+                r = k - lane
+                if not (0 <= r < hh and lane < lanes):
+                    continue
+                (lm, lx, ly, a), i, j0 = left, r0 + 1 + r, c0 + lane * width + 1
+                dg, xl, hl = diag[lane], lx, min(lm, ly)
+                for q in range(width):
+                    mp, xp, yp = prev[lane][q]
+                    sub = cmatch if a == tok[lane][q] else cmismatch
+                    mc = min(min(dg) + sub, BIG)
+                    yc = min(min(min(mp, xp) + go, yp) + ic, BIG)
+                    xc = min(xl + d, min(hl + go + d, BIG))
+                    dg = (mp, xp, yp)
+                    prev[lane][q] = [mc, xc, yc]
+                    xl, hl = xc, min(mc, yc)
+                diag[lane] = (lm, lx, ly)
+                last[lane] = (*prev[lane][-1], a)
+                if lane == 31:
+                    right[r] = prev[lane][-1]
+                for kk, cap in enumerate(caps[p]):
+                    q = cap - i - j0
+                    if 0 <= q < width and j0 + q <= n:
+                        out[p, kk, :, i] = prev[lane][q]
+        for lane in range(lanes):
+            j0 = c0 + lane * width + 1
+            rowbuf[p, j0 : j0 + width] = prev[lane]
+        if lanes == 32:
+            colbuf[p, b, 0] = corner
+            colbuf[p, b, 1 : hh + 1] = right
+        done[p, c] = b + 1
+    return torch.from_numpy(out.astype(np.int32))
+
+
+@pytest.mark.parametrize("m,n", [(0, 0), (1, 0), (0, 3), (1, 1), (9, 4), (5, 23),
+                                 (31, 30), (7, 97), (70, 65), (100, 33)])
+def test_tile_schedule_emulation_equals_plain(m, n):
+    """At tiny tiles (W = 1, H = 3: 32 x 3) the kernel's schedule, edge
+    buffers and corner hand-off give ``_plain``'s captures at every row;
+    the same in a shuffled order that still respects the producers."""
+    rng = np.random.default_rng(11 * m + n)
+    ta = np.concatenate([[0], rng.integers(0, 4, m + 2)]).astype(np.int32)
+    tb = np.concatenate([[0], rng.integers(0, 4, n + 1)]).astype(np.int32)
+    prm = fill_wave.uniform_scheme_params(BENCH_COST, ALPHA.gap_id)
+    costs = (*prm, BENCH_GO)
+    want = fill_wave.wave_frontiers(_t(ta), _t(tb), *costs, m, n)
+    order = fill_wave.tile_order(m, n, 1, 3)
+    assert torch.equal(_emulate_kernel(ta, tb, costs, m, n, 1, 3, order), want)
+    # Any order in which a tile's producers come first: a random one.
+    pending = [tuple(int(v) for v in t) for t in order]
+    finished, shuffled = set(), []
+    while pending:
+        ready = [(code, c) for code, c in pending  # code = 2 b + p
+                 if (code < 2 or (code - 2, c) in finished)
+                 and (c == 0 or (code, c - 1) in finished)]
+        t = ready[int(rng.integers(len(ready)))]
+        pending.remove(t)
+        finished.add(t)
+        shuffled.append(t)
+    got = _emulate_kernel(ta, tb, costs, m, n, 1, 3, np.array(shuffled).reshape(-1, 2))
+    assert torch.equal(got, want)
 
 
 # -- batch_final3_dual against TPU kernel #11 (npar = 2) ---------------------
