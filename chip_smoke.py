@@ -65,7 +65,14 @@ phase fails:
      one wave_split launch a call) and ``batch_final3_dual`` on the DNA
      chunk's two widest buckets (= ``align_pairs``, one launch); a custom
      matrix over non-ASCII letters (single pairs and ``align_pairs`` in
-     both modes = ``device="cpu"``); every ``gotoh_fill`` launch of these
+     both modes = ``device="cpu"``); the reference-layout package
+     (``globalign_tpu_torch.compat``) called with no device argument: the
+     goldens, a 4472^2 DNA and a 4472 x 4471 BLOSUM62 pair at the
+     reference's input limit (= ``device="cpu"`` and ``cost()``, one
+     moves launch a pair, end-to-end times), ``start``'s refusal at 4473 x
+     4472 beside ``find_global_alignment`` running it, ``globaligner.main``
+     (report bytes = the CLI with ``--device cpu``) and ``dp_compat``'s
+     interpreted 200^2 fill (= the card's cost); every ``gotoh_fill`` launch of these
      paths tallied by mode and (B, M, N) (the census);
   3. times with CUDA events: the fill kernel beside the plain row scan on
      the card; end-to-end ``align`` split into fill and D2H + walk; blocked
@@ -1606,6 +1613,138 @@ def main() -> int:
     log(f"phase 2: batch_final3_dual on the DNA chunk's buckets {widest}, "
         f"{per_set} pairs each, padded to {mm} x {nn}: every pair = align_pairs"
         f"(with_traceback=False); launches {counts}")
+
+    # The reference-layout package (globalign_tpu_torch.compat) as code
+    # written against the reference calls it: no device argument, so the
+    # card; every result = the port's API with device="cpu".  Its own rng,
+    # so the data of the other legs stays as it was.
+    from globalign_tpu_torch import cli as torch_cli
+    from globalign_tpu_torch import compat
+
+    crng = np.random.default_rng(SEED + 9)
+    goldens = [(kw, golden) for kw, golden in runs if golden is not None]
+    want_golden = [find_global_alignment(**kw, device="cpu") for kw, _ in goldens]
+    torch.cuda.synchronize()
+    reset_counts()
+    got = [compat.globaligner.find_global_alignment(**kw) for kw, _ in goldens]
+    counts = read_counts()
+    add_main(counts)
+    if [str(r) for r in got] != [str(w) for w in want_golden] or (
+        got != want_golden or counts != launches(batch_moves=len(goldens))
+        or [(r.score, r.cost) for r in got] != [g for _, g in goldens]
+    ):
+        raise SystemExit(f"phase 2 failed: compat goldens, launches {counts}")
+    log(f"phase 2: compat goldens: {len(goldens)} find_global_alignment calls with "
+        f"no device = device='cpu' (strings, cost, score, str); launches "
+        f"{counts}")
+
+    # Two pairs at the reference's input limit (m * n < 2e7), with no
+    # device argument: one gotoh_fill moves launch a pair.
+    s1 = random_seq(crng, DNA, 4472)
+    limit_runs = {"dna 4472 x 4472": dict(seq_1=s1, seq_2=mutate(crng, s1, DNA))}
+    s1 = random_seq(crng, PROTEIN, 4472)
+    limit_runs["blosum62 4472 x 4471"] = dict(
+        seq_1=s1, seq_2=mutate(crng, s1, PROTEIN)[:4471],
+        scoring_mat_name="BLOSUM62")
+    compat_ms = {}
+    for label, kw in limit_runs.items():
+        want_r = find_global_alignment(**kw, device="cpu")
+        torch.cuda.synchronize()
+        reset_counts()
+        r = compat.globaligner.find_global_alignment(**kw)
+        counts = read_counts()
+        add_main(counts)
+        aligner = GotohAligner(
+            validate_and_transform_args(**kw).scheme, device="cuda")
+        reset_counts()
+        c = aligner.cost(kw["seq_1"], kw["seq_2"])
+        cost_counts = read_counts()
+        add_main(cost_counts)
+        if r != want_r or str(r) != str(want_r) or r.cost != c or (
+            counts != launches(batch_moves=1)
+        ):
+            raise SystemExit(f"phase 2 failed: compat {label}: cost {r.cost}, "
+                             f"cpu {want_r.cost}, cost() {c}, launches {counts}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            compat.find_global_alignment(**kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        compat_ms[label] = times
+        log(f"phase 2: compat {label}: score {r.score} cost {r.cost} = "
+            f"device='cpu' (strings, cost, score, str) = cost() on the card "
+            f"({cost_counts['batch_last_rows']} last-rows launch); launches "
+            f"{counts}; end to end on {card}: {', '.join(f'{t:.3f}' for t in times)} ms")
+
+    # The two caps: start's validation refuses the reference's limit, the
+    # port's find_global_alignment runs past it.
+    s1 = random_seq(crng, DNA, 4473)
+    past = dict(seq_1=s1, seq_2=mutate(crng, s1, DNA)[:4472])
+    try:
+        compat.start.validate_and_transform_args(**past)
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        raise SystemExit("phase 2 failed: compat.start accepted 4473 x 4472")
+    if "too long" not in refusal:
+        raise SystemExit(f"phase 2 failed: compat.start refused with {refusal!r}")
+    compat.start.validate_and_transform_args(**limit_runs["dna 4472 x 4472"])
+    reset_counts()
+    r = compat.find_global_alignment(**past)
+    counts = read_counts()
+    add_main(counts)
+    past_cost = GotohAligner(validate_and_transform_args(**past).scheme,
+                             device="cuda").cost(past["seq_1"], past["seq_2"])
+    if r.cost != past_cost or counts != launches(batch_moves=1):
+        raise SystemExit(f"phase 2 failed: compat find_global_alignment "
+                         f"4473 x 4472: cost {r.cost}, cost() {past_cost}, "
+                         f"launches {counts}")
+    log(f"phase 2: compat.start.validate_and_transform_args accepts 4472 x "
+        f"4472 and refuses 4473 x 4472 ({refusal!r}); compat "
+        f"find_global_alignment runs 4473 x 4472: cost {r.cost} = cost(); "
+        f"launches {counts}")
+
+    # globaligner.main on the card = the port's CLI with --device cpu.
+    s1 = random_seq(crng, PROTEIN, 1500)
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = Path(tmp) / "pair.fasta"
+        fasta.write_text(f">a\n{s1}\n>b\n{mutate(crng, s1, PROTEIN)[:1400]}\n")
+        argv = ["-i", str(fasta), "--scoring_mat_name", "BLOSUM62"]
+        torch_cli.main(argv + ["--device", "cpu", "-o", f"{tmp}/cpu.txt"])
+        reset_counts()
+        compat.globaligner.main(argv + ["-o", f"{tmp}/card.txt"])
+        counts = read_counts()
+        add_main(counts)
+        report = Path(f"{tmp}/card.txt").read_bytes()
+        if report != Path(f"{tmp}/cpu.txt").read_bytes() or (
+            counts != launches(batch_moves=1)
+        ):
+            raise SystemExit(f"phase 2 failed: compat main report differs, "
+                             f"launches {counts}")
+    log(f"phase 2: compat globaligner.main 1500 x 1400 BLOSUM62 (FASTA) on the "
+        f"card: report bytes ({len(report)}) = cli.main --device cpu; "
+        f"launches {counts}")
+
+    # dp_compat's interpreted fill (host lists, never the card) = the card.
+    s1 = random_seq(crng, DNA, 200)
+    s2 = mutate(crng, s1, DNA)
+    r = compat.find_global_alignment(seq_1=s1, seq_2=s2)
+    costing = r.costing_mat
+    dp = compat.globaligner.make_dp_array(
+        s1, s2, costing, compat.start.get_max_val(costing), r.gap_open_cost)
+    compat.globaligner.dp_array_forward(dp, s1, s2, costing, r.gap_open_cost)
+    dp_back = compat.globaligner.dp_array_backward(
+        dp, s1, s2, costing, r.gap_open_cost)
+    if dp_back[3] != r.cost:
+        raise SystemExit(f"phase 2 failed: dp_compat cost {dp_back[3]}, card "
+                         f"{r.cost}")
+    log(f"phase 2: compat dp_compat 200 x 200: cost {dp_back[3]} = the card's; "
+        f"alignment strings "
+        f"{'equal' if dp_back[:3] == tuple(r[:3]) else 'differ (a tie)'}")
+    log(f"phase 2: compat leg end to end on {card}, ms: "
+        + json.dumps(compat_ms))
     log(f"phase 2: launches on the main paths: {main_launches}")
     census_total = sum(census.values())
     if census_total != (main_launches["batch_moves"]

@@ -28,6 +28,7 @@ def test_import_leaves_jax_out():
         "import globalign_tpu_torch.parallel, globalign_tpu_torch.parallel.seqpar\n"
         "import globalign_tpu_torch.ops.fill_batch\n"
         "import globalign_tpu_torch.ops.fill_wave\n"
+        "import globalign_tpu_torch.compat, globalign_tpu_torch.compat.globaligner\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'globalign_tpu', 'globalign'))\n"
         "assert not bad, bad\n"
