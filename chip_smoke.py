@@ -10,7 +10,8 @@ phase fails:
      from ``globalign_tpu_torch/csrc`` and the probes of
      ``globalign_tpu_torch/utils/peaks.py`` (one nvcc per source, in
      parallel) and print the build time, and ``ptxas -v`` of
-     ``gotoh_batch`` and ``wave_split`` (registers, spills, occupancy);
+     ``gotoh_batch``, ``wave_split`` and every ``gotoh_fill`` instance
+     (registers, spills, occupancy);
   1. kernel vs plain, on the card against the plain versions on the CPU,
      same seeded inputs, tolerance 0 (all integers): ``batch_moves``
      (final3 and every move code); ``batch_moves`` and ``batch_last_rows``
@@ -19,7 +20,13 @@ phase fails:
      shapes of ``fill_cuda.plan`` (1, 2 and 8 bands a pair, band and pass
      widths +-1, fewer than 32 columns, m_true 0 / 1, ragged batches whose
      pairs get different band counts); ``walk_block`` over the
-     same codes; the split cost; ``gotoh_batch`` (final3 and last rows) on
+     same codes; ``gotoh_fill``'s ragged moves mode and ``walk_block``'s
+     ragged kernel (``batch_moves_ragged`` / ``walk_ragged``, align_pairs'
+     traceback path) on buckets of several launch classes (a pair over 8
+     bands in two passes, m_true / n_true 0 and 1) under DNA, BLOSUM62 and
+     the 60-letter alphabet, and with one pair placed past byte 2^31 of a
+     2.2 GB buffer (ROADMAP C1); the split cost; ``gotoh_batch`` (final3
+     and last rows) on
      ragged launches of three buckets (every width class, 1 to 1024
      columns, and 1023 / 1024 / 1025, the last past the cap on
      ``gotoh_fill``), m_true in {0, 1, 7, ..., M}, under DNA, BLOSUM62, an
@@ -49,8 +56,10 @@ phase fails:
      819-1024), cost-only and traceback, equal pair by pair to the
      single-pair path on the card and, on 32 pairs, to ``device="cpu"``,
      cost-only with one ``gotoh_batch`` launch a width class (one a
-     chunk), traceback with one fill and one walk per bucket; a lowered moves budget
-     (sub-batches and a blocked pair); ``flush=False`` + ``resolve()``; the
+     chunk), traceback with one ragged ``gotoh_fill`` launch a launch class
+     and one ragged walk a segment (1 + 1 a chunk); a lowered moves budget
+     (three or more segments and a blocked pair); ``flush=False`` +
+     ``resolve()``; the
      batch CLI on the card and on the CPU (byte-identical TSVs); the
      parallel layer: on an NCCL world of one, ``align_pairs(mesh=)`` on both
      chunks (= unsharded, same launches) and ``sharded_pair_cost`` on a
@@ -81,7 +90,10 @@ phase fails:
      split ``cost`` beside the direct cost-only fill, from a golden-sized
      pair up; the walk kernel beside the plain walk; ``align_pairs`` at
      64 x 1024², 64 x 4096² and the two chunks, both modes, split into
-     device fill and walk and host enqueue, fetch and render; the chunk's
+     device fill and walk and host enqueue, fetch and render; each traceback
+     chunk's one ragged fill and one ragged walk in device time beside
+     their bounds and plain versions, and the per-bucket launches they
+     replace; the chunk's
      one ragged cost call, its largest bucket and the chunk as one padded
      launch beside ``gotoh_fill``'s final3 mode and the bound (device
      time: the host's enqueue hidden behind a sleep kernel); the crossover
@@ -387,7 +399,8 @@ def main() -> int:
     card = f"({smi})"
     t0 = time.perf_counter()
     # Registers, spills and stack of each kernel instance (ptxas -v) of
-    # gotoh_batch and wave_split, compiled in parallel with the build.
+    # gotoh_batch, wave_split and gotoh_fill, compiled in parallel with the
+    # build.
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     ptxas = {
         stem: subprocess.Popen(
@@ -397,7 +410,7 @@ def main() -> int:
              str(cuda_build.CSRC_DIR / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for stem in ("gotoh_batch", "wave_split")
+        for stem in ("gotoh_batch", "wave_split", "gotoh_fill")
     }
     libs = cuda_build.build(cuda_build.sources() + [peaks.SOURCE])
     cuda_build.load()
@@ -443,6 +456,19 @@ def main() -> int:
         f"{regs} registers, {spills} spill bytes, {stack} stack bytes, "
         f"occupancy {wave_regs['warps_per_sm']} warps an SM (H = 32 W), "
         f"the launch keeps 4")
+    # gotoh_fill: an instance per W, codes or not, the table in shared
+    # memory or not, and (with codes) the ragged mode or not.
+    fill_regs = {}
+    for args, regs, spills, _, _ in ptxas_report("gotoh_fill"):
+        width, moves, tsmem, ragged = re.match(
+            r"Li(\d+)ELb([01])ELb([01])ELb([01])", args).groups()
+        key = (f"W={width}{' codes' if moves == '1' else ''}"
+               f"{' table in smem' if tsmem == '1' else ''}"
+               f"{' ragged' if ragged == '1' else ''}")
+        fill_regs[key] = dict(registers=regs, spill_bytes=spills)
+    log("phase 0: gotoh_fill (ptxas -v, sm_90a): " + "; ".join(
+        f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes"
+        for k, v in sorted(fill_regs.items())))
 
     counters = {
         "batch_moves": fill_cuda.batch_moves,
@@ -451,6 +477,8 @@ def main() -> int:
         "batch_final3": fill_batch.batch_final3,
         "strip_fill_block": fill_cuda.strip_fill_block,
         "wave_frontiers": fill_wave.wave_frontiers,
+        "batch_moves_ragged": fill_cuda.batch_moves_ragged,
+        "walk_ragged": linear_tb.walk_ragged,
     }
 
     # gotoh_fill launches on the main paths by (mode, B, M, N): those
@@ -709,6 +737,82 @@ def main() -> int:
                 f"abs err {err}")
     if walk_err != 0:
         raise SystemExit("phase 1 failed: walk_block != plain walk")
+
+    # gotoh_fill's ragged moves mode and walk_block's ragged kernel (the
+    # traceback path of align_pairs) against their plain versions, the row
+    # scan and the walk pair by pair through the same packed buffer: each
+    # call's buckets fall in several launch classes (a pair over 8 bands in
+    # two passes, pairs over several bands and over one, m_true / n_true 0
+    # and 1); final3, every byte of each pair's codes, tapes, counts and
+    # exit columns, tolerance 0; one fill launch a class, one walk launch.
+    def ragged_err(got, want):
+        err = abs_err(got.final3, want.final3)
+        for row in want.layout.tolist():
+            lo, hi = row[4], row[4] + (row[2] + 1) * row[5]
+            err = max(err, abs_err(got.codes[lo:hi], want.codes[lo:hi]))
+        return err
+
+    ragged_sets = [
+        ("dna", DNA, [[(40, 33_000), (3, 5000)], [(1, 1), (0, 7), (9, 0), (1, 300)],
+                      [(200, 300), (300, 1), (250, 290)],
+                      [(64, 2100), (1000, 1000)]]),
+        ("blosum62", PROTEIN, [[(700, 900), (1, 1)], [(30, 4096), (90, 33)]]),
+        ("wide60", WIDE, [[(256, 300), (1, 2)], [(5, 1030)]]),
+    ]
+    fill_ragged_err = walk_ragged_err = 0
+    for name, letters, buckets in ragged_sets:
+        scheme = schemes[name](letters, letters)
+        made = [fill_args(scheme, [(random_seq(rng, letters, m),
+                                    random_seq(rng, letters, n))
+                                   for m, n in shapes]) for shapes in buckets]
+        args = ([x[0] for x in made], [x[1] for x in made], *made[0][2:5],
+                [x[5] for x in made], [x[6] for x in made])
+        on_card = ([t.to(dev) for t in args[0]], [t.to(dev) for t in args[1]],
+                   args[2].to(dev), *args[3:])
+        want = fill_cuda.batch_moves_ragged(*args)
+        want_walk = linear_tb.walk_ragged(want)
+        classes = fill_cuda.ragged_classes(
+            [m for x in made for m in x[5]], [n for x in made for n in x[6]], sms)
+        before = (fill_cuda.batch_moves_ragged.launches,
+                  linear_tb.walk_ragged.launches)
+        got = fill_cuda.batch_moves_ragged(*on_card)
+        got_walk = linear_tb.walk_ragged(got)
+        torch.cuda.synchronize()
+        ran = (fill_cuda.batch_moves_ragged.launches - before[0],
+               linear_tb.walk_ragged.launches - before[1])
+        err = ragged_err(got, want)
+        werr = max(abs_err(g, w) for g, w in zip(got_walk, want_walk))
+        fill_ragged_err = max(fill_ragged_err, err)
+        walk_ragged_err = max(walk_ragged_err, werr)
+        log(f"phase 1: ragged fill and walk {name}, buckets {buckets}: launch "
+            f"classes {[(tuple(lp), len(i)) for lp, i in classes]} (W, warps, "
+            f"bands, passes); launches {ran}; final3 and codes max abs err "
+            f"{err}, tapes, counts, exit columns max abs err {werr}")
+        if err or werr or ran != (len(classes), 1):
+            raise SystemExit(f"phase 1 failed: ragged fill / walk {name}")
+    # ROADMAP C1: a pair placed past byte 2^31 of a 2.2 GB buffer, where the
+    # JAX mega-walk's int32 offsets wrap; the first pair at byte 5.
+    scheme = schemes["dna"](DNA, DNA)
+    made = fill_args(scheme, [(random_seq(rng, DNA, m), random_seq(rng, DNA, n))
+                              for m, n in ((700, 650), (1000, 1000))])
+    place = dict(offsets=[5, 2**31 + 4099], nbytes=2_200_000_000)
+    args = ([made[0]], [made[1]], *made[2:5], [made[5]], [made[6]])
+    want = fill_cuda.batch_moves_ragged(*args, **place)
+    got = fill_cuda.batch_moves_ragged(
+        [made[0].to(dev)], [made[1].to(dev)], made[2].to(dev), *args[3:], **place)
+    got_walk = linear_tb.walk_ragged(got)
+    torch.cuda.synchronize()
+    err = ragged_err(got, want)
+    werr = max(abs_err(g, w) for g, w in zip(got_walk, linear_tb.walk_ragged(want)))
+    fill_ragged_err = max(fill_ragged_err, err)
+    walk_ragged_err = max(walk_ragged_err, werr)
+    log(f"phase 1: ragged fill and walk with a pair at byte "
+        f"{int(got.layout[:, 4].max())} of a {place['nbytes']}-byte buffer "
+        f"(past 2^31 = {2**31}): final3 and codes max abs err {err}, tapes, "
+        f"counts, exit columns max abs err {werr}")
+    if err or werr or int(got.layout[:, 4].max()) <= 2**31:
+        raise SystemExit("phase 1 failed: ragged fill / walk past byte 2^31")
+    del want, got, got_walk
 
     # The split cost on the card against its plain version.
     for name, letters, (m, n) in (("dna", DNA, (2, 0)), ("dna", DNA, (1, 300)),
@@ -1202,6 +1306,37 @@ def main() -> int:
                    for (mm, nn), k in keys.items())
         return len(keys), subs
 
+    def segments_of(pairs, budget):
+        """align_pairs' traceback segments under ``budget``, by its rule:
+        buckets in order of first appearance, each one's pairs in input
+        order, a segment closed where its codes packed tight ((m+1)(n+1)
+        bytes a pair) would pass the budget; a bucket whose padded pair
+        passes it goes blocked and joins none.  The (m, n) of each
+        segment's pairs."""
+        keys = {}
+        for a, b in pairs:
+            keys.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                            []).append((len(a), len(b)))
+        segs, used = [[]], 0
+        for (mm, nn), shapes in keys.items():
+            if (mm + 1) * (nn + 1) > budget:
+                continue
+            for m, n in shapes:
+                if used + (m + 1) * (n + 1) > budget:
+                    segs.append([])
+                    used = 0
+                segs[-1].append((m, n))
+                used += (m + 1) * (n + 1)
+        return [seg for seg in segs if seg]
+
+    def traceback_launches(pairs, budget):
+        """(gotoh_fill ragged launches, ragged walks) of a traceback
+        align_pairs call: a launch a launch class of each segment, a walk a
+        segment."""
+        segs = segments_of(pairs, budget)
+        return (sum(len(fill_cuda.ragged_classes(*zip(*seg), sms)) for seg in segs),
+                len(segs))
+
     def cost_launches(pairs):
         """gotoh_batch launches of a cost-only align_pairs call: one per
         width class of the pairs (every bucket within the cap)."""
@@ -1216,9 +1351,12 @@ def main() -> int:
     for name, (pairs, kw) in chunks.items():
         scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
         aligner = GotohAligner(scheme, device="cuda")
-        nbuckets, nsubs = bucket_counts(
-            pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET
-        )
+        nbuckets = bucket_counts(pairs)[0]
+        nfills, nwalks = traceback_launches(
+            pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET)
+        if (nfills, nwalks) != (1, 1):
+            raise SystemExit(f"phase 2 failed: the {name} chunk is "
+                             f"{nwalks} segments, {nfills} launch classes")
         for with_tb in (False, True):
             torch.cuda.synchronize()
             reset_counts()
@@ -1227,7 +1365,7 @@ def main() -> int:
             add_main(counts)
             chunk_results[name, with_tb] = (got, counts)
             design = (  # cost-only: one gotoh_batch launch a width class
-                launches(batch_moves=nsubs, walk_block=nsubs)
+                launches(batch_moves_ragged=nfills, walk_ragged=nwalks)
                 if with_tb else launches(batch_final3=cost_launches(pairs))
             )
             if counts != design:
@@ -1258,12 +1396,13 @@ def main() -> int:
             log(f"phase 2: align_pairs {name} 1024 pairs ({nbuckets} buckets), "
                 f"traceback={with_tb}: = single-pair path on the card, first "
                 f"32 = device='cpu'; launches {counts} (cost-only: one "
-                f"gotoh_batch launch a width class, where a launch a bucket "
-                f"made {nbuckets})")
+                f"gotoh_batch launch a width class; traceback: one ragged "
+                f"gotoh_fill launch a launch class and one ragged walk a "
+                f"segment; a launch a bucket made {nbuckets})")
 
-    # A lowered budget: the 300-nt bucket splits into sub-batches and the
-    # 1200 x 1100 pair goes blocked; equal to the default budget's result
-    # and to the CPU.
+    # A lowered budget: the 300-nt pairs split into three or more segments
+    # and the 1200 x 1100 pair goes blocked; equal to the default budget's
+    # result and to the CPU.
     mixed = serving_chunk(rng, DNA, 12, 290, 300)
     s1 = random_seq(rng, DNA, 1200)
     mixed.insert(5, (s1, mutate(rng, s1, DNA)[:1100]))
@@ -1278,18 +1417,17 @@ def main() -> int:
     finally:
         batch_mod.DEVICE_WALK_MOVES_BUDGET = real_budget
     add_main(counts)
-    small = [p for p in mixed if len(p[0]) < 1200]
-    nsmall, nsubs = bucket_counts(small, budget)
-    design = launches(batch_moves=nsubs + 1, batch_last_rows=1,
-                      walk_block=nsubs + 1)
+    nfills, nsegs = traceback_launches(mixed, budget)
+    design = launches(batch_moves_ragged=nfills, walk_ragged=nsegs,
+                      batch_moves=1, batch_last_rows=1, walk_block=1)
     cpu = align_pairs(mixed, device="cpu")
     if [fields(r) for r in got] != [fields(r) for r in want] or [
         fields(r) for r in cpu
-    ] != [fields(r) for r in want] or counts != design or nsubs <= nsmall:
+    ] != [fields(r) for r in want] or counts != design or nsegs < 3:
         raise SystemExit(f"phase 2 failed: budget {budget}: launches {counts}, "
                          f"design {design}")
-    log(f"phase 2: align_pairs under a {budget}-byte budget: {nsubs} "
-        f"sub-batches + one blocked 1200 x 1100 pair = default budget = "
+    log(f"phase 2: align_pairs under a {budget}-byte budget: {nsegs} "
+        f"segments + one blocked 1200 x 1100 pair = default budget = "
         f"device='cpu'; launches {counts}")
 
     # flush=False: nothing fetched until resolve(), which equals flush=True.
@@ -1339,8 +1477,9 @@ def main() -> int:
     # -- phase 2, the parallel layer --------------------------------------
     # A world of one on NCCL (the production mesh on one H100): align_pairs
     # over the mesh on both chunks, both modes, equal to the unsharded
-    # call, with its launches in traceback mode and a gotoh_batch launch a
-    # bucket cost-only (the mesh path shards each bucket); sharded_pair_cost on a 50 000 x 50 000
+    # call, with a launch a bucket (the mesh path shards each bucket): a
+    # gotoh_batch launch cost-only, a gotoh_fill moves launch and a
+    # walk_block launch with traceback; sharded_pair_cost on a 50 000 x 50 000
     # DNA pair, one strip-mode launch a block, equal to cost() (the split).
     from globalign_tpu_torch.parallel import make_pair_mesh, multihost, seqpar
 
@@ -1351,9 +1490,12 @@ def main() -> int:
     for name, (pairs, kw) in chunks.items():
         scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
         for with_tb in (False, True):
-            want, want_counts = chunk_results[name, with_tb]
-            if not with_tb:  # the mesh path keeps a launch a bucket shard
-                want_counts = launches(batch_final3=bucket_counts(pairs)[0])
+            want, _ = chunk_results[name, with_tb]
+            nbuckets, nsubs = bucket_counts(
+                pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET)
+            want_counts = (  # the mesh path keeps a launch a bucket shard
+                launches(batch_moves=nsubs, walk_block=nsubs) if with_tb
+                else launches(batch_final3=nbuckets))
             torch.cuda.synchronize()
             reset_counts()
             got = align_pairs(pairs, scheme=scheme, with_traceback=with_tb,
@@ -2017,7 +2159,8 @@ def main() -> int:
         for _ in range(reps):
             spans = {"fill": [], "walk": []}
             patched = (  # each launch under one wrapper's span
-                [(fill_cuda, "batch_moves", "fill"), (linear_tb, "walk_block", "walk")]
+                [(fill_cuda, "batch_moves_ragged", "fill"),
+                 (linear_tb, "walk_ragged", "walk")]
                 if with_tb else [(fill_batch, "batch_final3_ragged", "fill")]
             )
             saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
@@ -2103,16 +2246,16 @@ def main() -> int:
         t_bytes = 1e3 * nbytes / hbm_bytes_s
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
-    def walk_bound(ops, i0, j0, ld):
+    def walk_bound(ops, i0, j0, ld, base=0):
         """(least ms, the loads on its chain) of one walk of ``ops`` from
-        (i0, j0) over codes ``ld`` bytes a row: every step's code load
-        waits for the step before, and a load that opens a 32-byte sector
-        the walk has not read (it never comes back to one) cannot come
-        from nearer than L2; the rest come from L1 at best."""
+        (i0, j0) over codes ``ld`` bytes a row from byte ``base``: every
+        step's code load waits for the step before, and a load that opens a
+        32-byte sector the walk has not read (it never comes back to one)
+        cannot come from nearer than L2; the rest come from L1 at best."""
         ops = np.asarray(ops, dtype=np.int64)
         i = i0 - np.concatenate([[0], np.cumsum(ops != linear_tb.OP_LEFT)[:-1]])
         j = j0 - np.concatenate([[0], np.cumsum(ops != linear_tb.OP_UP)[:-1]])
-        sector = (i * ld + j)[j > 0] // 32  # steps at column 0 load nothing
+        sector = (base + i * ld + j)[j > 0] // 32  # column 0 loads nothing
         new = int(np.count_nonzero(np.diff(sector, prepend=-1)))
         clocks = new * peak["l2_load_clocks"] + (
             len(sector) - new) * peak["l1_load_clocks"]
@@ -2151,7 +2294,8 @@ def main() -> int:
             for a in buckets
         )
         gm = sum(cuda_ms(lambda: fill_cuda.batch_moves(*a), 3) for a in buckets)
-        arm_cost[arm] = (buckets, gb, gf, gm)
+        gr = cuda_ms(lambda: fill_cuda.batch_moves_ragged(*ragged), 3)
+        arm_cost[arm] = (buckets, gb, gf, gm, gr)
         b_ms, b_by = bound(
             cells, "cost", sum(fill_bytes(a, 12 * len(a[5])) for a in buckets)
         )
@@ -2164,9 +2308,11 @@ def main() -> int:
             f"{gb:.4f} ms ({cells / gb / 1e6:.4f} GCUPS), gotoh_fill final3 a "
             f"launch a bucket {gf:.4f} ms ({cells / gf / 1e6:.4f} GCUPS); "
             f"bound {b_ms:.4f} ms ({b_by})")
-        log(f"phase 3: moves fills of {arm} ({len(buckets)} buckets, one "
-            f"gotoh_fill launch each) on {card}: {gm:.4f} ms "
-            f"({cells / gm / 1e6:.4f} GCUPS); bound {m_ms:.4f} ms ({m_by})")
+        log(f"phase 3: moves fills of {arm} ({len(buckets)} buckets) on "
+            f"{card}: batch_moves_ragged over all of them (align_pairs' one "
+            f"call) {gr:.4f} ms ({cells / gr / 1e6:.4f} GCUPS), one "
+            f"gotoh_fill launch a bucket {gm:.4f} ms ({cells / gm / 1e6:.4f} "
+            f"GCUPS); bound {m_ms:.4f} ms ({m_by})")
 
     # The kernel record's bucket: the DNA chunk's largest bucket, one launch.
     dna_buckets = arm_cost["1024-pair DNA chunk"][0]
@@ -2349,6 +2495,93 @@ def main() -> int:
         f"{walk_steps_b} steps) on {card}: {walk_bucket_ms:.4f} ms; bound "
         f"{walk_b_bound:.4f} ms ({walk_b_by}: the longest walk's chain of "
         f"dependent loads); = plain walk, max abs err {err}")
+
+    # The traceback chunks' main-path calls: every bucket in one ragged
+    # moves fill and one ragged walk, in device time (the host's enqueue
+    # hidden), beside the per-bucket launches they replace (a gotoh_fill
+    # moves launch and a walk_block launch a bucket) and their bounds: the
+    # fill's true cells at the probe's cell rate with codes, against tokens,
+    # descriptors, final3 and the packed codes; the walk's longest chain of
+    # dependent loads (walk_bound of each pair's own tape at its offset),
+    # against its code loads and tape stores.  The plain walk runs over the
+    # whole DNA chunk on the host (and is held against the card); the plain
+    # fill, the row scan, over the chunk's first bucket (minutes for all of
+    # it), held against the chunk's call at those pairs.
+    ragged_rec = {}
+    for arm in ("1024-pair DNA chunk", "1024-pair BLOSUM62 chunk"):
+        buckets = arm_cost[arm][0]
+        rargs = [list(x) for x in zip(*buckets)]
+        rargs[2:5] = buckets[0][2:5]
+        fill_dev = device_ms(lambda: fill_cuda.batch_moves_ragged(*rargs), 5)
+        before = fill_cuda.batch_moves_ragged.launches
+        filled = fill_cuda.batch_moves_ragged(*rargs)
+        fill_launches = fill_cuda.batch_moves_ragged.launches - before
+        walk_dev = device_ms(lambda: linear_tb.walk_ragged(filled), 5)
+        r_ops, r_count, r_j = (x.cpu() for x in linear_tb.walk_ragged(filled))
+        per_bucket = [fill_cuda.batch_moves(*a) for a in buckets]
+        lvl_n = [(f3.argmin(-1).to(torch.int32),
+                  torch.tensor(a[6], dtype=torch.int32, device=dev))
+                 for (f3, _), a in zip(per_bucket, buckets)]
+        fills_dev = device_ms(
+            lambda: [fill_cuda.batch_moves(*a) for a in buckets], 3)
+        walks_dev = device_ms(lambda: [
+            linear_tb.walk_block(mv, a[5], n_t, lvl)
+            for (_, mv), a, (lvl, n_t) in zip(per_bucket, buckets, lvl_n)], 3)
+        del per_bucket
+        lay = filled.layout
+        cells = int((lay[:, 2] * lay[:, 3]).sum())
+        fill_b, fill_b_by = bound(cells, "moves", sum(
+            4 * (a[0].numel() + a[1].numel()) for a in buckets)
+            + 4 * buckets[0][2].numel() + filled.codes.numel()
+            + (12 + 8 * fill_cuda.DESC_WORDS) * len(lay))
+        chains = [walk_bound(r_ops[r, : int(r_count[r])].numpy(), m, n, ld, off)[0]
+                  for _, _, m, n, off, ld, r, _ in lay.tolist()]
+        walk_bytes = 1e3 * (2 * int(r_count.sum())
+                            + (8 * fill_cuda.DESC_WORDS + 12 + 8) * len(lay)) / hbm_bytes_s
+        walk_b = max(max(chains), walk_bytes)
+        rec = dict(fill_ms=fill_dev, walk_ms=walk_dev, fill_launches=fill_launches,
+                   per_bucket_fills_ms=fills_dev, per_bucket_walks_ms=walks_dev,
+                   buckets=len(buckets), fill_bound_ms=fill_b, fill_bound_by=fill_b_by,
+                   walk_bound_ms=walk_b,
+                   walk_bound_by="operations" if max(chains) >= walk_bytes else "bytes",
+                   cells=cells, code_bytes=filled.codes.numel(),
+                   longest_walk=int(r_count.max()))
+        if arm.startswith("1024-pair DNA"):
+            host = fill_cuda.RaggedMoves(
+                filled.final3.cpu(), filled.codes.cpu(), filled.desc.cpu(), lay)
+            t0 = time.perf_counter()
+            want = linear_tb.walk_ragged(host)
+            rec["walk_plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            werr = max(abs_err(g, w) for g, w in zip((r_ops, r_count, r_j), want))
+            one = [[t.cpu()] for t in (rargs[0][0], rargs[1][0])]
+            t0 = time.perf_counter()
+            want = fill_cuda.batch_moves_ragged(
+                *one, rargs[2].cpu(), *rargs[3:5], rargs[5][:1], rargs[6][:1])
+            rec["fill_plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            ferr = max(abs_err(filled.final3[: len(want.final3)], want.final3),
+                       abs_err(filled.codes[: want.codes.numel()], want.codes))
+            rec["plain_pairs"] = len(want.final3)
+            walk_ragged_err = max(walk_ragged_err, werr)
+            fill_ragged_err = max(fill_ragged_err, ferr)
+            if werr or ferr:
+                raise SystemExit("phase 3 failed: the DNA chunk's ragged fill "
+                                 "or walk != its plain version")
+            log(f"phase 3: plain versions on the host, the DNA chunk: the walk "
+                f"over its {len(lay)} pairs {rec['walk_plain_ms']:.4f} ms (max "
+                f"abs err {werr}); the row scan over its first bucket "
+                f"({rec['plain_pairs']} pairs) {rec['fill_plain_ms']:.4f} ms "
+                f"(final3 and codes max abs err {ferr})")
+        ragged_rec[arm] = rec
+        log(f"phase 3: {arm} traceback on {card} (device time): one ragged "
+            f"fill, {fill_launches} gotoh_fill launch, {fill_dev:.4f} ms "
+            f"({cells / fill_dev / 1e6:.4f} GCUPS, {filled.codes.numel()} code "
+            f"bytes), bound {fill_b:.4f} ms ({fill_b_by}); one ragged walk "
+            f"{walk_dev:.4f} ms (longest walk {rec['longest_walk']} steps), "
+            f"bound {walk_b:.4f} ms ({rec['walk_bound_by']}: the longest "
+            f"walk's chain of dependent loads); a launch a bucket, "
+            f"{len(buckets)} buckets: fills {fills_dev:.4f} ms, walks "
+            f"{walks_dev:.4f} ms")
+        del filled
 
     # -- phase 3, the parallel layer ---------------------------------------
     # The strip mode at its main-path shape: the first block of the
@@ -2668,6 +2901,8 @@ def main() -> int:
         "before gotoh_fill's redesign (one block a pair), on an NVIDIA H100 "
         "80GB HBM3 at 700.00 W, gave the 8000^2 moves fill 73.3129 ms and the "
         "256 x 50000 strip block 17.1011 ms")
+    dna_rr = ragged_rec["1024-pair DNA chunk"]
+    blosum_rr = ragged_rec["1024-pair BLOSUM62 chunk"]
     log(json.dumps({"kernels": [
         {
             "name": "gotoh_fill",
@@ -2699,6 +2934,7 @@ def main() -> int:
             "replay_fills_20000_ms": blocked_dev[20_000][1],
             "dna_chunk_moves_fills_ms": arm_cost["1024-pair DNA chunk"][3],
             "dna_chunk_final3_fills_ms": arm_cost["1024-pair DNA chunk"][2],
+            "ptxas": fill_regs,
         },
         {
             "name": "walk_block",
@@ -2812,6 +3048,57 @@ def main() -> int:
                 "single_ms"],
             "ms_64x4096": dual_rec["64 x 4096^2 a set"]["ms"],
             "two_single_ms_64x4096": dual_rec["64 x 4096^2 a set"]["single_ms"],
+        },
+        {
+            "name": "gotoh_fill_ragged",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/gotoh_fill.cu",
+            "replaces": "globalign_tpu/ops/fill_lanes.py:201",
+            "replaces_note": "moves mode over a call's traceback buckets: "
+                             "lanes_batch_moves :1978 / lanes_general_moves "
+                             ":1791 as globalign_tpu/batch.py:_lanes_walk_fills "
+                             "queues them; fill_pallas.py:496 (_pallas_moves)",
+            "launches": main_launches["batch_moves_ragged"],
+            "max_abs_err": fill_ragged_err,
+            "shape": f"the 1024-pair DNA chunk's {dna_rr['buckets']} buckets in "
+                     f"one batch_moves_ragged call ({dna_rr['fill_launches']} "
+                     "launch), device time",
+            "ms": dna_rr["fill_ms"],
+            "plain_ms": dna_rr["fill_plain_ms"],
+            "plain_shape": f"the row scan on the host over the chunk's first "
+                           f"bucket, {dna_rr['plain_pairs']} pairs",
+            "bound_ms": dna_rr["fill_bound_ms"],
+            "bound_by": dna_rr["fill_bound_by"],
+            "library_ms": None,
+            "per_bucket_launches_ms": dna_rr["per_bucket_fills_ms"],
+            "blosum62_chunk_ms": blosum_rr["fill_ms"],
+            "blosum62_chunk_bound_ms": blosum_rr["fill_bound_ms"],
+            "blosum62_per_bucket_launches_ms": blosum_rr["per_bucket_fills_ms"],
+        },
+        {
+            "name": "walk_block_ragged",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/walk_block.cu",
+            "replaces": "globalign_tpu/ops/linear_tb.py:268",
+            "replaces_note": "lanes_mega_walk, the walk of a call's traceback "
+                             "buckets in one device program "
+                             "(globalign_tpu/batch.py:_mega_walk_flush)",
+            "launches": main_launches["walk_ragged"],
+            "max_abs_err": walk_ragged_err,
+            "shape": f"the 1024-pair DNA chunk in one walk_ragged launch, "
+                     f"longest walk {dna_rr['longest_walk']} steps, device time",
+            "ms": dna_rr["walk_ms"],
+            "plain_ms": dna_rr["walk_plain_ms"],
+            "plain_shape": "the walk pair by pair on the host, the whole chunk",
+            "bound_ms": dna_rr["walk_bound_ms"],
+            "bound_by": dna_rr["walk_bound_by"],
+            "bound_note": "latency: the longest walk's chain of dependent "
+                          "code loads",
+            "library_ms": None,
+            "per_bucket_launches_ms": dna_rr["per_bucket_walks_ms"],
+            "blosum62_chunk_ms": blosum_rr["walk_ms"],
+            "blosum62_chunk_bound_ms": blosum_rr["walk_bound_ms"],
+            "blosum62_per_bucket_launches_ms": blosum_rr["per_bucket_walks_ms"],
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

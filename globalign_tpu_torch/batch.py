@@ -1,4 +1,4 @@
-"""Batched many-pair alignment: length bucketing, fused cost fills.
+"""Batched many-pair alignment: length bucketing, fused fills and walks.
 
 The port of ``globalign_tpu/batch.py`` (``align_pairs`` and its result
 types).  Pairs are padded into (M, N) length buckets:
@@ -9,11 +9,16 @@ types).  Pairs are padded into (M, N) length buckets:
     past its width cap, ``gotoh_fill``'s final3 mode a bucket: the
     counterpart of the JAX package's fused cost chunk (``COST_CHUNK_JIT``,
     ``_chunk_costs_jit``);
-  * traceback, a launch per bucket (or sub-batch of one, under the moves
-    budget): one ``gotoh_fill`` moves launch (``fill_cuda.batch_moves``,
-    row-major (B, M+1, N+1) codes), then one ``walk_block`` launch over the
-    whole sub-batch from each pair's (m, n) at the argmin level of its
-    final3.  The codes never leave the device.
+  * traceback: the buckets of the call in segments, each closed where its
+    codes, packed tight ((m+1)(n+1) bytes a pair), would pass the moves
+    budget: per segment one ragged moves fill
+    (``fill_cuda.batch_moves_ragged``: one ``gotoh_fill`` launch a launch
+    class) and one ragged walk (``linear_tb.walk_ragged``: one
+    ``walk_block`` launch) from each pair's (m, n) at the argmin level of
+    its final3 — the counterpart of the JAX package's chunk-wide device
+    walk (``_lanes_walk_fills``, ``_mega_walk_flush``, bounded by
+    ``WALK_GROUP_BYTES``) and of ``TB_CHUNK_JIT``.  The codes never leave
+    the device.
 
 Final lanes, op tapes, counts and exit columns stay on the device until
 ``resolve()`` (or the end of a ``flush=True`` call) brings every bucket's
@@ -39,11 +44,10 @@ alignment.
 
 Not ported, by design:
   * the chunk-fusion executables' compile cache (``COST_CHUNK_JIT`` /
-    ``TB_CHUNK_JIT``), which bounds XLA compiles per bucket composition:
-    the kernels take lengths at run time, so the cost fusion is always on
-    and compiles nothing; traceback buckets keep a launch each;
-  * the mega-walk blob and its pad quanta: one ``walk_block`` launch per
-    bucket walks the row-major codes where they lie;
+    ``TB_CHUNK_JIT``) and the mega-walk's pad quanta (``_BLOB_QUANTUM``,
+    ``_ROWS_QUANTUM``, ...), which bound XLA compiles per bucket
+    composition: the kernels take every shape at run time, so both
+    fusions are always on and compile nothing;
   * ``_moves_backend_estimate``'s per-backend byte models: a pair's codes
     are (M+1)(N+1) bytes on every route — nor, with them, the JAX mesh
     path's budget, which grants host-fetched sharded codes the device
@@ -193,9 +197,10 @@ def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
 
 @dataclass
 class _Dispatched:
-    """One bucket sub-batch on the device: its pairs' final lanes and, in
-    traceback mode, their op tapes (walk order), tape lengths and exit
-    columns."""
+    """Pairs on the device — a traceback segment, the call's cost-only
+    buckets, or over a mesh one bucket sub-batch: their final lanes and, in
+    traceback mode, their op tapes (row k pair k, walk order), tape lengths
+    and exit columns."""
 
     indices: list[int]
     final3: torch.Tensor
@@ -302,74 +307,92 @@ def align_pairs(
     results: list[PairResult | None] = [None] * len(pairs)
     dispatched: list[_Dispatched] = []
     budget = _moves_budget(dev)
-    ranks = 1 if mesh is None else mesh.size
     costed = []  # unsharded cost-only buckets: (group, tok_a, tok_b, m, n)
-    for (M, N), indices in buckets.items():
-        groups = [indices]
-        if with_traceback:
-            per_pair = (M + 1) * (N + 1)
-            if per_pair > budget:
-                # A single pair's move matrix exceeds the budget: the
-                # checkpointed linear-space traceback, pair by pair.
-                for idx in indices:
-                    s1, s2 = pairs[idx]
-                    with _phase("blocked"):
-                        tb = linear_tb.align_blocked(
-                            _to_device(encode_padded(scheme.alphabet, s1, len(s1)), dev),
-                            _to_device(encode_padded(scheme.alphabet, s2, len(s2)), dev),
-                            cost_mat, gap_id, gap_open, s1, s2, mesh=mesh,
-                        )
-                    results[idx] = PairResult(
-                        cost=tb.cost,
-                        score=score_of(idx, tb.cost),
-                        seq_1_aligned=tb.seq_1_aligned,
-                        middle_part=tb.middle_part,
-                        seq_2_aligned=tb.seq_2_aligned,
-                    )
-                continue
-            # Split oversized buckets into sub-batches under the budget
-            # (a rank's share of a sub-batch) rather than losing the
-            # batched path.
-            max_pairs = budget // per_pair * ranks
-            groups = [
-                indices[lo : lo + max_pairs]
-                for lo in range(0, len(indices), max_pairs)
-            ]
+    segment = []  # the open traceback segment's bucket groups, likewise
+    segment_bytes = 0  # its codes, packed tight
 
-        for group in groups:
-            with _phase("encode"):
-                tok_a = _encode_bucket(
-                    scheme.alphabet, [pairs[i][0] for i in group], M
+    def encode(group, M, N):
+        with _phase("encode"):
+            tok_a = _encode_bucket(scheme.alphabet, [pairs[i][0] for i in group], M)
+            tok_b = _encode_bucket(scheme.alphabet, [pairs[i][1] for i in group], N)
+            if mesh is None:
+                tok_a, tok_b = _to_device(tok_a, dev), _to_device(tok_b, dev)
+        return (group, tok_a, tok_b, [len(pairs[i][0]) for i in group],
+                [len(pairs[i][1]) for i in group])
+
+    def close_segment():
+        nonlocal segment_bytes
+        groups, tok_as, tok_bs, m_trues, n_trues = zip(*segment)
+        with _phase("fill"):
+            filled = fill_cuda.batch_moves_ragged(
+                tok_as, tok_bs, cost_mat, gap_id, gap_open, m_trues, n_trues
+            )
+            ops, count, j_exit = linear_tb.walk_ragged(filled)
+        dispatched.append(_Dispatched(
+            [idx for group in groups for idx in group], filled.final3, ops,
+            count, j_exit,
+        ))
+        segment.clear()
+        segment_bytes = 0
+
+    for (M, N), indices in buckets.items():
+        per_pair = (M + 1) * (N + 1)
+        if with_traceback and per_pair > budget:
+            # A single pair's move matrix exceeds the budget: the
+            # checkpointed linear-space traceback, pair by pair.
+            for idx in indices:
+                s1, s2 = pairs[idx]
+                with _phase("blocked"):
+                    tb = linear_tb.align_blocked(
+                        _to_device(encode_padded(scheme.alphabet, s1, len(s1)), dev),
+                        _to_device(encode_padded(scheme.alphabet, s2, len(s2)), dev),
+                        cost_mat, gap_id, gap_open, s1, s2, mesh=mesh,
+                    )
+                results[idx] = PairResult(
+                    cost=tb.cost,
+                    score=score_of(idx, tb.cost),
+                    seq_1_aligned=tb.seq_1_aligned,
+                    middle_part=tb.middle_part,
+                    seq_2_aligned=tb.seq_2_aligned,
                 )
-                tok_b = _encode_bucket(
-                    scheme.alphabet, [pairs[i][1] for i in group], N
-                )
-                m_true = [len(pairs[i][0]) for i in group]
-                n_true = [len(pairs[i][1]) for i in group]
-                if mesh is None:
-                    tok_a, tok_b = _to_device(tok_a, dev), _to_device(tok_b, dev)
-            if mesh is not None:
+            continue
+        if mesh is not None:
+            groups = [indices]
+            if with_traceback:
+                # Split oversized buckets into sub-batches under the budget
+                # (a rank's share of a sub-batch) rather than losing the
+                # batched path.
+                max_pairs = budget // per_pair * mesh.size
+                groups = [
+                    indices[lo : lo + max_pairs]
+                    for lo in range(0, len(indices), max_pairs)
+                ]
+            for group in groups:
+                enc = encode(group, M, N)
                 with _phase("fill"):
                     dispatched.append(_sharded_bucket(
-                        mesh, group, tok_a, tok_b, cost_mat, gap_id, gap_open,
-                        m_true, n_true, with_traceback,
+                        mesh, *enc[:3], cost_mat, gap_id, gap_open, *enc[3:],
+                        with_traceback,
                     ))
-                continue
-            if not with_traceback:  # filled with the call's other buckets
-                costed.append((group, tok_a, tok_b, m_true, n_true))
-                continue
-            with _phase("fill"):
-                final3, moves = fill_cuda.batch_moves(
-                    tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true
-                )
-                # Each walk starts at (m, n) in the level of the least of
-                # its final lanes (ties M > Ix > Iy: argmin's first index).
-                ops, count, j_exit, _ = linear_tb.walk_block(
-                    moves, m_true,
-                    _to_device(np.asarray(n_true, np.int32), dev),
-                    final3.argmin(-1).to(torch.int32),
-                )
-                dispatched.append(_Dispatched(group, final3, ops, count, j_exit))
+            continue
+        if not with_traceback:  # filled with the call's other buckets
+            costed.append(encode(indices, M, N))
+            continue
+        # The bucket's pairs join the open segment, which closes where its
+        # codes would pass the budget (no pair alone passes it: per_pair).
+        group = []
+        for idx in indices:
+            size = (len(pairs[idx][0]) + 1) * (len(pairs[idx][1]) + 1)
+            if segment_bytes + size > budget:
+                if group:
+                    segment.append(encode(group, M, N))
+                    group = []
+                close_segment()
+            group.append(idx)
+            segment_bytes += size
+        segment.append(encode(group, M, N))
+    if segment:
+        close_segment()
     if costed:  # every cost-only bucket of the call in one ragged fill
         groups, tok_as, tok_bs, m_trues, n_trues = zip(*costed)
         with _phase("fill"):

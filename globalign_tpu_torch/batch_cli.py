@@ -9,8 +9,10 @@ the JAX package's, byte for byte.
 Scheme options mirror the single-pair CLI; input is either a FASTA file of
 consecutive record pairs or a two-column TSV of raw sequences.
 ``--device {cuda,cpu}`` (default cuda, which raises without a GPU) takes
-the place of ``--platform``; ``--fuse_chunks`` is XLA-only and is not
-ported.
+the place of ``--platform``.  ``--fuse_chunks`` is refused: the JAX
+package's opt-in chunk fusion is always on here (a call's cost buckets fill
+together, its traceback buckets fill and walk together), so the switch has
+nothing to switch.
 
 Multi-process runs (``parallel.multihost``): one process per card, each a
 rank of a ``torch.distributed`` group — ``--distributed`` with

@@ -20,7 +20,11 @@
 //     overrides), the blocked traceback's checkpoint fill;
 //   * fill_pallas.py:_make_strip_kernel (:1811) — strip_fill_block (:1956),
 //     one column strip's block of rows in the sequence-parallel fill
-//     (parallel/seqpar.py), as the strip mode below.
+//     (parallel/seqpar.py), as the strip mode below;
+//   * the moves fills of every traceback bucket of an align_pairs call,
+//     which the JAX package queues for one device walk over the call
+//     (globalign_tpu/batch.py:_lanes_walk_fills, _mega_walk_flush), as the
+//     ragged moves mode below.
 // The TPU needed several kernels because Mosaic has no per-lane gather and
 // VMEM sizing picks the variant; here a thread reads the (A, A) cost table
 // at any index, so one kernel serves every scheme, alphabet and mode.
@@ -48,6 +52,12 @@
 // is then the row m, column 0 included — the TPU kernel's `fin`.  Its
 // `last` (the state after every row of a padded block) differs only on a
 // partial final block, which no block follows, so it is not emitted.
+// Ragged moves mode (gotoh_fill_ragged_launch): pair b is described by
+// desc[b] (DESC_WORDS int64: its seq_1 and seq_2 token addresses, m, n, the
+// byte offset of its codes in `moves`, their row stride ld >= n + 1, and
+// its row of final3), so one launch takes pairs of any shapes, each with
+// its codes packed where the caller placed them: (m + 1) rows of ld bytes,
+// real cells as above, every other byte of the rows 0.  Offsets are 64-bit.
 // The arithmetic is the row scan's (globalign_tpu/ops/fill_rows.py:133-289)
 // in int32 with BIG = 1 << 30: the clamps min(., BIG) at :175, :177, :193,
 // the code tests of :212-231 on unclamped sums with tie order M > Ix > Iy,
@@ -120,6 +130,7 @@ constexpr int CH = 16;        // rows a hand-off between warps
 constexpr int RING = 64;      // rows an edge ring holds
 constexpr int NSLOT = RING / CH;  // hand-offs a ring holds
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int DESC_WORDS = 8;  // int64 words of a ragged pair descriptor
 
 // Bytes a staged code row takes: 32 W plus a pad that makes the lanes'
 // skewed word stores fall in distinct banks.
@@ -132,7 +143,7 @@ struct Args {
   const int* tok_a;
   const int* tok_b;
   const int* cost;
-  const int* m_true;
+  const int* m_true;  // ragged moves mode: the descriptors (below)
   const int* n_true;
   const int* row0;
   const int* col0y_top;
@@ -144,6 +155,14 @@ struct Args {
   int4* pass_edge;  // (B, 2, M+1): a pass's right edge for the next pass
   int M, N, A, gap_id, go, P;
 };
+
+// Ragged moves mode: (B, DESC_WORDS) int64 pair descriptors in m_true's
+// place, which that mode does not read.  Not a field of its own: one more
+// field alone changes how ptxas allocates the other modes' registers (the
+// W = 16 moves instances then spill).
+__device__ __forceinline__ const long long* descriptors(const Args& a) {
+  return reinterpret_cast<const long long*>(a.m_true);
+}
 
 // 32-bit shared-memory addresses: a block's own (shared::cta) and, through
 // mapa, a block's of the cluster (shared::cluster).  The rings and their
@@ -240,7 +259,17 @@ __device__ __forceinline__ int min3(int a, int b, int c) {
   return __vimin3_s32(a, b, c);
 }
 
-template <int W, bool MOVES, bool TSMEM>
+// Pair b's row of final3: its descriptor's in ragged mode.  Found where it
+// is written, so no pointer to it stays live through the waves.
+template <bool RAGGED>
+__device__ __forceinline__ int* final3_row(const Args& a, int b) {
+  return a.final3 + 3 * (RAGGED ? descriptors(a)[(long long)b * DESC_WORDS + 6]
+                                : (long long)b);
+}
+
+// RAGGED (with MOVES) reads each pair's shape from its descriptor; an
+// instance of its own, so the other modes compile as if it did not exist.
+template <int W, bool MOVES, bool TSMEM, bool RAGGED>
 __global__ void __launch_bounds__(MAX_WARPS * WARP, 1)
 gotoh_fill_kernel(const Args a) {
   extern __shared__ int4 smem[];
@@ -258,7 +287,7 @@ gotoh_fill_kernel(const Args a) {
   const int P = a.P;
   const int b = blockIdx.x / P;
   const int p = blockIdx.x % P;  // the block's rank in its cluster
-  const int A = a.A, go = a.go, M = a.M, N = a.N, gap_id = a.gap_id;
+  const int A = a.A, go = a.go, gap_id = a.gap_id;
   const bool strip = a.col0 != nullptr;
   const bool want_last = a.last != nullptr;
 
@@ -279,17 +308,24 @@ gotoh_fill_kernel(const Args a) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
 
-  const int m = a.m_true[b];
-  const int n = a.n_true[b];
-  const int* ta = a.tok_a + (long long)b * (M + 1);
-  const int* tb = a.tok_b + (long long)b * (N + 1);
-  const long long ld = N + 1;
-  const long long lc = M + 1;  // row stride of col0 and edge
+  // The pair's shape: its lengths, its rows M and row stride ld (its codes
+  // and rows hold columns 0..N), its tokens and codes.
+  const long long* d = RAGGED ? descriptors(a) + (long long)b * DESC_WORDS : nullptr;
+  const int m = RAGGED ? (int)d[2] : a.m_true[b];
+  const int n = RAGGED ? (int)d[3] : a.n_true[b];
+  const int M = RAGGED ? m : a.M;
+  const long long ld = RAGGED ? d[5] : a.N + 1;
+  const int N = RAGGED ? (int)(ld - 1) : a.N;
+  const int* ta = RAGGED ? (const int*)d[0] : a.tok_a + (long long)b * (M + 1);
+  const int* tb = RAGGED ? (const int*)d[1] : a.tok_b + (long long)b * (N + 1);
+  const long long lc = a.M + 1;  // row stride of col0, edge and pass_edge
   const int* r0 = a.row0 ? a.row0 + (long long)b * 3 * ld : nullptr;
   int* lst = want_last ? a.last + (long long)b * 3 * ld : nullptr;
   const int* c0s = strip ? a.col0 + (long long)b * 3 * lc : nullptr;
   int* eg = strip ? a.edge + (long long)b * 3 * lc : nullptr;
-  uint8_t* mv = MOVES ? a.moves + (long long)b * (M + 1) * ld : nullptr;
+  uint8_t* mv = !MOVES ? nullptr
+                : RAGGED ? a.moves + d[4]
+                         : a.moves + (long long)b * (M + 1) * ld;
   const int c0 = a.col0y_top ? a.col0y_top[b] : go;  // Iy(0, 0) seed
 
   // Every byte the waves do not write, shared among the pair's P blocks.
@@ -343,9 +379,8 @@ gotoh_fill_kernel(const Args a) {
         f0 = BIG, f1 = BIG, f2 = acc;
         if (want_last) lst[0] = BIG, lst[ld] = BIG, lst[2 * ld] = acc;
       }
-      a.final3[3 * b] = f0;
-      a.final3[3 * b + 1] = f1;
-      a.final3[3 * b + 2] = f2;
+      int* f3 = final3_row<RAGGED>(a, b);
+      f3[0] = f0, f3[1] = f1, f3[2] = f2;
     }
     return;
   }
@@ -600,9 +635,8 @@ gotoh_fill_kernel(const Args a) {
               if (c == cn) fM = pM[c], fX = pX[c], fY = pY[c];
             if (strip) eg[i] = fM, eg[lc + i] = fX, eg[2 * lc + i] = fY;
             if (i == m) {
-              a.final3[3 * b] = fM;
-              a.final3[3 * b + 1] = fX;
-              a.final3[3 * b + 2] = fY;
+              int* f3 = final3_row<RAGGED>(a, b);
+              f3[0] = fM, f3[1] = fX, f3[2] = fY;
             }
           }
           if (want_last && i == m) {  // the strip's share of the last row
@@ -644,22 +678,26 @@ gotoh_fill_kernel(const Args a) {
 
 using Kernel = void (*)(const Args);
 
-template <bool MOVES, bool TSMEM>
+template <bool MOVES, bool TSMEM, bool RAGGED>
 Kernel pick_width(int W) {
   switch (W) {
-    case 4: return gotoh_fill_kernel<4, MOVES, TSMEM>;
-    case 8: return gotoh_fill_kernel<8, MOVES, TSMEM>;
-    case 16: return gotoh_fill_kernel<16, MOVES, TSMEM>;
-    case 32:
-      if (MOVES) return nullptr;  // 32 staged rows of 1 KB a warp
-      return gotoh_fill_kernel<32, false, TSMEM>;
+    case 4: return gotoh_fill_kernel<4, MOVES, TSMEM, RAGGED>;
+    case 8: return gotoh_fill_kernel<8, MOVES, TSMEM, RAGGED>;
+    case 16: return gotoh_fill_kernel<16, MOVES, TSMEM, RAGGED>;
+    case 32:  // 32 staged rows of 1 KB a warp: no codes
+      return MOVES ? nullptr : gotoh_fill_kernel<32, false, TSMEM, false>;
     default: return nullptr;
   }
 }
 
-Kernel pick_kernel(int W, bool moves, bool tsmem) {
-  return moves ? (tsmem ? pick_width<true, true>(W) : pick_width<true, false>(W))
-               : (tsmem ? pick_width<false, true>(W) : pick_width<false, false>(W));
+// The ragged mode is a moves mode.
+Kernel pick_kernel(int W, bool moves, bool tsmem, bool ragged) {
+  if (ragged)
+    return tsmem ? pick_width<true, true, true>(W) : pick_width<true, false, true>(W);
+  return moves ? (tsmem ? pick_width<true, true, false>(W)
+                        : pick_width<true, false, false>(W))
+               : (tsmem ? pick_width<false, true, false>(W)
+                        : pick_width<false, false, false>(W));
 }
 
 int stage_bytes(int W) {
@@ -733,6 +771,55 @@ cudaError_t place(Kernel kernel, int dev, size_t smem, int warps, int P,
   return cudaSuccess;
 }
 
+// Launches one fill: B pairs of up to M rows (pass_edge's row stride) and
+// N columns, W columns a lane, `warps` warps a block, P blocks a pair.
+cudaError_t launch(Args args, int B, int N, bool moves, bool ragged, int W,
+                   int warps, int P, void* stream) {
+  if (B < 1 || args.M < 0 || N < 0 || args.A < 1 || warps < 1 ||
+      warps > MAX_WARPS || P < 1 || P > MAX_BANDS ||
+      (long long)B * P > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if ((long long)N > (long long)P * warps * WARP * W && !args.pass_edge)
+    return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int optin = 0;
+  err = optin_bytes(dev, &optin);
+  if (err != cudaSuccess) return err;
+  // s_full, s_empty, s_red and s_tot
+  const size_t static_bytes = 2 * MAX_WARPS * (NSLOT * sizeof(uint64_t) + sizeof(int));
+  const size_t ring_bytes = (size_t)warps * RING * sizeof(int4);
+  const size_t stage = moves ? (size_t)warps * WARP * stage_bytes(W) : 0;
+  const size_t table_bytes = (size_t)args.A * args.A * sizeof(int);
+  if (static_bytes + ring_bytes + stage > (size_t)optin)
+    return cudaErrorInvalidConfiguration;
+  const bool table_in_smem =
+      static_bytes + ring_bytes + stage + table_bytes <= (size_t)optin;
+  const size_t smem = ring_bytes + stage + (table_in_smem ? table_bytes : 0);
+  const Kernel kernel = pick_kernel(W, moves, table_in_smem, ragged);
+  if (!kernel) return cudaErrorInvalidValue;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * P);
+  cfg.blockDim = dim3(warps * WARP);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = place(kernel, dev, smem, warps, P, cfg);
+  if (err != cudaSuccess) return err;
+  args.P = P;
+  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -753,56 +840,34 @@ int gotoh_fill_launch(const void* tok_a, const void* tok_b,
                       void* moves, void* last, void* edge, void* pass_edge,
                       int B, int M, int N, int A, int gap_id, int gap_open,
                       int W, int warps, int P, void* stream) {
-  if (B < 1 || M < 0 || N < 0 || A < 1 || warps < 1 || warps > MAX_WARPS ||
-      P < 1 || P > MAX_BANDS || (long long)B * P > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
   const bool strip = col0 != nullptr;
   if (strip ? (!row0 || !last || !edge || moves) : edge != nullptr)
     return (int)cudaErrorInvalidValue;
-  if ((long long)N > (long long)P * warps * WARP * W && !pass_edge)
-    return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int optin = 0;
-  err = optin_bytes(dev, &optin);
-  if (err != cudaSuccess) return (int)err;
-  // s_full, s_empty, s_red and s_tot
-  const size_t static_bytes = 2 * MAX_WARPS * (NSLOT * sizeof(uint64_t) + sizeof(int));
-  const size_t ring_bytes = (size_t)warps * RING * sizeof(int4);
-  const size_t stage = moves ? (size_t)warps * WARP * stage_bytes(W) : 0;
-  const size_t table_bytes = (size_t)A * A * sizeof(int);
-  if (static_bytes + ring_bytes + stage > (size_t)optin)
-    return (int)cudaErrorInvalidConfiguration;
-  const bool table_in_smem =
-      static_bytes + ring_bytes + stage + table_bytes <= (size_t)optin;
-  const size_t smem = ring_bytes + stage + (table_in_smem ? table_bytes : 0);
-  const Kernel kernel = pick_kernel(W, moves != nullptr, table_in_smem);
-  if (!kernel) return (int)cudaErrorInvalidValue;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * P);
-  cfg.blockDim = dim3(warps * WARP);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = P;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = place(kernel, dev, smem, warps, P, cfg);
-  if (err != cudaSuccess) return (int)err;
-
   Args args{(const int*)tok_a, (const int*)tok_b, (const int*)cost_mat,
             (const int*)m_true, (const int*)n_true, (const int*)row0,
             (const int*)col0y_top, (const int*)col0, (int*)final3,
             (uint8_t*)moves, (int*)last, (int*)edge, (int4*)pass_edge,
             M, N, A, gap_id, gap_open, P};
-  err = cudaLaunchKernelEx(&cfg, kernel, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch(args, B, N, moves != nullptr, false, W, warps, P, stream);
+}
+
+// Launches the ragged moves fill of B pairs on `stream`: pair b's tokens,
+// lengths, codes (at a byte offset of `moves`, with its own row stride) and
+// final3 row come from desc[b] ((B, DESC_WORDS) int64, device memory).
+// M and N are the launch's greatest m and n (M sizes `pass_edge`,
+// (B, 2, M+1) int4, needed when N passes P * warps * 32 * W columns); the
+// caller checks every descriptor.  W, warps and P as in gotoh_fill_launch.
+int gotoh_fill_ragged_launch(const void* desc, const void* cost_mat,
+                             void* final3, void* moves, void* pass_edge,
+                             int B, int M, int N, int A, int gap_id,
+                             int gap_open, int W, int warps, int P,
+                             void* stream) {
+  if (!desc || !moves) return (int)cudaErrorInvalidValue;
+  Args args{nullptr, nullptr, (const int*)cost_mat, (const int*)desc,
+            nullptr, nullptr, nullptr, nullptr, (int*)final3,
+            (uint8_t*)moves, nullptr, nullptr, (int4*)pass_edge,
+            M, N, A, gap_id, gap_open, P};
+  return (int)launch(args, B, N, true, true, W, warps, P, stream);
 }
 
 const char* gotoh_fill_error_string(int err) {

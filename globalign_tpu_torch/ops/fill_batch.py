@@ -124,17 +124,9 @@ def batch_final3_ragged(
     (B_k, 3, N_k+1) rows m_true.
     """
     tok_a, tok_b = list(tok_a), list(tok_b)
-    if not tok_a or len(tok_b) != len(tok_a) or len(m_true) != len(tok_a) or (
-        len(n_true) != len(tok_a)
-    ):
-        raise ValueError("tok_a, tok_b, m_true and n_true must list the same "
-                         "buckets, at least one")
-    device = tok_a[0].device
-    lengths = []
-    for ta, tb, mt, nt in zip(tok_a, tok_b, m_true, n_true):
-        if ta.device != device:
-            raise ValueError(f"a bucket is on {ta.device}, the first on {device}")
-        lengths.append(fill_cuda._check(ta, tb, cost_mat, gap_id, mt, nt, None, None))
+    device, lengths = fill_cuda._check_buckets(
+        tok_a, tok_b, cost_mat, gap_id, m_true, n_true
+    )
     m_host = [m for m, _ in lengths]
     n_host = [n for _, n in lengths]
     if device.type == "cpu":

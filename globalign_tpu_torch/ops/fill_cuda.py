@@ -1,6 +1,6 @@
 """Batched Gotoh fills — the CUDA kernel and its plain version.
 
-Three wrappers of one kernel, ``csrc/gotoh_fill.cu`` (a pair's columns
+Four wrappers of one kernel, ``csrc/gotoh_fill.cu`` (a pair's columns
 over a cluster of blocks, the strip state in registers; see the note at
 the head of that file, and :func:`plan` for the launch):
 
@@ -16,7 +16,14 @@ the head of that file, and :func:`plan` for the launch):
     boundary a neighbour strip's right edge: the row m_true and the strip's
     own right edge, the counterpart of ``fill_pallas.strip_fill_block``
     (TPU kernel ``_make_strip_kernel``), the block fill of the
-    sequence-parallel pipeline (``parallel.seqpar``).
+    sequence-parallel pipeline (``parallel.seqpar``);
+  * ``batch_moves_ragged`` — final3 and move codes of the pairs of several
+    buckets, each pair's codes packed tight into one buffer through a
+    per-pair descriptor (:func:`ragged_offsets`), one launch a launch class
+    (:func:`ragged_classes`): the moves fills of a traceback ``align_pairs``
+    call, which the JAX package walks in one device program
+    (``globalign_tpu/batch.py:_lanes_walk_fills``, ``_mega_walk_flush``);
+    ``ops.linear_tb.walk_ragged`` walks them.
 
 On CUDA tensors each launches the kernel; on CPU tensors each runs the
 plain version, the row scan of ``ops.fill_rows``, pair by pair.  There is
@@ -40,6 +47,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .fill_rows import row_fill
@@ -49,6 +57,7 @@ WIDTHS = (4, 8, 16, 32)  # the kernel's instances: columns a lane (W)
 MOVES_WIDTHS = (4, 8, 16)  # with codes: 32 staged rows of 32 W bytes a warp
 MAX_WARPS = 8  # warps a block (the kernel's __launch_bounds__)
 MAX_BANDS = 8  # blocks a pair: the portable cluster size
+DESC_WORDS = 8  # int64 words of a ragged pair descriptor (csrc/gotoh_fill.cu)
 
 
 class FillPlan(NamedTuple):
@@ -154,6 +163,24 @@ def _check(tok_a, tok_b, cost_mat, gap_id, m_true, n_true, row0, col0y_top,
         _lengths(m_true, batch, m1 - 1, "m_true"),
         _lengths(n_true, batch, n1 - 1, "n_true"),
     )
+
+
+def _check_buckets(tok_a, tok_b, cost_mat, gap_id, m_true, n_true):
+    """Validate the buckets of a ragged fill (sequences of (B_k, M_k+1) /
+    (B_k, N_k+1) tokens and (B_k,) lengths, on one device); returns the
+    device and each bucket's host-side (m_true, n_true)."""
+    if not tok_a or len(tok_b) != len(tok_a) or len(m_true) != len(tok_a) or (
+        len(n_true) != len(tok_a)
+    ):
+        raise ValueError("tok_a, tok_b, m_true and n_true must list the same "
+                         "buckets, at least one")
+    device = tok_a[0].device
+    lengths = []
+    for ta, tb, mt, nt in zip(tok_a, tok_b, m_true, n_true):
+        if ta.device != device:
+            raise ValueError(f"a bucket is on {ta.device}, the first on {device}")
+        lengths.append(_check(ta, tb, cost_mat, gap_id, mt, nt, None, None))
+    return device, lengths
 
 
 def _col0(tok_a, cost_mat, gap_id, top: int) -> torch.Tensor:
@@ -406,3 +433,176 @@ def strip_fill_block(
 batch_moves.launches = 0
 batch_last_rows.launches = 0
 strip_fill_block.launches = 0
+
+
+class RaggedMoves(NamedTuple):
+    """What :func:`batch_moves_ragged` gives, for ``linear_tb.walk_ragged``.
+
+    ``final3`` (P, 3) int32: pair k of the call at row k.  ``codes``
+    (nbytes,) uint8: pair k's codes, (m_k + 1) rows of n_k + 1 bytes at
+    byte ``layout[i, 4]`` for the descriptor i whose final3 row
+    ``layout[i, 6]`` is k, row-major, real cells as in
+    :func:`batch_moves` and every other byte of those rows 0.  ``desc``
+    (P, DESC_WORDS) int64 on the codes' device and ``layout``, the same
+    descriptors on the host, in launch order: seq_1 and seq_2 token
+    addresses, m, n, the codes' byte offset, their row stride, the final3
+    row, a pad."""
+
+    final3: torch.Tensor
+    codes: torch.Tensor
+    desc: torch.Tensor
+    layout: np.ndarray
+
+
+def ragged_offsets(m_true, n_true) -> np.ndarray:
+    """(P + 1,) int64: the byte offsets of P pairs' codes packed tight, pair
+    k's (m_k + 1)(n_k + 1) bytes from entry k, and the total last.  In
+    int64 end to end: the JAX package's mega-walk blob offsets are int32 and
+    wrap past 2^31 bytes (globalign_tpu/batch.py:944-948)."""
+    sizes = (np.asarray(m_true, np.int64) + 1) * (np.asarray(n_true, np.int64) + 1)
+    return np.concatenate([np.zeros(1, np.int64), np.cumsum(sizes, dtype=np.int64)])
+
+
+def ragged_classes(m_true, n_true, sms: int) -> list[tuple[FillPlan, np.ndarray]]:
+    """The launches of a ragged moves fill on a card of ``sms`` SMs: a
+    launch a class, as ``(plan, pair indices)``, the indices longest (m * n)
+    first.
+
+    A launch has one cluster shape, so pairs are grouped by the (width,
+    bands, passes) that :func:`plan` gives each pair's columns at the whole
+    call's count of pairs; each class then launches with the plan of its
+    own count and widest pair.  Pairs of one width class share a launch:
+    the 1024-pair serving chunk (819-1024 columns) is one class of one
+    block a pair, where a bucket of ~21 pairs spread each pair over a
+    cluster."""
+    m = np.asarray(m_true, np.int64)
+    n = np.asarray(n_true, np.int64)
+    keys = {}
+    for cols in np.unique(n).tolist():
+        lp = plan(len(n), cols, True, sms)
+        keys[cols] = (lp.width, lp.bands, lp.passes)
+    classes = {}
+    for k, cols in enumerate(n.tolist()):
+        classes.setdefault(keys[cols], []).append(k)
+    out = []
+    for key in sorted(classes, reverse=True):
+        idx = np.asarray(classes[key], np.int64)
+        idx = idx[np.argsort(-(m[idx] * n[idx]), kind="stable")]
+        out.append((plan(len(idx), int(n[idx].max()), True, sms), idx))
+    return out
+
+
+def batch_moves_ragged(
+    tok_a,
+    tok_b,
+    cost_mat: torch.Tensor,
+    gap_id: int,
+    gap_open: int,
+    m_true,
+    n_true,
+    *,
+    offsets=None,
+    nbytes: int | None = None,
+) -> RaggedMoves:
+    """Fill every pair of several buckets with codes: a :class:`RaggedMoves`.
+
+    Args:
+        tok_a / tok_b: sequences of (B_k, M_k+1) / (B_k, N_k+1) int32
+            contiguous 1-origin tokens (column 0 unused), one a bucket, all
+            on the CPU or all on one CUDA device.
+        cost_mat: (A, A) int32 contiguous costing matrix on that device.
+        gap_id / gap_open: the gap token and the gap-open cost.
+        m_true / n_true: sequences of (B_k,) host-side true lengths.
+        offsets / nbytes: where each pair's codes start in a buffer of
+            ``nbytes`` bytes, pairs in bucket order; by default packed tight
+            (:func:`ragged_offsets`).  Regions may not overlap.
+
+    Pairs are numbered in bucket order, each bucket's in its order.  On
+    CUDA tensors one ``gotoh_fill`` launch a class of
+    :func:`ragged_classes`, over pair descriptors; on CPU tensors the
+    plain version, the row scan pair by pair into the same packed buffer
+    at the same offsets and strides.  ``batch_moves_ragged.launches``
+    counts kernel launches.
+    """
+    tok_a, tok_b = list(tok_a), list(tok_b)
+    device, lengths = _check_buckets(tok_a, tok_b, cost_mat, gap_id, m_true, n_true)
+    m = np.concatenate([mt.numpy() for mt, _ in lengths]).astype(np.int64)
+    n = np.concatenate([nt.numpy() for _, nt in lengths]).astype(np.int64)
+    sizes = (m + 1) * (n + 1)
+    if offsets is None:
+        packed = ragged_offsets(m, n)
+        offsets, nbytes = packed[:-1], int(packed[-1])
+    else:
+        offsets = np.asarray(offsets, np.int64)
+        if offsets.shape != m.shape:
+            raise ValueError(f"offsets must have shape {m.shape}")
+        ends = offsets + sizes
+        nbytes = int(ends.max()) if nbytes is None else int(nbytes)
+        by_start = np.argsort(offsets, kind="stable")
+        if (offsets < 0).any() or (ends > nbytes).any() or (
+            offsets[by_start][1:] < ends[by_start][:-1]
+        ).any():
+            raise ValueError("offsets must place each pair's codes inside "
+                             f"{nbytes} bytes, no two overlapping")
+    layout = np.zeros((len(m), DESC_WORDS), np.int64)
+    for word, toks in ((0, tok_a), (1, tok_b)):  # each pair's row of tokens
+        layout[:, word] = np.concatenate([
+            t.data_ptr() + 4 * t.shape[1] * np.arange(t.shape[0], dtype=np.int64)
+            for t in toks
+        ])
+    layout[:, 2], layout[:, 3] = m, n
+    layout[:, 4], layout[:, 5] = offsets, n + 1
+    layout[:, 6] = np.arange(len(m))
+    if device.type == "cpu":
+        final3 = torch.empty((len(m), 3), dtype=torch.int32)
+        codes = torch.zeros(nbytes, dtype=torch.uint8)
+        rows = [(ta[b], tb[b]) for ta, tb in zip(tok_a, tok_b)
+                for b in range(ta.shape[0])]
+        for (ta, tb), (_, _, mk, nk, off, ld, row, _) in zip(rows, layout.tolist()):
+            res = row_fill(ta[: mk + 1], tb[: nk + 1], cost_mat, gap_id, gap_open,
+                           want_moves=True)
+            final3[row] = res.final3
+            codes[off : off + (mk + 1) * ld].view(mk + 1, ld)[1:, 1 : nk + 1] = (
+                res.moves[1:, 1:]
+            )
+        return RaggedMoves(final3, codes, torch.from_numpy(layout), layout)
+    if device.type != "cuda":
+        raise ValueError(f"no gotoh_fill route for device {device}")
+
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    classes = ragged_classes(m, n, _sms(device.index))
+    layout = np.ascontiguousarray(layout[np.concatenate([i for _, i in classes])])
+    desc = torch.from_numpy(layout).pin_memory().to(device, non_blocking=True)
+    final3 = torch.empty((len(m), 3), dtype=torch.int32, device=device)
+    codes = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    lo = 0
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for lp, idx in classes:
+            m_max, n_max = int(m[idx].max()), int(n[idx].max())
+            pass_edge = (  # (B, 2, M+1) int4: a pass's right edge for the next
+                torch.empty((len(idx), 2, m_max + 1, 4), dtype=torch.int32,
+                            device=device)
+                if lp.passes > 1
+                else None
+            )
+            batch_moves_ragged.launches += 1
+            err = lib.gotoh_fill_ragged_launch(
+                desc.data_ptr() + lo * DESC_WORDS * 8, cost_mat.data_ptr(),
+                final3.data_ptr(), codes.data_ptr(),
+                None if pass_edge is None else pass_edge.data_ptr(),
+                len(idx), m_max, n_max, cost_mat.shape[0], int(gap_id),
+                int(gap_open), lp.width, lp.warps, lp.bands, stream,
+            )
+            if err != 0:
+                msg = lib.gotoh_fill_error_string(err).decode()
+                raise RuntimeError(
+                    f"gotoh_fill ragged launch failed: CUDA error {err} ({msg})"
+                )
+            lo += len(idx)
+    return RaggedMoves(final3, codes, desc, layout)
+
+
+batch_moves_ragged.launches = 0

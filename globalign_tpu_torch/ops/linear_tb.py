@@ -32,6 +32,10 @@ Routing is by device only: on CUDA tensors the kernels (``gotoh_fill``,
 ``walk_block``), on CPU tensors their plain versions; anything else raises.
 Unlike the JAX module there is no backend ladder, no probe and no padding
 of n: the kernels take run-time lengths.
+
+``walk_ragged`` is the port of ``lanes_mega_walk``: one walk over the codes
+of every pair of a ragged moves fill (``fill_cuda.batch_moves_ragged``), a
+traceback ``align_pairs`` call's buckets together.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .fill_cuda import batch_last_rows, batch_moves
+from .fill_cuda import RaggedMoves, batch_last_rows, batch_moves
 from .fill_scan import default_boundary
 from .traceback import (
     GAP_CHAR,
@@ -66,30 +70,39 @@ OP_LEFT = 1  # gap in seq_1 (consume seq_2[j-1])
 OP_UP = 2  # gap in seq_2 (consume seq_1[i-1])
 
 
+def _walk_steps(codes, base, ld, i, j, level, tape):
+    """One walk over flat codes (row i of the pair at ``codes[base + i *
+    ld]``) from (i, j) in ``level`` up to row 0, its ops into ``tape``;
+    returns (steps, j, level) where it left the codes."""
+    t = 0
+    while i > 0:
+        if j == 0:
+            op = OP_UP
+        else:
+            code = int(codes[base + i * ld + j])
+            op = (OP_DIAG, OP_LEFT, OP_UP)[level]
+            level = (code >> (2 * level)) & 3
+        tape[t] = op
+        t += 1
+        i -= op != OP_LEFT
+        j -= op != OP_UP
+    return t, j, level
+
+
 def _walk_plain(moves, i_entry, j_entry, level_entry):
     """The walk kernel's plain version, over CPU tensors (Python loop)."""
     batch, k1, n1 = moves.shape
     length = k1 - 1 + n1 - 1
-    mv = moves.numpy()
+    flat = moves.numpy().reshape(-1)
     ops = np.zeros((batch, length), np.uint8)
     count = np.zeros(batch, np.int32)
     j_exit = np.zeros(batch, np.int32)
     level_exit = np.zeros(batch, np.int32)
     for b in range(batch):
-        i, j, level = int(i_entry[b]), int(j_entry[b]), int(level_entry[b])
-        t = 0
-        while i > 0:
-            if j == 0:
-                op = OP_UP
-            else:
-                code = int(mv[b, i, j])
-                op = (OP_DIAG, OP_LEFT, OP_UP)[level]
-                level = (code >> (2 * level)) & 3
-            ops[b, t] = op
-            t += 1
-            i -= op != OP_LEFT
-            j -= op != OP_UP
-        count[b], j_exit[b], level_exit[b] = t, j, level
+        count[b], j_exit[b], level_exit[b] = _walk_steps(
+            flat, b * k1 * n1, n1, int(i_entry[b]), int(j_entry[b]),
+            int(level_entry[b]), ops[b],
+        )
     return tuple(
         torch.from_numpy(x) for x in (ops, count, j_exit, level_exit)
     )
@@ -166,6 +179,82 @@ def walk_block(
 
 
 walk_block.launches = 0
+
+
+def walk_ragged(
+    filled: RaggedMoves,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Walk every pair of a ragged moves fill from (m, n) up to row 0.
+
+    Args:
+        filled: ``fill_cuda.batch_moves_ragged``'s result; pair k's walk
+            starts in the level of the least of its final lanes
+            ``final3[k]`` (ties M > Ix > Iy: argmin's first index).
+
+    Returns ``(ops (P, L) uint8, count (P,), j_exit (P,))``, int32 on the
+    codes' device, row k pair k's op tape (walk order), its length and the
+    column where it reached row 0, with L the greatest m + n; ops past
+    ``count`` are 0.  The row-0 left moves are the caller's, as with
+    :func:`walk_block`.  On CUDA tensors one launch of ``walk_block``'s
+    ragged kernel over every pair, on CPU tensors its plain version pair
+    by pair through the same descriptors.  ``walk_ragged.launches`` counts
+    kernel launches.
+    """
+    final3, codes, desc, layout = filled
+    pairs = final3.shape[0]
+    if final3.dim() != 2 or final3.shape[1] != 3 or final3.dtype != torch.int32:
+        raise ValueError("final3 must be (P, 3) int32")
+    if codes.dim() != 1 or codes.dtype != torch.uint8:
+        raise ValueError("codes must be a flat uint8 buffer")
+    if layout.shape != (pairs, desc.shape[1]) or tuple(desc.shape) != layout.shape:
+        raise ValueError(f"desc and layout must both hold the {pairs} pairs")
+    m, n, off, ld, row = (layout[:, k] for k in (2, 3, 4, 5, 6))
+    if (np.sort(row) != np.arange(pairs)).any() or (ld < n + 1).any() or (
+        (off < 0) | (off + (m + 1) * ld > codes.numel())
+    ).any():
+        raise ValueError("a descriptor names a final3 row or codes outside "
+                         "the fill's")
+    for name, x in (("codes", codes), ("desc", desc)):
+        if x.device != final3.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {final3.device}")
+    length = int((m + n).max()) if pairs else 0
+    device = final3.device
+    if device.type == "cpu":
+        flat, lanes = codes.numpy(), final3.numpy()
+        ops = np.zeros((pairs, length), np.uint8)
+        count = np.zeros(pairs, np.int32)
+        j_exit = np.zeros(pairs, np.int32)
+        for _, _, mk, nk, base, stride, r, _ in layout.tolist():
+            count[r], j_exit[r], _ = _walk_steps(
+                flat, base, stride, mk, nk, int(lanes[r].argmin()), ops[r]
+            )
+        return tuple(torch.from_numpy(x) for x in (ops, count, j_exit))
+    if device.type != "cuda":
+        raise ValueError(f"no walk_block route for device {device}")
+
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    ops = torch.zeros((pairs, length), dtype=torch.uint8, device=device)
+    count, j_exit = (
+        torch.empty((pairs,), dtype=torch.int32, device=device) for _ in range(2)
+    )
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        walk_ragged.launches += 1
+        err = lib.walk_ragged_launch(
+            desc.data_ptr(), codes.data_ptr(), final3.data_ptr(),
+            ops.data_ptr(), count.data_ptr(), j_exit.data_ptr(), pairs,
+            length, stream,
+        )
+    if err != 0:
+        msg = lib.walk_block_error_string(err).decode()
+        raise RuntimeError(f"walk_block ragged launch failed: CUDA error {err} "
+                           f"({msg})")
+    return ops, count, j_exit
+
+
+walk_ragged.launches = 0
 
 
 def block_bounds(

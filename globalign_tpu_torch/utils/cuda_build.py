@@ -44,6 +44,12 @@ SIGNATURES = {
             + [_PTR],  # stream
             _I32,
         ),
+        "gotoh_fill_ragged_launch": (
+            [_PTR] * 5  # desc cost final3 moves pass_edge
+            + [_I32] * 9  # B M N A gap go W warps P
+            + [_PTR],  # stream
+            _I32,
+        ),
         "gotoh_fill_error_string": ([_I32], ctypes.c_char_p),
     },
     "gotoh_batch": {
@@ -62,6 +68,12 @@ SIGNATURES = {
             # moves i_entry j_entry level_entry ops count j_exit level_exit
             [_PTR] * 8
             + [_I32] * 4  # B K N L
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "walk_ragged_launch": (
+            [_PTR] * 6  # desc moves final3 ops count j_exit
+            + [_I32] * 2  # B L
             + [_PTR],  # stream
             _I32,
         ),

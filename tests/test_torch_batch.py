@@ -236,20 +236,31 @@ def test_batch_traceback_moves_budget_fallback(monkeypatch):
 
 
 def test_batch_traceback_subbatch_split(monkeypatch):
-    """A bucket over the moves budget is split into sub-batches (one fill
-    and one walk each), not degraded to per-pair replay."""
+    """A bucket over the moves budget is split into segments (one ragged
+    fill and one ragged walk each), each closed where its codes, packed
+    tight, would pass the budget — not degraded to per-pair replay."""
     rng = np.random.default_rng(7)
     pairs = _ragged_pairs(rng, "ACGT", 5, lo=20, hi=30)  # one 32 x 32 bucket
     want = jax_align_pairs(pairs, with_traceback=True)
-    # (33 * 33) bytes a pair: two pairs a sub-batch.
-    monkeypatch.setattr(batch_mod, "DEFAULT_BATCH_MOVES_BUDGET", 2 * 33 * 33 + 5)
+    budget = 2 * 33 * 33 + 5  # two padded pairs
+    monkeypatch.setattr(batch_mod, "DEFAULT_BATCH_MOVES_BUDGET", budget)
+    segments, used = [0], 0
+    for a, b in pairs:
+        size = (len(a) + 1) * (len(b) + 1)
+        if used + size > budget:
+            segments.append(0)
+            used = 0
+        segments[-1] += 1
+        used += size
     blocked = _count_calls(monkeypatch, linear_tb, "align_blocked")
-    fills = _count_calls(monkeypatch, fill_cuda, "batch_moves")
-    walks = _count_calls(monkeypatch, linear_tb, "walk_block")
+    per_bucket = _count_calls(monkeypatch, fill_cuda, "batch_moves")
+    fills = _count_calls(monkeypatch, fill_cuda, "batch_moves_ragged")
+    walks = _count_calls(monkeypatch, linear_tb, "walk_ragged")
     got = align_pairs(pairs, with_traceback=True, device="cpu")
     assert _fields(got) == _fields(want)
-    assert not blocked
-    assert [f[0].shape[0] for f in fills] == [2, 2, 1] and len(walks) == 3
+    assert not blocked and not per_bucket and len(segments) > 1
+    assert [sum(t.shape[0] for t in f[0]) for f in fills] == segments
+    assert len(walks) == len(segments)
 
 
 def test_the_card_budget_governs_device_walked_buckets(monkeypatch):
@@ -270,7 +281,9 @@ def test_the_card_budget_governs_device_walked_buckets(monkeypatch):
 @pytest.mark.parametrize("with_traceback", [False, True])
 def test_one_fill_per_bucket(monkeypatch, with_traceback):
     """Cost-only: one ragged fill a call, over every bucket; traceback: one
-    moves fill and one walk per bucket — never a launch per pair."""
+    ragged moves fill and one ragged walk a segment (one segment under the
+    default budget), over every bucket — never a launch per bucket or per
+    pair."""
     rng = np.random.default_rng(11)
     pairs = _ragged_pairs(rng, "ACGT", 16, lo=1, hi=90)
     buckets = {(bucket_length(len(a)), bucket_length(len(b))) for a, b in pairs}
@@ -279,16 +292,18 @@ def test_one_fill_per_bucket(monkeypatch, with_traceback):
     finals = _count_calls(monkeypatch, fill_batch, "batch_final3")
     fills = _count_calls(monkeypatch, fill_cuda, "batch_moves")
     walks = _count_calls(monkeypatch, linear_tb, "walk_block")
+    ragged_fills = _count_calls(monkeypatch, fill_cuda, "batch_moves_ragged")
+    ragged_walks = _count_calls(monkeypatch, linear_tb, "walk_ragged")
     align_pairs(pairs, with_traceback=with_traceback, device="cpu")
-    want = (0, 0, len(buckets), len(buckets)) if with_traceback else (
-        1, 0, 0, 0
+    want = (0, 0, 0, 0, 1, 1) if with_traceback else (1, 0, 0, 0, 0, 0)
+    assert (len(ragged), len(finals), len(fills), len(walks),
+            len(ragged_fills), len(ragged_walks)) == want
+    # the call's buckets, each in one tensor pair
+    call = ragged_fills[0] if with_traceback else ragged[0]
+    assert len(call[0]) == len(buckets)
+    assert sorted(t.shape[1] - 1 for t in call[1]) == sorted(
+        n for _, n in buckets
     )
-    assert (len(ragged), len(finals), len(fills), len(walks)) == want
-    if not with_traceback:  # the call's buckets, each in one tensor pair
-        assert len(ragged[0][0]) == len(buckets)
-        assert sorted(t.shape[1] - 1 for t in ragged[0][1]) == sorted(
-            n for _, n in buckets
-        )
 
 
 @pytest.mark.parametrize("with_traceback", [False, True])

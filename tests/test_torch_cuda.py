@@ -404,8 +404,9 @@ def test_batch_final3_routing_on_either_side_of_the_cap(cuda_device, batch):
 def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
                                              with_traceback):
     """Ragged pairs over several buckets: the card (cost-only, one
-    gotoh_batch launch a width class; traceback, one fill and one walk a
-    bucket) == ``device="cpu"``, pair by pair; flush=False too."""
+    gotoh_batch launch a width class; traceback, one ragged gotoh_fill
+    launch a launch class and one ragged walk) == ``device="cpu"``, pair by
+    pair; flush=False too."""
     from globalign_tpu_torch import align_pairs
     from globalign_tpu_torch.batch import bucket_length
     from globalign_tpu_torch.ops import fill_batch
@@ -418,19 +419,71 @@ def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
     ]
     buckets = {(bucket_length(len(a)), bucket_length(len(b))) for a, b in pairs}
     classes = {fill_batch.width_class(len(b)) for _, b in pairs}
-    before = (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches,
-              linear_tb.walk_block.launches)
+    launch_classes = fill_cuda.ragged_classes(
+        [len(a) for a, _ in pairs], [len(b) for _, b in pairs],
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count,
+    )
+    counters = (fill_batch.batch_final3, fill_cuda.batch_moves,
+                linear_tb.walk_block, fill_cuda.batch_moves_ragged,
+                linear_tb.walk_ragged)
+    before = [fn.launches for fn in counters]
     got = align_pairs(pairs, with_traceback=with_traceback, **kw)
-    k = len(buckets)
-    assert (fill_batch.batch_final3.launches - before[0],
-            fill_cuda.batch_moves.launches - before[1],
-            linear_tb.walk_block.launches - before[2]) == (
-        (0, k, k) if with_traceback else (len(classes), 0, 0)
+    assert len(buckets) > 1
+    assert [fn.launches - k for fn, k in zip(counters, before)] == (
+        [0, 0, 0, len(launch_classes), 1] if with_traceback
+        else [len(classes), 0, 0, 0, 0]
     )
     want = align_pairs(pairs, with_traceback=with_traceback, device="cpu", **kw)
     assert got == want
     assert align_pairs(pairs, with_traceback=with_traceback, flush=False,
                        **kw).resolve() == want
+
+
+@pytest.mark.parametrize("letters,kw", [
+    ("ACGT", {}), ("ARNDCQEGHILKMFPSTWYV", dict(scoring_mat_name="BLOSUM62")),
+])
+@pytest.mark.parametrize("placed", [False, True])
+def test_ragged_fill_and_walk_match_plain(cuda_device, letters, kw, placed):
+    """The ragged moves fill and walk on the card against their plain
+    versions: buckets of several launch classes (a pair over a cluster of
+    8 bands in two passes, m_true / n_true 0 and 1), packed tight or placed
+    with gaps out of pair order; final3, every pair's codes, tapes, counts
+    and exit columns equal, one launch a class and one walk launch."""
+    rng = np.random.default_rng(61 + placed)
+    shapes = [[(40, 33_000), (3, 5000)], [(1, 1), (0, 7), (9, 0)],
+              [(200, 300), (1, 290), (250, 1)], [(64, 2100)]]
+    buckets = [_case(rng, letters, sh, **kw) for sh in shapes]
+    shared = buckets[0][2:5]
+    args = ([b[0] for b in buckets], [b[1] for b in buckets], *shared,
+            [b[5] for b in buckets], [b[6] for b in buckets])
+    m = [x for b in buckets for x in b[5]]
+    n = [x for b in buckets for x in b[6]]
+    size = (np.array(m) + 1) * (np.array(n) + 1)
+    place = {}
+    if placed:
+        order = rng.permutation(len(m))
+        offsets = np.zeros(len(m), np.int64)
+        offsets[order] = np.cumsum(np.concatenate([[3], size[order][:-1] + 11]))
+        place = dict(offsets=offsets, nbytes=int((offsets + size).max()) + 9)
+    want = fill_cuda.batch_moves_ragged(*args, **place)
+    classes = fill_cuda.ragged_classes(
+        m, n, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    before = (fill_cuda.batch_moves_ragged.launches, linear_tb.walk_ragged.launches)
+    got = fill_cuda.batch_moves_ragged(
+        [t.to(cuda_device) for t in args[0]], [t.to(cuda_device) for t in args[1]],
+        shared[0].to(cuda_device), *shared[1:], *args[5:], **place)
+    got_walk = linear_tb.walk_ragged(got)
+    torch.cuda.synchronize()
+    assert (fill_cuda.batch_moves_ragged.launches - before[0],
+            linear_tb.walk_ragged.launches - before[1]) == (len(classes), 1)
+    assert any(lp.bands > 1 and lp.passes > 1 for lp, _ in classes)
+    assert torch.equal(got.final3.cpu(), want.final3)
+    codes, want_codes = got.codes.cpu(), want.codes
+    for row in want.layout.tolist():
+        lo, hi = row[4], row[4] + (row[2] + 1) * row[5]
+        assert torch.equal(codes[lo:hi], want_codes[lo:hi])
+    for g, w in zip(got_walk, linear_tb.walk_ragged(want)):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("letters, scheme_kw", [

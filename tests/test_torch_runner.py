@@ -4,8 +4,9 @@ Mirrors ``tests/test_runner.py:40-320`` for
 ``globalign_tpu_torch.runner.BatchRunner(device="cpu")`` and
 ``python -m globalign_tpu_torch.batch_cli --device cpu``, and holds the
 results TSV and the manifest fingerprint byte for byte to the JAX runner's
-on the same input.  Not mirrored: ``--fuse_chunks`` (XLA chunk fusion, not
-ported; the CLI has no such option).  ``--shard`` and ``--distributed`` are
+on the same input.  Not mirrored: ``--fuse_chunks`` (the JAX package's
+opt-in chunk fusion, always on in the port, so the CLI has no such switch).
+``--shard`` and ``--distributed`` are
 held to the JAX runner in ``tests/test_torch_multihost.py``.
 """
 
@@ -210,8 +211,10 @@ def test_batch_cli_defaults_to_the_card(tmp_path):
 
 
 def test_batch_cli_drops_the_xla_and_mesh_options(tmp_path, monkeypatch):
-    """The XLA-only options are gone; the mesh options are ported, and
-    ``--distributed`` without a cluster to join refuses to guess one."""
+    """``--platform`` (XLA's) and ``--fuse_chunks`` (a switch with nothing
+    to switch: both chunk fusions are always on) are refused; the mesh
+    options are ported, and ``--distributed`` without a cluster to join
+    refuses to guess one."""
     tsv = tmp_path / "p.tsv"
     tsv.write_text("ACGT\tAGT\n")
     for flag in ("--fuse_chunks", "--platform"):
