@@ -10,8 +10,8 @@ phase fails:
      from ``globalign_tpu_torch/csrc`` and the probes of
      ``globalign_tpu_torch/utils/peaks.py`` (one nvcc per source, in
      parallel) and print the build time, and ``ptxas -v`` of
-     ``gotoh_batch``, ``wave_split`` and every ``gotoh_fill`` instance
-     (registers, spills, occupancy);
+     ``gotoh_batch``, ``wave_split``, every ``gotoh_fill`` instance and
+     both ``walk_block`` kernels (registers, spills, occupancy);
   1. kernel vs plain, on the card against the plain versions on the CPU,
      same seeded inputs, tolerance 0 (all integers): ``batch_moves``
      (final3 and every move code); ``batch_moves`` and ``batch_last_rows``
@@ -25,7 +25,11 @@ phase fails:
      traceback path) on buckets of several launch classes (a pair over 8
      bands in two passes, m_true / n_true 0 and 1) under DNA, BLOSUM62 and
      the 60-letter alphabet, and with one pair placed past byte 2^31 of a
-     2.2 GB buffer (ROADMAP C1); the split cost; ``gotoh_batch`` (final3
+     2.2 GB buffer (ROADMAP C1); both walk kernels at the edges of their
+     shared-memory tiles (walks leaving a tile through its top,
+     its left and its corner, reaching column 0 inside a tile, from row 0
+     and column 0, random codes, 3 x 40 000 and 40 000 x 3, m or n of 0
+     and 1, n + 1 at every residue mod 16); the split cost; ``gotoh_batch`` (final3
      and last rows) on
      ragged launches of three buckets (every width class, 1 to 1024
      columns, and 1023 / 1024 / 1025, the last past the cap on
@@ -44,8 +48,10 @@ phase fails:
      1024-column cap), DNA, BLOSUM62 and the 60-letter alphabet;
   2. the main paths, with every launch count set to 0 before each and read
      after it: ``find_global_alignment(..., device="cuda")`` on the
-     reference goldens and pairs up to the moves budget (one fill each,
-     equal to ``device="cpu"``); 10 000² and 20 000² DNA and 9000² BLOSUM62
+     reference goldens and pairs up to the moves budget (one fill and one
+     walk each, equal to ``device="cpu"``; the 8000^2 DNA and 1500^2
+     BLOSUM62 alignments also equal to the host walk, ``traceback_moves``,
+     over their fetched codes); 10 000² and 20 000² DNA and 9000² BLOSUM62
      pairs past the budget (blocked: one checkpoint fill, one replay fill
      and one walk per block), each equal — strings, cost, score, report
      bytes — to the full-matrix route with the budget raised; a 3000 x 2500
@@ -84,7 +90,9 @@ phase fails:
      interpreted 200^2 fill (= the card's cost); every ``gotoh_fill`` launch of these
      paths tallied by mode and (B, M, N) (the census);
   3. times with CUDA events: the fill kernel beside the plain row scan on
-     the card; end-to-end ``align`` split into fill and D2H + walk; blocked
+     the card; end-to-end ``align`` split into fill, walk kernel and fetch +
+     render, beside the route it replaced (the codes to the host and the
+     host walk); blocked
      ``align`` at 10 000² and 20 000² split into checkpoint pass, replay
      fills, walks, fetch and host assembly, beside the full-matrix route;
      split ``cost`` beside the direct cost-only fill, from a golden-sized
@@ -100,10 +108,11 @@ phase fails:
      sweep, B in {1, 33, ..., 1024} pairs of 1024^2 and 256^2, both
      kernels; the batch runner over 4 chunks of 1024 pairs; the probes
      (checked against the row scan first): the peak cell rate of a fill's
-     arithmetic and the latency of a dependent load, from which each
-     kernel's bound is computed; ``walk_block`` on a traceback bucket of
-     the DNA chunk beside its bound (the longest walk's chain of dependent
-     loads); the strip mode on a 256 x 50 000 block
+     arithmetic and the latency of a dependent load from L1, L2 and shared
+     memory, from which each kernel's bound is computed (a walk's: its
+     code loads from shared memory plus one L2 latency, beside the old
+     design's floor, its codes read where they lie: L2 / L1 loads); ``walk_block`` on a traceback bucket of
+     the DNA chunk beside its bound; the strip mode on a 256 x 50 000 block
      beside its plain version and its bound; the 50 000^2 cost on a world
      of one beside ``cost()`` and the direct fill; the gloo exchange per
      super-step; ``align_pairs`` on a world of one beside no mesh; the wave
@@ -119,6 +128,11 @@ phase fails:
 
 The last two lines of standard output are JSON: the kernels' record, then
 ``{"ok": true, "device": {...}}``.  It uses no JAX and no network.
+
+``python3 chip_smoke.py --walk-ab SRC [SRC ...]`` instead times the walk
+kernels beside other builds of ``walk_block.cu`` (``walk_ab``): an older
+checkout's (``git show <commit>:globalign_tpu_torch/csrc/walk_block.cu``
+into ``build/``) or an edited copy.
 """
 
 from __future__ import annotations
@@ -194,6 +208,25 @@ def serving_chunk(rng, letters: str, count: int, lo: int, hi: int):
         s2 = mutate(rng, s1, letters) + random_seq(rng, letters, max(0, n - m))
         pairs.append((s1, s2[:n]))
     return pairs
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time a call of ``fn`` (CUDA events), the card held in a sleep
+    kernel while the host enqueues the timed calls, so gaps of host work
+    between launches do not count."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at 1.98 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def fill_census(fill_cuda):
@@ -410,7 +443,7 @@ def main() -> int:
              str(cuda_build.CSRC_DIR / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for stem in ("gotoh_batch", "wave_split", "gotoh_fill")
+        for stem in ("gotoh_batch", "wave_split", "gotoh_fill", "walk_block")
     }
     libs = cuda_build.build(cuda_build.sources() + [peaks.SOURCE])
     cuda_build.load()
@@ -469,6 +502,13 @@ def main() -> int:
     log("phase 0: gotoh_fill (ptxas -v, sm_90a): " + "; ".join(
         f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes"
         for k, v in sorted(fill_regs.items())))
+    # walk_block: the block and ragged kernels, two warps a block (a walker
+    # and a loader), four code tiles in shared memory.
+    walk_regs = [dict(registers=regs, spill_bytes=spills, stack_bytes=stack)
+                 for _, regs, spills, stack, _ in ptxas_report("walk_block")]
+    log("phase 0: walk_block (ptxas -v, sm_90a): " + "; ".join(
+        f"{v['registers']} registers, {v['spill_bytes']} spill bytes, "
+        f"{v['stack_bytes']} stack bytes" for v in walk_regs))
 
     counters = {
         "batch_moves": fill_cuda.batch_moves,
@@ -814,6 +854,92 @@ def main() -> int:
         raise SystemExit("phase 1 failed: ragged fill / walk past byte 2^31")
     del want, got, got_walk
 
+    # Both walk kernels at the edges of their code tiles (staged in shared
+    # memory; the library reports their shape)
+    # against the plain walk, tolerance 0 (ops, counts,
+    # exit columns and levels); their own rng, so the other sets' data stays
+    # as it was.  walk_block over synthetic codes: a walk straight up (out
+    # of each tile through its top), straight left (through its left, to
+    # column 0 in the middle of a tile, then up), diagonal through tile
+    # corners, random and biased random codes, a walk from row 0 and one
+    # from column 0; over real fills: 3 x 40 000 and 40 000 x 3, and n + 1
+    # at every residue mod 16.  walk_ragged over those fills' shapes and m
+    # or n of 0 and 1 packed in one buffer, with the real codes and with
+    # random ones in their place.
+    erng = np.random.default_rng(SEED + 11)
+    ek, en = 300, 1000
+    lv = erng.integers(0, 3, (8, ek + 1, en + 1, 3))
+    lv[4, ..., 0] = np.where(erng.random((ek + 1, en + 1)) < 0.8, 0, lv[4, ..., 0])
+    lv[4, ..., 1] = np.where(erng.random((ek + 1, en + 1)) < 0.7, 1, lv[4, ..., 1])
+    lv[4, ..., 2] = np.where(erng.random((ek + 1, en + 1)) < 0.7, 2, lv[4, ..., 2])
+    lv[0], lv[1], lv[2] = 2, 1, 0  # up in Iy, left in Ix, diagonal in M
+    synth = torch.from_numpy(
+        (lv[..., 0] | lv[..., 1] << 2 | lv[..., 2] << 4).astype(np.uint8))
+    edge_i = [ek, 150, 3 * 32 + 5, ek, ek, 0, ek, 33]
+    edge_j = torch.tensor([700, en, 2 * 128 + 5, en, en - 1, 500, 0, 129],
+                          dtype=torch.int32)
+    edge_l = torch.from_numpy(
+        np.r_[2, 1, 0, erng.integers(0, 3, 5)].astype(np.int32))
+    edge_walks = [(synth, edge_i, edge_j, edge_l)]
+    dna_edge = schemes["dna"](DNA, DNA)
+    for m, n in [(3, 40_000), (40_000, 3)] + [(45, 15 + k) for k in range(16)]:
+        a = fill_args(dna_edge, [(random_seq(erng, DNA, m),
+                                  random_seq(erng, DNA, n))])
+        f3, mv = fill_cuda.batch_moves(*to_dev(a))
+        edge_walks.append((mv.cpu(), [m], torch.tensor([n], dtype=torch.int32),
+                           f3.argmin(-1).to(torch.int32).cpu()))
+    edge_err = 0
+    for mv, i_e, j_e, l_e in edge_walks:
+        want = linear_tb.walk_block(mv, i_e, j_e, l_e)
+        got = linear_tb.walk_block(mv.to(dev), i_e, j_e.to(dev), l_e.to(dev))
+        torch.cuda.synchronize()
+        edge_err = max(edge_err, max(abs_err(g, w) for g, w in zip(got, want)))
+    walk_err = max(walk_err, edge_err)
+    lib = cuda_build.load()
+    tile = [lib.walk_tile_rows(), lib.walk_tile_cols()]
+    corner = [(i, j) for i, j in zip(range(edge_i[2], -1, -1),
+                                     range(int(edge_j[2]), -1, -1))
+              if i % tile[0] == 0 and j % tile[1] == 0 and i and j]
+    log(f"phase 1: walk_block at the edges of its {tile[0]} x {tile[1]} tiles: "
+        f"{len(edge_walks[0][1])} "
+        f"synthetic walks over {ek} x {en} codes (up, left to column 0 at row "
+        f"150, diagonal through the tile corners {corner[:2]}, random, biased, "
+        f"from row 0 and from column 0), 3 x 40000, 40000 x 3 and n + 1 at "
+        f"every residue mod 16 ({len(edge_walks) - 1} real fills): ops, "
+        f"counts, exit columns and levels max abs err {edge_err}")
+    if edge_err != 0 or not corner:
+        raise SystemExit("phase 1 failed: walk_block at its tile edges")
+    shapes = ([(3, 40_000), (40_000, 3), (0, 5), (5, 0), (1, 1), (0, 0), (1, 0),
+               (0, 1), (1, 7), (7, 1)] + [(45, 15 + k) for k in range(16)])
+    made = [fill_args(dna_edge, [(random_seq(erng, DNA, m), random_seq(erng, DNA, n))])
+            for m, n in shapes]
+    args = ([x[0] for x in made], [x[1] for x in made], *made[0][2:5],
+            [x[5] for x in made], [x[6] for x in made])
+    want = fill_cuda.batch_moves_ragged(*args)
+    got = fill_cuda.batch_moves_ragged(
+        [t.to(dev) for t in args[0]], [t.to(dev) for t in args[1]],
+        args[2].to(dev), *args[3:])
+    lv = erng.integers(0, 3, (want.codes.numel(), 3))  # levels 0..2 a field
+    noise = torch.from_numpy((lv[:, 0] | lv[:, 1] << 2 | lv[:, 2] << 4).astype(np.uint8))
+    edge_err = ragged_err(got, want)
+    for host, card_codes in ((want, got.codes), (want._replace(codes=noise),
+                                                 noise.to(dev))):
+        before = linear_tb.walk_ragged.launches
+        got_walk = linear_tb.walk_ragged(got._replace(codes=card_codes))
+        torch.cuda.synchronize()
+        if linear_tb.walk_ragged.launches != before + 1:
+            raise SystemExit("phase 1 failed: walk_ragged launches")
+        edge_err = max(edge_err, max(
+            abs_err(g, w) for g, w in zip(got_walk, linear_tb.walk_ragged(host))))
+    walk_ragged_err = max(walk_ragged_err, edge_err)
+    log(f"phase 1: walk_ragged at its tile edges: {len(shapes)} pairs packed "
+        f"tight ({shapes[:10]} and n + 1 at every residue mod 16), their codes "
+        f"and random codes: final3, codes, tapes, counts and exit columns max "
+        f"abs err {edge_err}")
+    if edge_err != 0:
+        raise SystemExit("phase 1 failed: walk_ragged at its tile edges")
+    del want, got, got_walk, synth, edge_walks
+
     # The split cost on the card against its plain version.
     for name, letters, (m, n) in (("dna", DNA, (2, 0)), ("dna", DNA, (1, 300)),
                                   ("dna", DNA, (2000, 1999)),
@@ -1136,10 +1262,31 @@ def main() -> int:
                              f"{(r.score, r.cost)}")
         log(f"phase 2: {m} x {n}: score {r.score} cost {r.cost} "
             f"(= device='cpu')")
-    if counts != launches(batch_moves=len(runs)):
+    if counts != launches(batch_moves=len(runs), walk_block=len(runs)):
         raise SystemExit(f"phase 2 failed: launches {counts} for "
                          f"{len(runs)} align calls")
-    log(f"phase 2: launches on the full-matrix path: {counts}")
+    log(f"phase 2: launches on the full-matrix path (a fill and a walk a "
+        f"pair): {counts}")
+
+    # The card's walk on the main path against an independent oracle: the
+    # host walk (ops/traceback.traceback_moves) over the same codes, fetched
+    # whole, for the 8000^2 DNA and the 1500^2 BLOSUM62 pair.
+    for (kw, _), r in zip(runs, got):
+        if len(kw["seq_1"]) not in (8000, 1500):
+            continue
+        aligner = GotohAligner(validate_and_transform_args(**kw).scheme,
+                               device="cuda")
+        f3, mv = aligner._batch_fill(kw["seq_1"], kw["seq_2"], want_moves=True)
+        want_tb = traceback_moves(mv[0].cpu().numpy(), kw["seq_1"],
+                                  kw["seq_2"], f3[0].cpu().numpy())
+        if (r.seq_1_aligned, r.middle_part, r.seq_2_aligned, r.cost) != tuple(
+                want_tb):
+            raise SystemExit(f"phase 2 failed: the card's walk != "
+                             f"traceback_moves at {len(kw['seq_1'])}")
+        log(f"phase 2: {len(kw['seq_1'])} x {len(kw['seq_2'])}"
+            f"{' ' + kw['scoring_mat_name'] if 'scoring_mat_name' in kw else ''}"
+            f": align (walked on the card) = traceback_moves over the fetched "
+            f"codes (strings and cost)")
 
     # A custom matrix over non-ASCII letters: single pairs and align_pairs
     # in both modes on the card = device="cpu", strings and reports (the
@@ -1169,7 +1316,8 @@ def main() -> int:
         if uni_got != uni_want or [str(r) for r in uni_got] != [
             str(r) for r in uni_want
         ] or (
-            uni_counts != launches(batch_moves=len(uni_pairs))
+            uni_counts != launches(batch_moves=len(uni_pairs),
+                                   walk_block=len(uni_pairs))
         ):
             raise SystemExit(f"phase 2 failed: non-ASCII single pairs, "
                              f"launches {uni_counts}")
@@ -1772,7 +1920,8 @@ def main() -> int:
     counts = read_counts()
     add_main(counts)
     if [str(r) for r in got] != [str(w) for w in want_golden] or (
-        got != want_golden or counts != launches(batch_moves=len(goldens))
+        got != want_golden
+        or counts != launches(batch_moves=len(goldens), walk_block=len(goldens))
         or [(r.score, r.cost) for r in got] != [g for _, g in goldens]
     ):
         raise SystemExit(f"phase 2 failed: compat goldens, launches {counts}")
@@ -1781,7 +1930,7 @@ def main() -> int:
         f"{counts}")
 
     # Two pairs at the reference's input limit (m * n < 2e7), with no
-    # device argument: one gotoh_fill moves launch a pair.
+    # device argument: one gotoh_fill moves launch and one walk a pair.
     s1 = random_seq(crng, DNA, 4472)
     limit_runs = {"dna 4472 x 4472": dict(seq_1=s1, seq_2=mutate(crng, s1, DNA))}
     s1 = random_seq(crng, PROTEIN, 4472)
@@ -1803,7 +1952,7 @@ def main() -> int:
         cost_counts = read_counts()
         add_main(cost_counts)
         if r != want_r or str(r) != str(want_r) or r.cost != c or (
-            counts != launches(batch_moves=1)
+            counts != launches(batch_moves=1, walk_block=1)
         ):
             raise SystemExit(f"phase 2 failed: compat {label}: cost {r.cost}, "
                              f"cpu {want_r.cost}, cost() {c}, launches {counts}")
@@ -1839,7 +1988,7 @@ def main() -> int:
     add_main(counts)
     past_cost = GotohAligner(validate_and_transform_args(**past).scheme,
                              device="cuda").cost(past["seq_1"], past["seq_2"])
-    if r.cost != past_cost or counts != launches(batch_moves=1):
+    if r.cost != past_cost or counts != launches(batch_moves=1, walk_block=1):
         raise SystemExit(f"phase 2 failed: compat find_global_alignment "
                          f"4473 x 4472: cost {r.cost}, cost() {past_cost}, "
                          f"launches {counts}")
@@ -1861,7 +2010,7 @@ def main() -> int:
         add_main(counts)
         report = Path(f"{tmp}/card.txt").read_bytes()
         if report != Path(f"{tmp}/cpu.txt").read_bytes() or (
-            counts != launches(batch_moves=1)
+            counts != launches(batch_moves=1, walk_block=1)
         ):
             raise SystemExit(f"phase 2 failed: compat main report differs, "
                              f"launches {counts}")
@@ -1911,23 +2060,8 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def device_ms(fn, reps: int) -> float:
-        """Device time a call: as cuda_ms, with the card held in a sleep
-        kernel while the host enqueues the timed calls, so gaps of host
-        work between launches do not count."""
-        fn()  # warm-up
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)  # ~0.1 s at 1.98 GHz
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     kernel_ms = plain_ms = fill_size = None
+    align_split = {}  # size -> the single-pair align's parts, ms
     for size in (4096, 8000):
         s1 = random_seq(rng, DNA, size)
         s2 = mutate(rng, s1, DNA)
@@ -1949,31 +2083,48 @@ def main() -> int:
             f"{c_ms:.4f} ms ({cells / c_ms / 1e6:.4f} GCUPS), plain row scan "
             f"on the card {p_ms:.4f} ms ({cells / p_ms / 1e6:.4f} GCUPS)")
 
+        # align end to end, then its route step by step: the fill and the
+        # walk kernel in device time (CUDA events), the one fetch of final3
+        # and the tape and the render on the host clock; beside them the
+        # route the walk kernel replaced (the code matrix to the host and
+        # the host walk, ops/traceback.traceback_moves).
         aligner = GotohAligner(scheme, device="cuda")
         aligner.align(s1, s2)  # warm-up
-        fill_t, walk_t, total_t = [], [], []
+        parts = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             aligner.align(s1, s2)
-            total_t.append(time.perf_counter() - t0)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            total = time.perf_counter() - t0
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
             final3, moves = fill_cuda.batch_moves(*args)
-            end.record()
-            end.synchronize()
-            fill_t.append(start.elapsed_time(end) / 1e3)
+            ev[1].record()
+            j_dev = torch.full((1,), size, dtype=torch.int32, device=dev)
+            level = final3[0].argmin().to(torch.int32).reshape(1)
+            ev[2].record()
+            ops, count, j_exit, _ = linear_tb.walk_block(moves, [size], j_dev,
+                                                         level)
+            ev[3].record()
+            ev[3].synchronize()
             t1 = time.perf_counter()
+            ints, tape = linear_tb.fetch_walk(
+                [final3[0].min().reshape(1), count, j_exit], ops[0])
+            linear_tb.render_walk(tape[: int(ints[1])], int(ints[2]), s1, s2)
+            t2 = time.perf_counter()
             traceback_moves(moves[0].cpu().numpy(), s1, s2,
                             final3[0].cpu().numpy())
-            walk_t.append(time.perf_counter() - t1)
-        f_ms = 1e3 * float(np.median(fill_t))
-        w_ms = 1e3 * float(np.median(walk_t))
-        a_ms = 1e3 * float(np.median(total_t))
+            parts.append((1e3 * total, ev[0].elapsed_time(ev[1]),
+                          ev[2].elapsed_time(ev[3]), 1e3 * (t2 - t1),
+                          1e3 * (time.perf_counter() - t2)))
+        a_ms, f_ms, w_ms, r_ms, old_ms = (float(np.median(x)) for x in zip(*parts))
+        align_split[size] = dict(end_to_end_ms=a_ms, fill_ms=f_ms, walk_ms=w_ms,
+                                 fetch_render_ms=r_ms, host_walk_route_ms=old_ms)
         log(f"phase 3: align {size}x{size} on {card}: end to end "
             f"{a_ms:.4f} ms ({cells / a_ms / 1e6:.4f} GCUPS); fill "
-            f"{f_ms:.4f} ms, D2H + walk {w_ms:.4f} ms")
+            f"{f_ms:.4f} ms, walk kernel {w_ms:.4f} ms (device), fetch + "
+            f"render {r_ms:.4f} ms (host); the route it replaced, the codes "
+            f"to the host + the host walk: {old_ms:.4f} ms")
         kernel_ms, plain_ms, fill_size, cost_only_ms = k_ms, p_ms, size, c_ms
 
     # The last-row mode, injected (a checkpoint fill), beside the plain
@@ -2236,7 +2387,9 @@ def main() -> int:
         f"{peaks.CELL_OPS['moves']} a cell); DPX fused add-min "
         f"{peak['addmin_ops_s'] / (sms * sm_hz):.4f} a clock an SM; one "
         f"dependent load {peak['l1_load_clocks']:.2f} clocks from L1, "
-        f"{peak['l2_load_clocks']:.2f} from L2 ({sms} SMs at {smi_clock} MHz)")
+        f"{peak['l2_load_clocks']:.2f} from L2, "
+        f"{peak['smem_load_clocks']:.2f} from shared memory ({sms} SMs at "
+        f"{smi_clock} MHz)")
 
     def bound(cells, mode, nbytes):
         """(least ms on this card, what bounds it): the cells at the peak
@@ -2247,19 +2400,25 @@ def main() -> int:
         return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     def walk_bound(ops, i0, j0, ld, base=0):
-        """(least ms, the loads on its chain) of one walk of ``ops`` from
-        (i0, j0) over codes ``ld`` bytes a row from byte ``base``: every
-        step's code load waits for the step before, and a load that opens a
-        32-byte sector the walk has not read (it never comes back to one)
-        cannot come from nearer than L2; the rest come from L1 at best."""
+        """(least ms, the old design's floor in ms, (sectors opened, other
+        loads)) of one walk of ``ops`` from (i0, j0) over codes ``ld`` bytes
+        a row from byte ``base``.  Every step's code load waits for the step
+        before (column 0 loads nothing).  The least time: each load from
+        shared memory, where the walk kernel stages its tiles, plus one L2
+        latency for the first tile.  The old design's floor, of a kernel
+        that read its codes where they lie: a load that opens a 32-byte
+        sector the walk has not read (it never comes back to one) from L2,
+        the rest from L1."""
         ops = np.asarray(ops, dtype=np.int64)
         i = i0 - np.concatenate([[0], np.cumsum(ops != linear_tb.OP_LEFT)[:-1]])
         j = j0 - np.concatenate([[0], np.cumsum(ops != linear_tb.OP_UP)[:-1]])
         sector = (base + i * ld + j)[j > 0] // 32  # column 0 loads nothing
         new = int(np.count_nonzero(np.diff(sector, prepend=-1)))
-        clocks = new * peak["l2_load_clocks"] + (
+        old = new * peak["l2_load_clocks"] + (
             len(sector) - new) * peak["l1_load_clocks"]
-        return 1e3 * clocks / sm_hz, (new, len(sector) - new)
+        clocks = len(sector) * peak["smem_load_clocks"] + (
+            peak["l2_load_clocks"] if len(sector) else 0.0)
+        return 1e3 * clocks / sm_hz, 1e3 * old / sm_hz, (new, len(sector) - new)
 
     def fill_bytes(args, out_bytes):
         ta, tb, cost, _, _, mt, _ = args
@@ -2453,19 +2612,22 @@ def main() -> int:
         f"TB/s): " + "; ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
                                for k, v in bounds.items()))
     fill_bound, fill_by = bounds[f"moves {fill_size}^2"]
-    walk_lat, (walk_new, walk_near) = walk_bound(*walk_path)
+    walk_lat, walk_old, (walk_new, walk_near) = walk_bound(*walk_path)
     walk_bytes = 1e3 * (2 * walk_steps + 24) / hbm_bytes_s
     walk_bound_ms = max(walk_lat, walk_bytes)
     walk_by = "operations" if walk_lat >= walk_bytes else "bytes"
     log(f"phase 3: walk bound on {card}: {walk_steps} dependent steps, "
-        f"{walk_new} loads opening a sector at {peak['l2_load_clocks']:.2f} "
-        f"clocks (L2) and {walk_near} at {peak['l1_load_clocks']:.2f} (L1): "
-        f"{walk_lat:.4f} ms; bytes {walk_bytes:.6f} ms")
+        f"{walk_new + walk_near} code loads at "
+        f"{peak['smem_load_clocks']:.2f} clocks (shared memory) + one L2 "
+        f"latency ({peak['l2_load_clocks']:.2f} clocks): {walk_lat:.4f} ms; "
+        f"bytes {walk_bytes:.6f} ms; the kernel {walk_ms:.4f} ms. The old "
+        f"design's floor, its codes read where they lie ({walk_new} loads "
+        f"opening a sector from L2, {walk_near} from L1): {walk_old:.4f} ms")
 
     # walk_block at the shape of most of its launches: one traceback bucket
     # of the DNA chunk (its largest), walked from each pair's (m, n) as
-    # align_pairs walks it.  A thread walks a pair, so the bound is the
-    # longest walk's chain of dependent loads (walk_bound of each pair's
+    # align_pairs walks it.  A thread block walks a pair, so the bound is
+    # the longest walk's chain of dependent loads (walk_bound of each pair's
     # own tape, codes at its offset in the bucket), against its bytes.
     ta_w, tb_w, cost_w, gid_w, go_w, mt_w, nt_w = bucket
     bucket_f3, bucket_mv = fill_cuda.batch_moves(*bucket)
@@ -2480,21 +2642,25 @@ def main() -> int:
     if err != 0:
         raise SystemExit("phase 3 failed: walk_block != plain on a bucket")
     n1_w, m1_w = bucket_mv.shape[2], bucket_mv.shape[1]
-    chains = []
+    chains, old_chains = [], []
     for b in range(len(mt_w)):
         # the pair's codes start at b (M+1)(N+1): shift its rows by that
-        lat, _ = walk_bound(ops_w[b, : int(count_w[b])].numpy(),
-                           mt_w[b] + b * m1_w, nt_w[b], n1_w)
+        lat, old, _ = walk_bound(ops_w[b, : int(count_w[b])].numpy(),
+                                 mt_w[b] + b * m1_w, nt_w[b], n1_w)
         chains.append(lat)
+        old_chains.append(old)
     walk_b_bytes = 1e3 * (int(count_w.sum()) * 2 + 24 * len(mt_w)) / hbm_bytes_s
     walk_b_bound = max(max(chains), walk_b_bytes)
+    walk_b_old = max(max(old_chains), walk_b_bytes)
     walk_b_by = "operations" if max(chains) >= walk_b_bytes else "bytes"
     walk_steps_b = int(count_w.max())
     log(f"phase 3: walk_block on one traceback bucket of the DNA chunk "
         f"({len(mt_w)} pairs, {m1_w - 1} x {n1_w - 1}, longest walk "
         f"{walk_steps_b} steps) on {card}: {walk_bucket_ms:.4f} ms; bound "
-        f"{walk_b_bound:.4f} ms ({walk_b_by}: the longest walk's chain of "
-        f"dependent loads); = plain walk, max abs err {err}")
+        f"{walk_b_bound:.4f} ms ({walk_b_by}: the longest walk's loads from "
+        f"shared memory + one L2 latency; the old design's floor "
+        f"{walk_b_old:.4f} ms); "
+        f"= plain walk, max abs err {err}")
 
     # The traceback chunks' main-path calls: every bucket in one ragged
     # moves fill and one ragged walk, in device time (the host's enqueue
@@ -2534,8 +2700,9 @@ def main() -> int:
             4 * (a[0].numel() + a[1].numel()) for a in buckets)
             + 4 * buckets[0][2].numel() + filled.codes.numel()
             + (12 + 8 * fill_cuda.DESC_WORDS) * len(lay))
-        chains = [walk_bound(r_ops[r, : int(r_count[r])].numpy(), m, n, ld, off)[0]
-                  for _, _, m, n, off, ld, r, _ in lay.tolist()]
+        bounds_w = [walk_bound(r_ops[r, : int(r_count[r])].numpy(), m, n, ld, off)
+                    for _, _, m, n, off, ld, r, _ in lay.tolist()]
+        chains = [x[0] for x in bounds_w]
         walk_bytes = 1e3 * (2 * int(r_count.sum())
                             + (8 * fill_cuda.DESC_WORDS + 12 + 8) * len(lay)) / hbm_bytes_s
         walk_b = max(max(chains), walk_bytes)
@@ -2543,6 +2710,7 @@ def main() -> int:
                    per_bucket_fills_ms=fills_dev, per_bucket_walks_ms=walks_dev,
                    buckets=len(buckets), fill_bound_ms=fill_b, fill_bound_by=fill_b_by,
                    walk_bound_ms=walk_b,
+                   walk_bound_in_place_ms=max(max(x[1] for x in bounds_w), walk_bytes),
                    walk_bound_by="operations" if max(chains) >= walk_bytes else "bytes",
                    cells=cells, code_bytes=filled.codes.numel(),
                    longest_walk=int(r_count.max()))
@@ -2578,7 +2746,8 @@ def main() -> int:
             f"bytes), bound {fill_b:.4f} ms ({fill_b_by}); one ragged walk "
             f"{walk_dev:.4f} ms (longest walk {rec['longest_walk']} steps), "
             f"bound {walk_b:.4f} ms ({rec['walk_bound_by']}: the longest "
-            f"walk's chain of dependent loads); a launch a bucket, "
+            f"walk's loads from shared memory + one L2 latency; the old design's "
+            f"floor {rec['walk_bound_in_place_ms']:.4f} ms); a launch a bucket, "
             f"{len(buckets)} buckets: fills {fills_dev:.4f} ms, walks "
             f"{walks_dev:.4f} ms")
         del filled
@@ -2948,13 +3117,18 @@ def main() -> int:
             "plain_ms": plain_walk_ms,
             "bound_ms": walk_bound_ms,
             "bound_by": walk_by,
-            "bound_note": "latency: a chain of dependent code loads",
+            "bound_note": "latency: a chain of dependent code loads, each "
+                          "from shared memory, plus one L2 latency",
+            "bound_in_place_ms": max(walk_old, walk_bytes),
             "library_ms": None,
             "bucket_shape": f"one traceback bucket of the 1024-pair DNA chunk, "
                             f"{len(mt_w)} pairs of {m1_w - 1} x {n1_w - 1}",
             "bucket_ms": walk_bucket_ms,
             "bucket_bound_ms": walk_b_bound,
             "bucket_bound_by": walk_b_by,
+            "bucket_bound_in_place_ms": walk_b_old,
+            "align_ms": align_split,
+            "ptxas": walk_regs,
         },
         {
             "name": "gotoh_batch",
@@ -3093,7 +3267,9 @@ def main() -> int:
             "bound_ms": dna_rr["walk_bound_ms"],
             "bound_by": dna_rr["walk_bound_by"],
             "bound_note": "latency: the longest walk's chain of dependent "
-                          "code loads",
+                          "code loads, each from shared memory, plus one L2 "
+                          "latency",
+            "bound_in_place_ms": dna_rr["walk_bound_in_place_ms"],
             "library_ms": None,
             "per_bucket_launches_ms": dna_rr["per_bucket_walks_ms"],
             "blosum62_chunk_ms": blosum_rr["walk_ms"],
@@ -3201,5 +3377,144 @@ def multi_card() -> int:
     return 0
 
 
+def walk_ab(sources: list[str], reps: int = 10) -> int:
+    """Time the package's walk kernels beside other builds of
+    ``walk_block.cu`` (an older checkout's, or an edited copy: any source
+    with the same two launchers), one ``nvcc`` each, all at once.
+
+    Three seeded DNA shapes of the port's paths: a 10 000^2 pair (seq_2 a
+    relative) walked by ``walk_block_launch`` from (m, n), the single-pair
+    ``align``'s walk; the largest traceback bucket of a 1024-pair chunk
+    (lengths 819-1024), the mesh path's ``walk_block``; and the chunk packed
+    by ``batch_moves_ragged``, ``align_pairs``' one ``walk_ragged_launch``.
+    Device time (``device_ms``), every build once in order and once in
+    reverse, so a drift of the card shows as a gap between the two turns;
+    every build's outputs held against the plain walk at tolerance 0.  One
+    JSON line a build and shape after the card's name and power limit.
+    """
+    import ctypes
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from globalign_tpu_torch import resolve_scheme
+    from globalign_tpu_torch.batch import bucket_length
+    from globalign_tpu_torch.ops import fill_cuda, linear_tb
+    from globalign_tpu_torch.utils import cuda_build
+    from globalign_tpu_torch.utils.tokenize import encode_padded
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(card)
+    dev = torch.device("cuda", 0)
+    out_dir = cuda_build.BUILD_DIR / "walk_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for k, src in enumerate(sources):
+        so = out_dir / f"lib{k}.so"
+        jobs.append((src, so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {"package": cuda_build.load()}
+    for src, so, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"walk_ab: nvcc failed for {src}\n{out}")
+        lib = ctypes.CDLL(str(so))
+        for name in ("walk_block_launch", "walk_ragged_launch"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = cuda_build.SIGNATURES["walk_block"][name]
+        libs[src] = lib
+
+    rng = np.random.default_rng(SEED)
+    scheme = resolve_scheme(DNA, DNA)
+    fill = (torch.from_numpy(np.ascontiguousarray(
+        scheme.costing.values, dtype=np.int32)).to(dev),
+        scheme.alphabet.gap_id, scheme.gap_open_cost)
+
+    def tokens_of(seqs, length):
+        return torch.from_numpy(np.stack(
+            [encode_padded(scheme.alphabet, s, length) for s in seqs])).to(dev)
+
+    s1 = random_seq(rng, DNA, 10_000)
+    groups = {}
+    for a, b in serving_chunk(rng, DNA, 1024, 819, 1024):
+        groups.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                          []).append((a, b))
+    (mm, nn), largest = max(groups.items(), key=lambda kv: len(kv[1]))
+    blocks = {}  # shape -> (moves, i_entry, j_entry, level_entry)
+    for shape, pairs, M, N in (
+            ("10000^2", [(s1, mutate(rng, s1, DNA))], 10_000, 10_000),
+            ("bucket", largest, mm, nn)):
+        mt, nt = [len(a) for a, _ in pairs], [len(b) for _, b in pairs]
+        final3, moves = fill_cuda.batch_moves(
+            tokens_of([a for a, _ in pairs], M),
+            tokens_of([b for _, b in pairs], N), *fill, mt, nt)
+        blocks[shape] = (moves, torch.tensor(mt, dtype=torch.int32, device=dev),
+                         torch.tensor(nt, dtype=torch.int32, device=dev),
+                         final3.argmin(-1).to(torch.int32))
+    keys = list(groups)
+    filled = fill_cuda.batch_moves_ragged(
+        [tokens_of([a for a, _ in groups[k]], k[0]) for k in keys],
+        [tokens_of([b for _, b in groups[k]], k[1]) for k in keys], *fill,
+        [[len(a) for a, _ in groups[k]] for k in keys],
+        [[len(b) for _, b in groups[k]] for k in keys])
+    lay = filled.layout
+    length = int((lay[:, 2] + lay[:, 3]).max())
+    want = {shape: linear_tb.walk_block(mv.cpu(), i_e.cpu(), j_e.cpu(), lv.cpu())
+            for shape, (mv, i_e, j_e, lv) in blocks.items()}
+    want["chunk"] = linear_tb.walk_ragged(fill_cuda.RaggedMoves(
+        filled.final3.cpu(), filled.codes.cpu(), filled.desc.cpu(), lay))
+
+    def launcher(lib, shape):
+        """The raw launch of one build on one shape, and its outputs."""
+        stream = torch.cuda.current_stream().cuda_stream
+        if shape == "chunk":
+            outs = (torch.zeros((len(lay), length), dtype=torch.uint8, device=dev),
+                    *(torch.empty(len(lay), dtype=torch.int32, device=dev)
+                      for _ in range(2)))
+            args = (filled.desc, filled.codes, filled.final3, *outs)
+            fn, ints = lib.walk_ragged_launch, (len(lay), length)
+        else:
+            moves, i_e, j_e, lv = blocks[shape]
+            batch, k1, n1 = moves.shape
+            outs = (torch.zeros((batch, k1 + n1 - 2), dtype=torch.uint8,
+                                device=dev),
+                    *(torch.empty(batch, dtype=torch.int32, device=dev)
+                      for _ in range(3)))
+            args = (moves, i_e, j_e, lv, *outs)
+            fn, ints = lib.walk_block_launch, (batch, k1 - 1, n1 - 1, k1 + n1 - 2)
+
+        def run():
+            err = fn(*(x.data_ptr() for x in args), *ints, stream)
+            if err:
+                raise SystemExit(f"walk_ab: launch failed, CUDA error {err}")
+        return run, outs
+
+    results = {}
+    for name in list(libs) + list(libs)[::-1]:
+        for shape in ("10000^2", "bucket", "chunk"):
+            run, got = launcher(libs[name], shape)
+            ms = device_ms(run, reps)
+            torch.cuda.synchronize()
+            if any(not torch.equal(g.cpu(), w) for g, w in zip(got, want[shape])):
+                raise SystemExit(f"walk_ab: {name} on {shape} != the plain walk")
+            results.setdefault((name, shape), []).append(ms)
+    for (name, shape), times in results.items():
+        print(json.dumps(dict(
+            source=name, shape=shape, ms=times,
+            longest_walk=int(want[shape][1].max()),
+            pairs=int(want[shape][1].numel()), max_abs_err=0, card=card)),
+            flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--walk-ab"]:
+        sys.exit(walk_ab(sys.argv[2:]))
     sys.exit(multi_card() if sys.argv[1:] == ["--cards"] else main())

@@ -30,7 +30,10 @@
 // chase_kernel: one thread's chain of dependent loads, k = next[k], timed
 // by clock64 after a warm pass — the latency of one dependent load from
 // L1 (a cycle within a few KB) or from L2 (a cycle over a few MB, one
-// 128-byte line a step).  walk_block's steps are such a chain.
+// 128-byte line a step).  chase_smem_kernel: the same chain over a copy of
+// next in shared memory — the latency of one dependent shared-memory load.
+// walk_block's steps are such a chain: each reads a code byte from the
+// tile it staged in shared memory, its first tile from L2 or beyond.
 //
 // Launch conventions: every launcher runs on the caller's stream,
 // allocates nothing, and returns cudaGetLastError().
@@ -128,6 +131,23 @@ __global__ void chase_kernel(const int* __restrict__ next, int start, int warm,
   out[1] = k;
 }
 
+__global__ void chase_smem_kernel(const int* __restrict__ next, int count,
+                                  int start, int warm, int steps,
+                                  long long* __restrict__ out) {
+  extern __shared__ int ring[];
+  for (int k = threadIdx.x; k < count; k += blockDim.x) ring[k] = next[k];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  volatile int* s = ring;
+  int k = start;
+  for (int n = 0; n < warm; ++n) k = s[k];
+  const long long t0 = clock64();
+  for (int n = 0; n < steps; ++n) k = s[k];
+  const long long t1 = clock64();
+  out[0] = t1 - t0;
+  out[1] = k;
+}
+
 }  // namespace
 
 extern "C" {
@@ -164,6 +184,17 @@ int peak_chase_launch(const void* next, int start, int warm, int steps,
   if (warm < 0 || steps < 1) return (int)cudaErrorInvalidValue;
   chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
       (const int*)next, start, warm, steps, (long long*)out);
+  return (int)cudaGetLastError();
+}
+
+// The chase of peak_chase_launch over next[0..count) copied into shared
+// memory (count <= 12 288 ints) by a block of 32 threads.
+int peak_chase_smem_launch(const void* next, int count, int start, int warm,
+                           int steps, void* out, void* stream) {
+  if (count < 1 || count > 12288 || warm < 0 || steps < 1)
+    return (int)cudaErrorInvalidValue;
+  chase_smem_kernel<<<1, 32, count * (int)sizeof(int), (cudaStream_t)stream>>>(
+      (const int*)next, count, start, warm, steps, (long long*)out);
   return (int)cudaGetLastError();
 }
 

@@ -4,12 +4,17 @@ The port of ``globalign_tpu/models/gotoh.py``.  For one pair:
 
     tokenize -> device fill (ops.fill_cuda: the CUDA kernel on a card, the
                 row scan of ops.fill_rows on the CPU)
-             -> host traceback over move codes (ops.traceback)
+             -> device walk over the move codes (ops.linear_tb.walk_block:
+                the walk kernel on a card, the plain walk on the CPU)
+             -> one fetch of final3 and the op tape (at most m + n bytes)
+             -> host render of the tape (ops.linear_tb.render_walk)
              -> final cost->score transform (ops.transforms)
 
-Past the moves budget ``align`` runs the blocked linear-space traceback
-instead (``ops.linear_tb.align_blocked``: checkpoint fills, then block
-replays walked on the device), bit-identical to the full-matrix route.
+The code matrix never leaves the device.  Past the moves budget ``align``
+runs the blocked linear-space traceback instead
+(``ops.linear_tb.align_blocked``: checkpoint fills, then block replays
+walked on the device, rendered by the same ``render_walk``),
+bit-identical to the full-matrix route.
 ``cost`` runs the meet-in-the-middle split (``ops.fill_split``) from
 ``SPLIT_MIN_ROWS`` rows and one cost-only fill below; ``dp_planes`` is a
 debug view.
@@ -31,13 +36,13 @@ from torch import nn
 from ..config import ResolvedScheme
 from ..ops import fill_cuda, fill_rows, linear_tb
 from ..ops.fill_split import split_fill_cost
-from ..ops.traceback import traceback_moves
+from ..ops.traceback import Traceback
 from ..ops.transforms import final_cost_to_score
 
 # Above this many bytes of move codes, (m+1)*(n+1), align() switches to the
 # blocked linear-space traceback (64 MiB ~ 8k x 8k pairs), whose blocks of
 # codes then stay within it (down to 512 rows a block).  The default
-# bounds both the device buffer and the host copy of the move plane;
+# bounds the device buffer of the move plane;
 # raise it per-aligner (moves_budget_bytes=...) or process-wide via
 # GLOBALIGN_MOVES_BUDGET_BYTES.
 DEFAULT_MOVES_BUDGET_BYTES = int(
@@ -159,8 +164,10 @@ class GotohAligner(nn.Module):
         return int(final3.min())
 
     def align(self, seq_1: str, seq_2: str) -> GotohAlignment:
-        """Full alignment with deterministic traceback: from the full move
-        matrix up to the moves budget, blocked past it."""
+        """Full alignment with deterministic traceback: the full move matrix
+        walked where it was filled (one ``gotoh_fill`` and one
+        ``walk_block`` launch on a card) up to the moves budget, blocked
+        past it."""
         m, n = len(seq_1), len(seq_2)
         if (m + 1) * (n + 1) > self.moves_budget_bytes:
             tb = linear_tb.align_blocked(
@@ -175,11 +182,16 @@ class GotohAligner(nn.Module):
             )
         else:
             final3, moves = self._batch_fill(seq_1, seq_2, want_moves=True)
-            tb = traceback_moves(
-                moves[0].cpu().numpy(),
-                seq_1,
-                seq_2,
-                final3[0].cpu().numpy(),
+            j = torch.full((1,), n, dtype=torch.int32, device=self.device)
+            level = final3[0].argmin().to(torch.int32).reshape(1)
+            ops, count, j_exit, _ = linear_tb.walk_block(moves, [m], j, level)
+            ints, ops_host = linear_tb.fetch_walk(
+                [final3[0].min().reshape(1), count, j_exit], ops[0]
+            )
+            cost, steps, j_row0 = (int(x) for x in ints)
+            tb = Traceback(
+                *linear_tb.render_walk(ops_host[:steps], j_row0, seq_1, seq_2),
+                cost,
             )
         score = final_cost_to_score(
             cost=tb.cost,

@@ -1,9 +1,10 @@
 """Linear-space traceback: row checkpoints + block replay, in PyTorch.
 
 The port of ``globalign_tpu/ops/linear_tb.py`` (``align_blocked``,
-``_walk_block_impl``, ``assemble_from_tapes``).  A full traceback keeps
-(m+1)(n+1) bytes of move codes; past the aligner's moves budget this module
-aligns in O(n * (m/K + K)) device memory instead:
+``_walk_block_impl``; its ``assemble_from_tapes`` is ``render_walk``).  A
+full traceback keeps (m+1)(n+1) bytes of move codes; past the aligner's
+moves budget this module aligns in O(n * (m/K + K)) device memory
+instead:
 
 1. **Checkpoint pass** — fill the DP in blocks of K rows with
    ``fill_cuda.batch_last_rows``, each block seeded (``row0`` /
@@ -24,9 +25,9 @@ returns the same alignment.
 
 Nothing syncs with the host between the first fill and the fetch of the
 tapes; the host then rebuilds the strings from the tapes alone
-(``assemble_from_tapes``).  Total fill work is 2x a plain fill; the path is
-bit-identical to the full-matrix traceback (same codes, tie order
-M > Ix > Iy).
+(``render_walk``, the renderer of the full-matrix ``align`` too).  Total
+fill work is 2x a plain fill; the path is bit-identical to the
+full-matrix traceback (same codes, tie order M > Ix > Iy).
 
 Routing is by device only: on CUDA tensors the kernels (``gotoh_fill``,
 ``walk_block``), on CPU tensors their plain versions; anything else raises.
@@ -126,8 +127,10 @@ def walk_block(
     Returns ``(ops (B, K+N) uint8, count (B,), j_exit (B,), level_exit
     (B,))``, int32 on the moves' device; ops past ``count`` are 0.  Column 0
     forces up-moves without reading a code; the walk stops at row 0 and
-    leaves the row-0 left moves to the caller (``assemble_from_tapes``).
+    leaves the row-0 left moves to the caller (``render_walk``).
 
+    On CUDA tensors one launch of ``csrc/walk_block.cu`` (a warp a pair, its
+    codes staged in shared memory), on CPU tensors the plain walk.
     ``walk_block.launches`` counts kernel launches.
     """
     if moves.dim() != 3 or moves.dtype != torch.uint8:
@@ -314,7 +317,9 @@ def align_blocked(
         final3 = row0[:, n] if m == 0 else col0[:, m]
         cost = int(final3.min())
         mark("fetch")
-        out = Traceback(*assemble_from_tapes([[OP_UP] * m], seq_1, seq_2), cost)
+        out = Traceback(
+            *render_walk(np.full(m, OP_UP, np.uint8), n, seq_1, seq_2), cost
+        )
         mark("assembled")
         return out
 
@@ -363,61 +368,44 @@ def align_blocked(
         mark("walk")
         tapes.append((ops[0], count))
 
-    # One sync: the costs and every tape come to the host together.
-    counts = torch.cat([c for _, c in tapes]).cpu().tolist()
-    ops_host = torch.cat([o for o, _ in tapes]).cpu().numpy()
-    cost = int(final3.min().cpu())
+    # One copy: the cost, the counts, the exit column and every tape.
+    ints, ops_host = fetch_walk(
+        [final3.min().reshape(1), j] + [c for _, c in tapes],
+        torch.cat([o for o, _ in tapes]),
+    )
+    cost, j_exit, counts = int(ints[0]), int(ints[1]), ints[2:].tolist()
     tapes_np, start = [], 0
     for (ops, _), c in zip(tapes, counts):
         tapes_np.append(ops_host[start : start + c])
         start += ops.shape[0]
     mark("fetch")
-    out = Traceback(*assemble_from_tapes(tapes_np, seq_1, seq_2), cost)
+    out = Traceback(
+        *render_walk(np.concatenate(tapes_np), j_exit, seq_1, seq_2), cost
+    )
     mark("assembled")
     return out
 
 
-def assemble_from_tapes(
-    tapes_np, seq_1: str, seq_2: str
-) -> tuple[str, str, str]:
-    """Aligned strings from walked op tapes (walk order: from (m, n)
-    upward; any trailing row-0 LEFT moves are implicit — reference
-    globaligner.py:542-561)."""
-    out_1: list[str] = []
-    mid: list[str] = []
-    out_2: list[str] = []
-    i, j = len(seq_1), len(seq_2)
-    for ops_np in tapes_np:
-        for op in ops_np:
-            if op == OP_DIAG:
-                a, bch = seq_1[i - 1], seq_2[j - 1]
-                out_1.append(a)
-                mid.append(MATCH_GLYPH if a == bch else MISMATCH_GLYPH)
-                out_2.append(bch)
-                i -= 1
-                j -= 1
-            elif op == OP_LEFT:
-                out_1.append(GAP_CHAR)
-                mid.append(GAP_GLYPH)
-                out_2.append(seq_2[j - 1])
-                j -= 1
-            else:
-                out_1.append(seq_1[i - 1])
-                mid.append(GAP_GLYPH)
-                out_2.append(GAP_CHAR)
-                i -= 1
+def fetch_walk(ints, ops: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """int32 tensors ``ints`` (flattened, in order) and the uint8 ``ops`` on
+    the host, in one device-to-host copy (one sync)."""
+    head = torch.cat([x.reshape(-1) for x in ints])
+    buf = torch.cat([head.view(torch.uint8), ops.reshape(-1)]).cpu().numpy()
+    split = 4 * head.numel()
+    return buf[:split].view(np.int32), buf[split:]
 
-    # Row 0: only horizontal moves remain (globaligner.py:542-561).
-    while j > 0:
-        out_1.append(GAP_CHAR)
-        mid.append(GAP_GLYPH)
-        out_2.append(seq_2[j - 1])
-        j -= 1
 
-    out_1.reverse()
-    mid.reverse()
-    out_2.reverse()
-    return "".join(out_1), "".join(mid), "".join(out_2)
+def render_walk(ops_walk, j_exit: int, seq_1: str, seq_2: str
+                ) -> tuple[str, str, str]:
+    """The three alignment lines of a whole walk: ``ops_walk`` in walk order
+    (from (m, n) up to row 0), then the ``j_exit`` left moves along row 0
+    (reference globaligner.py:542-561), rendered forward
+    (:func:`render_ops`).  Both ``align`` routes end here."""
+    fwd = np.concatenate([
+        np.full(j_exit, OP_LEFT, np.uint8),
+        np.asarray(ops_walk, np.uint8)[::-1],
+    ])
+    return render_ops(fwd, seq_1, seq_2)
 
 
 def render_many(
@@ -431,8 +419,8 @@ def render_many(
     sequences.  The port of the native ``ga_render_ops``
     (``native/runtime.cpp:227``), vectorised with numpy over every op of
     every pair at once (one numpy pass, not a Python loop per op or pair);
-    byte-identical to :func:`assemble_from_tapes` over the reversed tape
-    with the row-0 left moves in front.
+    byte-identical to the JAX package's ``assemble_from_tapes`` over the
+    reversed tape with the row-0 left moves in front.
     """
     if not len(tapes_fwd):
         return []

@@ -14,9 +14,12 @@ tests/test_oracle.py).
 Move emission parity (globaligner.py:688-753): ``|`` match, ``*`` mismatch,
 ``' '`` gap in the middle line; ``-`` is the gap character in sequence lines.
 
-The walk is O(m+n) scalar steps over a host-resident uint8 array — branchy,
-tiny, and latency-bound, so it runs on the host (the O(m·n) fill stays on
-the device).
+The walk is O(m+n) scalar steps over a host-resident uint8 array.  The
+port's ``align`` does not call it: it walks the codes where they were
+filled (``ops.linear_tb.walk_block``, the walk kernel on a card) and
+fetches only the op tape.  This host walk is the copy of the JAX package's
+(pinned to it by ``tests/test_torch_host.py``) and the independent oracle
+that ``chip_smoke.py`` holds the card's walk against.
 """
 
 from __future__ import annotations

@@ -77,6 +77,8 @@ SIGNATURES = {
             + [_PTR],  # stream
             _I32,
         ),
+        "walk_tile_rows": ([], _I32),  # the code tiles' shape
+        "walk_tile_cols": ([], _I32),
         "walk_block_error_string": ([_I32], ctypes.c_char_p),
     },
     "wave_split": {

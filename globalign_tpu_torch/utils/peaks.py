@@ -8,7 +8,8 @@ they measure to get the kernel's bound:
     operations a cell needs on sm_90 (``CELL_OPS``), so a launch that fills
     the card gives the peak cell rate of a fill's arithmetic;
   * :func:`addmin` — chains of the DPX fused add-min, for its issue rate;
-  * :func:`chase` — one thread's dependent loads, for their latency.
+  * :func:`chase` — one thread's dependent loads, for their latency from
+    L1 or L2; :func:`chase_smem` the same from shared memory.
 
 The probes take CUDA tensors only: there is no plain version of a rate.
 """
@@ -35,6 +36,8 @@ _SIGNATURES = {
     "peak_addmin_launch": ([_I32] * 5 + [_PTR, _PTR], _I32),
     # next start warm steps out stream
     "peak_chase_launch": ([_PTR] + [_I32] * 3 + [_PTR, _PTR], _I32),
+    # next count start warm steps out stream
+    "peak_chase_smem_launch": ([_PTR] + [_I32] * 4 + [_PTR, _PTR], _I32),
     "peak_error_string": ([_I32], ctypes.c_char_p),
 }
 _lock = threading.Lock()
@@ -95,6 +98,15 @@ def chase(next_idx: torch.Tensor, warm: int, steps: int) -> torch.Tensor:
     out = torch.empty(2, dtype=torch.int64, device=next_idx.device)
     _launch("peak_chase_launch", next_idx.device, next_idx.data_ptr(), 0,
             int(warm), int(steps), out.data_ptr())
+    return out
+
+
+def chase_smem(next_idx: torch.Tensor, warm: int, steps: int) -> torch.Tensor:
+    """:func:`chase` over a copy of ``next_idx`` (at most 12 288 ints) in
+    shared memory."""
+    out = torch.empty(2, dtype=torch.int64, device=next_idx.device)
+    _launch("peak_chase_smem_launch", next_idx.device, next_idx.data_ptr(),
+            next_idx.numel(), 0, int(warm), int(steps), out.data_ptr())
     return out
 
 
@@ -171,7 +183,7 @@ def measure(device, cost_mat: torch.Tensor, gap_id: int, gap_open: int,
 
     Returns the cell rates (cells/s), cost only and with codes; the DPX
     fused add-min's rate (operations/s); and the clocks of one dependent
-    load from L1 and from L2.
+    load from L1, from L2 and from shared memory.
     """
     device = torch.device(device)
     check(device, cost_mat, gap_id, gap_open, seed)
@@ -193,4 +205,6 @@ def measure(device, cost_mat: torch.Tensor, gap_id: int, gap_open: int,
         steps = max(count, 8192)
         clocks = int(chase(nxt, count, steps)[0])
         out[f"{level}_load_clocks"] = clocks / steps
+    nxt = _cycle(device, 1024, 1, gen)
+    out["smem_load_clocks"] = int(chase_smem(nxt, 1024, 8192)[0]) / 8192
     return out

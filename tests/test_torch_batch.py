@@ -21,6 +21,7 @@ from globalign_tpu import align_pairs as jax_align_pairs
 from globalign_tpu import batch as jax_batch
 from globalign_tpu import find_global_alignment as jax_find
 from globalign_tpu.ops import fill_pallas
+from globalign_tpu.ops.linear_tb import assemble_from_tapes
 from globalign_tpu_torch import align_pairs, find_global_alignment
 from globalign_tpu_torch import batch as batch_mod
 from globalign_tpu_torch.batch import PairResult, bucket_length
@@ -575,13 +576,15 @@ def test_align_pairs_cost_only_fused_matches_jax(monkeypatch, quantum):
         monkeypatch.undo()
 
 
-# -- the op-tape render against the Python assembly -------------------------
+# -- the op-tape render against the JAX package's Python assembly -----------
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_render_ops_matches_assemble_from_tapes(seed):
     """Tapes from real fills and walks (plain versions), rendered forward
-    and assembled backward: byte-identical, one pair or many at once."""
+    (and by ``render_walk`` from the walk-order tape) and assembled
+    backward by the JAX package: byte-identical, one pair or many at
+    once."""
     rng = np.random.default_rng(seed)
     letters = "ACGT" if seed % 2 else PROTEIN
     pairs = _ragged_pairs(rng, letters, 6, lo=1, hi=60)
@@ -601,10 +604,11 @@ def test_render_ops_matches_assemble_from_tapes(seed):
             final3.argmin(-1).to(torch.int32),
         )
         tape = ops[0, : int(count[0])].numpy()
-        want.append(linear_tb.assemble_from_tapes([tape], s1, s2))
+        want.append(assemble_from_tapes([tape], s1, s2))
         fwd.append(np.r_[np.full(int(j_exit[0]), linear_tb.OP_LEFT, np.uint8),
                          tape[::-1]])
         assert linear_tb.render_ops(fwd[-1], s1, s2) == want[-1]
+        assert linear_tb.render_walk(tape, int(j_exit[0]), s1, s2) == want[-1]
     assert linear_tb.render_many(
         fwd, [p[0] for p in pairs], [p[1] for p in pairs]
     ) == want
@@ -614,7 +618,7 @@ def test_render_handles_any_characters_and_empty_tapes():
     wide = "".join(chr(0x4E00 + k) for k in range(3))
     ops = np.array([1, 0, 2, 0], np.uint8)
     assert linear_tb.render_ops(ops, wide, "AB" + wide[2]) == (
-        linear_tb.assemble_from_tapes([ops[::-1]], wide, "AB" + wide[2])
+        assemble_from_tapes([ops[::-1]], wide, "AB" + wide[2])
     )
     assert linear_tb.render_many([], [], []) == []
     assert linear_tb.render_ops(np.zeros(0, np.uint8), "", "") == ("", "", "")

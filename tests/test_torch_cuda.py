@@ -112,9 +112,10 @@ def test_main_path_runs_the_kernel(cuda_device):
     rng = np.random.default_rng(8)
     s1 = "".join(rng.choice(list("ACGT"), 300))
     s2 = "".join(rng.choice(list("ACGT"), 280))
-    before = fill_cuda.batch_moves.launches
+    before = (fill_cuda.batch_moves.launches, linear_tb.walk_block.launches)
     got = find_global_alignment(seq_1=s1, seq_2=s2, device="cuda")
-    assert fill_cuda.batch_moves.launches == before + 1
+    assert (fill_cuda.batch_moves.launches,
+            linear_tb.walk_block.launches) == (before[0] + 1, before[1] + 1)
     want = find_global_alignment(seq_1=s1, seq_2=s2, device="cpu")
     assert got == want and str(got) == str(want)
 
@@ -237,13 +238,56 @@ def test_last_rows_boundary_shapes_match_plain(cuda_device, shapes):
     assert torch.equal(got.cpu(), want)
 
 
-def test_walk_block_matches_plain(cuda_device):
-    """B = 3 walks over one fill's codes, from ragged entries."""
-    args = _case(np.random.default_rng(12), "ACGT", [(120, 90), (64, 100), (7, 5)])
+def _synthetic_codes(rng, levels, k, n):
+    """(1, k+1, n+1) codes whose every cell sends level l to ``levels[l]``
+    (a level of -1: random)."""
+    lv = rng.integers(0, 3, (k + 1, n + 1, 3))
+    for lvl, to in enumerate(levels):
+        if to >= 0:
+            lv[..., lvl] = to
+    return torch.from_numpy(
+        (lv[..., 0] | lv[..., 1] << 2 | lv[..., 2] << 4).astype(np.uint8)[None])
+
+
+# The walk kernel's tile edges (32 x 48 codes a tile in shared memory; the
+# diagonal walk passes the corners (96, 256) of 32 x 128 and (32, 192) of
+# 32 x 48 tiles):
+# (name, rows and columns of a DNA fill or synthetic codes, entries).
+WALK_CASES = {
+    "ragged_entries": ([(120, 90), (64, 100), (7, 5)], None,
+                       ([120, 50, 0], [90, 100, 5])),
+    "up_through_tile_tops": ([(300, 700)], (2, 2, 2), ([300], [700])),
+    "left_to_column_0_inside_a_tile": ([(300, 700)], (1, 1, 1), ([150], [700])),
+    "diagonal_through_tile_corners": ([(300, 700)], (0, 0, 0), ([101], [261])),
+    "random_codes": ([(300, 700)], (-1, -1, -1), ([300], [700])),
+    "3x40000": ([(3, 40_000)], None, ([3], [40_000])),
+    "40000x3": ([(40_000, 3)], None, ([40_000], [3])),
+    "m_or_n_0_and_1": ([(0, 5), (5, 0), (1, 1), (1, 9), (9, 1)], None,
+                       ([0, 5, 1, 1, 9], [5, 0, 1, 9, 1])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES) + [
+    f"n+1={r}_mod_16" for r in range(16)])
+def test_walk_block_matches_plain(cuda_device, case):
+    """Walks over a fill's codes or synthetic ones, against the plain walk:
+    leaving tiles through their tops, lefts and corners, reaching column 0
+    inside a tile, long thin pairs, m or n of 0 and 1, and n + 1 at every
+    residue mod 16 (rows off 16-byte alignment every way)."""
+    rng = np.random.default_rng(12)
+    if case.startswith("n+1="):
+        n = 31 + int(case[4:].split("_")[0])  # n + 1 = 32 + r
+        shapes, levels, (i_entry, j_list) = [(45, n), (45, n)], None, (
+            [45, 30], [n, n - 7])
+    else:
+        shapes, levels, (i_entry, j_list) = WALK_CASES[case]
+    args = _case(rng, "ACGT", shapes)
     final3, moves = fill_cuda.batch_moves(*_on(cuda_device, args))
-    i_entry = [120, 50, 0]
-    j_entry = torch.tensor([90, 100, 5], dtype=torch.int32)
     level = final3.argmin(-1).to(torch.int32).cpu()
+    if levels is not None:
+        moves = _synthetic_codes(rng, levels, *shapes[0]).to(cuda_device)
+        level = torch.tensor([max(levels[0], 0)], dtype=torch.int32)
+    j_entry = torch.tensor(j_list, dtype=torch.int32)
     want = linear_tb.walk_block(moves.cpu(), i_entry, j_entry, level)
     before = linear_tb.walk_block.launches
     got = linear_tb.walk_block(

@@ -75,6 +75,23 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
     assert "no CUDA device" in proc.stderr
 
 
+def test_walk_ab_refuses_to_run_without_a_gpu():
+    """The walk A/B mode (``--walk-ab``) also exits non-zero without a
+    CUDA device, before it builds anything, and prints no timings."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py", "--walk-ab",
+         "globalign_tpu_torch/csrc/walk_block.cu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 1
+    assert proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
+
+
 def test_chip_smoke_refuses_to_run_alone(tmp_path):
     """Copied away from the package, the smoke script exits non-zero and
     prints no result line."""
