@@ -10,8 +10,10 @@ phase fails:
      from ``globalign_tpu_torch/csrc`` and the probes of
      ``globalign_tpu_torch/utils/peaks.py`` (one nvcc per source, in
      parallel) and print the build time, and ``ptxas -v`` of
-     ``gotoh_batch``, ``wave_split``, every ``gotoh_fill`` instance and
-     both ``walk_block`` kernels (registers, spills, occupancy);
+     ``gotoh_batch`` (beside its earlier registers), ``gotoh_batch_moves``
+     (a spill fails the phase), ``wave_split``, every ``gotoh_fill``
+     instance and both ``walk_block`` kernels (registers, spills,
+     occupancy);
   1. kernel vs plain, on the card against the plain versions on the CPU,
      same seeded inputs, tolerance 0 (all integers): ``batch_moves``
      (final3 and every move code); ``batch_moves`` and ``batch_last_rows``
@@ -20,12 +22,15 @@ phase fails:
      shapes of ``fill_cuda.plan`` (1, 2 and 8 bands a pair, band and pass
      widths +-1, fewer than 32 columns, m_true 0 / 1, ragged batches whose
      pairs get different band counts); ``walk_block`` over the
-     same codes; ``gotoh_fill``'s ragged moves mode and ``walk_block``'s
-     ragged kernel (``batch_moves_ragged`` / ``walk_ragged``, align_pairs'
-     traceback path) on buckets of several launch classes (a pair over 8
+     same codes; the ragged moves fill (``batch_moves_ragged``:
+     ``gotoh_batch_moves`` up to 1024 columns, ``gotoh_fill``'s ragged mode
+     past them) and ``walk_block``'s ragged kernel (``walk_ragged``,
+     align_pairs' traceback path) on calls mixing both routes (a pair over 8
      bands in two passes, m_true / n_true 0 and 1) under DNA, BLOSUM62 and
-     the 60-letter alphabet, and with one pair placed past byte 2^31 of a
-     2.2 GB buffer (ROADMAP C1); both walk kernels at the edges of their
+     the 60-letter alphabet, with one pair placed past byte 2^31 of a
+     2.2 GB buffer (ROADMAP C1), and ``gotoh_batch_moves`` alone at every
+     width class and its edges (1 to 1024 columns, m or n of 0 and 1)
+     under DNA, BLOSUM62 and a non-ASCII matrix; both walk kernels at the edges of their
      shared-memory tiles (walks leaving a tile through its top,
      its left and its corner, reaching column 0 inside a tile, from row 0
      and column 0, random codes, 3 x 40 000 and 40 000 x 3, m or n of 0
@@ -62,9 +67,11 @@ phase fails:
      819-1024), cost-only and traceback, equal pair by pair to the
      single-pair path on the card and, on 32 pairs, to ``device="cpu"``,
      cost-only with one ``gotoh_batch`` launch a width class (one a
-     chunk), traceback with one ragged ``gotoh_fill`` launch a launch class
-     and one ragged walk a segment (1 + 1 a chunk); a lowered moves budget
-     (three or more segments and a blocked pair); ``flush=False`` +
+     chunk), traceback with one ``gotoh_batch_moves`` launch a width class
+     and no ``gotoh_fill`` launch, and one ragged walk a segment (1 + 1 a
+     chunk); a lowered moves budget (three or more segments and a blocked
+     pair); a call with pairs on both sides of 1024 columns (both routes,
+     one walk); ``flush=False`` +
      ``resolve()``; the
      batch CLI on the card and on the CPU (byte-identical TSVs); the
      parallel layer: on an NCCL world of one, ``align_pairs(mesh=)`` on both
@@ -100,8 +107,10 @@ phase fails:
      64 x 1024², 64 x 4096² and the two chunks, both modes, split into
      device fill and walk and host enqueue, fetch and render; each traceback
      chunk's one ragged fill and one ragged walk in device time beside
-     their bounds and plain versions, and the per-bucket launches they
-     replace; the chunk's
+     their bounds and plain versions, the same fill on ``gotoh_fill``'s
+     ragged mode, and the per-bucket launches they replace; the moves
+     crossover (B in {1, 8, 33, 132, 1024} pairs of 1024^2 and 256^2 on
+     both moves kernels) and the mesh path's 8 x 992 x 1024 shard; the chunk's
      one ragged cost call, its largest bucket and the chunk as one padded
      launch beside ``gotoh_fill``'s final3 mode and the bound (device
      time: the host's enqueue hidden behind a sleep kernel); the crossover
@@ -443,7 +452,8 @@ def main() -> int:
              str(cuda_build.CSRC_DIR / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        for stem in ("gotoh_batch", "wave_split", "gotoh_fill", "walk_block")
+        for stem in ("gotoh_batch", "gotoh_batch_moves", "wave_split",
+                     "gotoh_fill", "walk_block")
     }
     libs = cuda_build.build(cuda_build.sources() + [peaks.SOURCE])
     cuda_build.load()
@@ -472,10 +482,32 @@ def main() -> int:
         warps = min(64, 65536 // per_warp) // fill_batch.WARPS * fill_batch.WARPS
         batch_regs[f"W={width}{' last' if last == '1' else ''}"] = dict(
             registers=regs, spill_bytes=spills, warps_per_sm=warps)
+    # The cost instances' registers as gotoh_batch.cu's note gives them,
+    # from before gotoh_batch_moves existed (a source of its own, so they
+    # should hold).
+    batch_regs_before = {"W=32": 226, "W=32 last": 242, "W=16": 152,
+                         "W=16 last": 141, "W=8": 84, "W=8 last": 96,
+                         "W=4": 54, "W=4 last": 64}
     log(f"phase 0: gotoh_batch (ptxas -v, sm_90a): " + "; ".join(
-        f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes, "
+        f"{k}: {v['registers']} registers (before: "
+        f"{batch_regs_before.get(k)}), {v['spill_bytes']} spill bytes, "
         f"{v['warps_per_sm']} warps an SM in blocks of {fill_batch.WARPS}"
         for k, v in sorted(batch_regs.items())))
+    # gotoh_batch_moves: an instance per W; a spill fails the phase.
+    moves_regs = {}
+    for args, regs, spills, stack, per_warp in ptxas_report("gotoh_batch_moves"):
+        warps = min(64, 65536 // per_warp) // fill_batch.WARPS * fill_batch.WARPS
+        width = re.match(r"Li(\d+)", args).group(1)
+        moves_regs[f"W={width}"] = dict(
+            registers=regs, spill_bytes=spills, stack_bytes=stack,
+            warps_per_sm=warps)
+    log(f"phase 0: gotoh_batch_moves (ptxas -v, sm_90a): " + "; ".join(
+        f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes, "
+        f"{v['stack_bytes']} stack bytes, {v['warps_per_sm']} warps an SM in "
+        f"blocks of {fill_batch.WARPS}" for k, v in sorted(moves_regs.items())))
+    if sorted(moves_regs) != sorted(f"W={w}" for w in fill_batch.WIDTHS) or any(
+            v["spill_bytes"] for v in moves_regs.values()):
+        raise SystemExit("phase 0 failed: gotoh_batch_moves instances or spills")
     # wave_split: one instance, W = 4; blocks of 4 warps, each staging
     # 32 W + 1 edge cells, and the launch keeps one block an SM.
     (_, regs, spills, stack, per_warp), = ptxas_report("wave_split")
@@ -519,6 +551,7 @@ def main() -> int:
         "wave_frontiers": fill_wave.wave_frontiers,
         "batch_moves_ragged": fill_cuda.batch_moves_ragged,
         "walk_ragged": linear_tb.walk_ragged,
+        "batch_moves_warp": fill_batch.batch_moves_warp,
     }
 
     # gotoh_fill launches on the main paths by (mode, B, M, N): those
@@ -584,7 +617,21 @@ def main() -> int:
             gap_extension_score=-1,
         ),
         "wide60": lambda a, b: resolve_scheme(a, b, gap_open_cost=3),
+        # three non-ASCII letters and A (written below)
+        "unicode": lambda a, b: resolve_scheme(a, b, scoring_mat_path=uni_path),
     }
+    uni_letters = "ΩЖ字A"  # Omega, Zhe, a CJK letter, A
+    uni_mtx = (
+        f"{' '.join(uni_letters)} -\n"
+        + "".join(
+            f"{a} " + " ".join(str(4 if a == b else -2) for b in uni_letters)
+            + " -3\n" for a in uni_letters
+        )
+        + "- " + " ".join("-3" for _ in uni_letters) + " 4\n"
+    )
+    uni_dir = tempfile.TemporaryDirectory()
+    uni_path = Path(uni_dir.name) / "unicode.mtx"
+    uni_path.write_text(uni_mtx, encoding="utf-8")
     cases = [
         ("dna", DNA, [(1, 1)]),
         ("dna", DNA, [(1, 500)]),
@@ -778,13 +825,15 @@ def main() -> int:
     if walk_err != 0:
         raise SystemExit("phase 1 failed: walk_block != plain walk")
 
-    # gotoh_fill's ragged moves mode and walk_block's ragged kernel (the
+    # The ragged moves fill (gotoh_batch_moves up to 1024 columns,
+    # gotoh_fill's ragged mode past them) and walk_block's ragged kernel (the
     # traceback path of align_pairs) against their plain versions, the row
-    # scan and the walk pair by pair through the same packed buffer: each
-    # call's buckets fall in several launch classes (a pair over 8 bands in
-    # two passes, pairs over several bands and over one, m_true / n_true 0
-    # and 1); final3, every byte of each pair's codes, tapes, counts and
-    # exit columns, tolerance 0; one fill launch a class, one walk launch.
+    # scan and the walk pair by pair through the same buffer: each call
+    # mixes both routes, its gotoh_fill pairs in several launch classes (a
+    # pair over 8 bands in two passes, pairs over several bands and over
+    # one), m_true / n_true 0 and 1; final3, every byte of each pair's rows,
+    # tapes, counts and exit columns, tolerance 0; one launch a width class
+    # or launch class, one walk launch.
     def ragged_err(got, want):
         err = abs_err(got.final3, want.final3)
         for row in want.layout.tolist():
@@ -811,31 +860,38 @@ def main() -> int:
                    args[2].to(dev), *args[3:])
         want = fill_cuda.batch_moves_ragged(*args)
         want_walk = linear_tb.walk_ragged(want)
-        classes = fill_cuda.ragged_classes(
-            [m for x in made for m in x[5]], [n for x in made for n in x[6]], sms)
-        before = (fill_cuda.batch_moves_ragged.launches,
-                  linear_tb.walk_ragged.launches)
+        warp, classes = fill_cuda.ragged_routes(
+            [m for x in made for m in x[5]], [n for x in made for n in x[6]],
+            args[2].shape[0], sms)
+        ragged_counters = (fill_batch.batch_moves_warp,
+                           fill_cuda.batch_moves_ragged, linear_tb.walk_ragged)
+        before = [fn.launches for fn in ragged_counters]
         got = fill_cuda.batch_moves_ragged(*on_card)
         got_walk = linear_tb.walk_ragged(got)
         torch.cuda.synchronize()
-        ran = (fill_cuda.batch_moves_ragged.launches - before[0],
-               linear_tb.walk_ragged.launches - before[1])
+        ran = tuple(fn.launches - k for fn, k in zip(ragged_counters, before))
         err = ragged_err(got, want)
         werr = max(abs_err(g, w) for g, w in zip(got_walk, want_walk))
         fill_ragged_err = max(fill_ragged_err, err)
         walk_ragged_err = max(walk_ragged_err, werr)
-        log(f"phase 1: ragged fill and walk {name}, buckets {buckets}: launch "
-            f"classes {[(tuple(lp), len(i)) for lp, i in classes]} (W, warps, "
-            f"bands, passes); launches {ran}; final3 and codes max abs err "
-            f"{err}, tapes, counts, exit columns max abs err {werr}")
-        if err or werr or ran != (len(classes), 1):
+        log(f"phase 1: ragged fill and walk {name}, buckets {buckets}: "
+            f"gotoh_batch_moves widths {[(w, len(i)) for w, i in warp]}, "
+            f"gotoh_fill launch classes "
+            f"{[(tuple(lp), len(i)) for lp, i in classes]} (W, warps, bands, "
+            f"passes); launches (gotoh_batch_moves, gotoh_fill ragged, walk) "
+            f"{ran}; final3 and codes max abs err {err}, tapes, counts, exit "
+            f"columns max abs err {werr}")
+        if err or werr or ran != (len(warp), len(classes), 1) or not (
+                warp and classes):
             raise SystemExit(f"phase 1 failed: ragged fill / walk {name}")
     # ROADMAP C1: a pair placed past byte 2^31 of a 2.2 GB buffer, where the
-    # JAX mega-walk's int32 offsets wrap; the first pair at byte 5.
+    # JAX mega-walk's int32 offsets wrap; the first pair at byte 16 (offsets
+    # are multiples of 16); both on gotoh_batch_moves.
     scheme = schemes["dna"](DNA, DNA)
     made = fill_args(scheme, [(random_seq(rng, DNA, m), random_seq(rng, DNA, n))
                               for m, n in ((700, 650), (1000, 1000))])
-    place = dict(offsets=[5, 2**31 + 4099], nbytes=2_200_000_000)
+    place = dict(offsets=[16, 2**31 + 4096], nbytes=2_200_000_000)
+    before = fill_batch.batch_moves_warp.launches
     args = ([made[0]], [made[1]], *made[2:5], [made[5]], [made[6]])
     want = fill_cuda.batch_moves_ragged(*args, **place)
     got = fill_cuda.batch_moves_ragged(
@@ -846,12 +902,60 @@ def main() -> int:
     werr = max(abs_err(g, w) for g, w in zip(got_walk, linear_tb.walk_ragged(want)))
     fill_ragged_err = max(fill_ragged_err, err)
     walk_ragged_err = max(walk_ragged_err, werr)
+    ran = fill_batch.batch_moves_warp.launches - before
     log(f"phase 1: ragged fill and walk with a pair at byte "
         f"{int(got.layout[:, 4].max())} of a {place['nbytes']}-byte buffer "
-        f"(past 2^31 = {2**31}): final3 and codes max abs err {err}, tapes, "
-        f"counts, exit columns max abs err {werr}")
-    if err or werr or int(got.layout[:, 4].max()) <= 2**31:
+        f"(past 2^31 = {2**31}), {ran} gotoh_batch_moves launch: final3 and "
+        f"codes max abs err {err}, tapes, counts, exit columns max abs err "
+        f"{werr}")
+    if err or werr or int(got.layout[:, 4].max()) <= 2**31 or ran != 1:
         raise SystemExit("phase 1 failed: ragged fill / walk past byte 2^31")
+    del want, got, got_walk
+
+    # gotoh_batch_moves alone against the plain row scan, tolerance 0:
+    # every width class and its edges (1, 31-33, 127-129, 255-257, 511-513,
+    # 1023 and 1024 columns), m or n of 0 and 1, three buckets, under DNA,
+    # BLOSUM62 and the non-ASCII matrix: final3 and every byte of each
+    # pair's rows (row 0, column 0, the bytes past n), one launch a width
+    # class and no gotoh_fill launch; the ragged walk over its codes = the
+    # plain walk over the plain codes.
+    warp_shapes = [
+        (37, 1), (1, 31), (40, 32), (33, 33), (0, 5), (5, 0), (0, 0), (1, 1),
+        (90, 127), (2, 128), (129, 129), (60, 255), (256, 256), (17, 257),
+        (11, 511), (300, 512), (9, 513), (45, 1023), (1024, 1024), (1, 1024),
+        (1024, 1)]
+    warp_err = 0
+    for name, letters in (("dna", DNA), ("blosum62", PROTEIN),
+                          ("unicode", uni_letters)):
+        scheme = schemes[name](letters, letters)
+        order = rng.permutation(len(warp_shapes))
+        made = [fill_args(scheme, [(random_seq(rng, letters, m),
+                                    random_seq(rng, letters, n))
+                                   for m, n in (warp_shapes[k] for k in
+                                                order[lo : lo + 7])])
+                for lo in (0, 7, 14)]
+        args = ([x[0] for x in made], [x[1] for x in made], *made[0][2:5],
+                [x[5] for x in made], [x[6] for x in made])
+        want = fill_cuda.batch_moves_ragged(*args)
+        ragged_counters = (fill_batch.batch_moves_warp,
+                           fill_cuda.batch_moves_ragged, linear_tb.walk_ragged)
+        before = [fn.launches for fn in ragged_counters]
+        got = fill_cuda.batch_moves_ragged(
+            [t.to(dev) for t in args[0]], [t.to(dev) for t in args[1]],
+            args[2].to(dev), *args[3:])
+        got_walk = linear_tb.walk_ragged(got)
+        torch.cuda.synchronize()
+        ran = tuple(fn.launches - k for fn, k in zip(ragged_counters, before))
+        widths = {fill_batch.width_class(n) for _, n in warp_shapes}
+        err = max(ragged_err(got, want), max(
+            abs_err(g, w) for g, w in zip(got_walk, linear_tb.walk_ragged(want))))
+        warp_err = max(warp_err, err)
+        log(f"phase 1: gotoh_batch_moves {name}, {len(warp_shapes)} pairs "
+            f"{warp_shapes} in 3 buckets: launches (gotoh_batch_moves, "
+            f"gotoh_fill ragged, walk) {ran}; final3, codes, tapes, counts and "
+            f"exit columns max abs err {err}")
+        if err or ran != (len(widths), 0, 1):
+            raise SystemExit(f"phase 1 failed: gotoh_batch_moves {name}")
     del want, got, got_walk
 
     # Both walk kernels at the edges of their code tiles (staged in shared
@@ -1291,15 +1395,7 @@ def main() -> int:
     # A custom matrix over non-ASCII letters: single pairs and align_pairs
     # in both modes on the card = device="cpu", strings and reports (the
     # port renders any letter; ROADMAP C5 is the JAX native layer's fault).
-    uni_letters = "ΩЖ字A"  # Omega, Zhe, a CJK letter, A
-    uni_mtx = (
-        f"{' '.join(uni_letters)} -\n"
-        + "".join(
-            f"{a} " + " ".join(str(4 if a == b else -2) for b in uni_letters)
-            + " -3\n" for a in uni_letters
-        )
-        + "- " + " ".join("-3" for _ in uni_letters) + " 4\n"
-    )
+    # The matrix is phase 1's (uni_letters, uni_mtx).
     uni_pairs = [(random_seq(rng, uni_letters, m), random_seq(rng, uni_letters, n))
                  for m, n in ((300, 280), (1, 9), (700, 650), (64, 1), (90, 95))]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1450,39 +1546,42 @@ def main() -> int:
             keys[key] = keys.get(key, 0) + 1
         if budget is None:
             return len(keys), len(keys)
-        subs = sum(-(-k // (budget // ((mm + 1) * (nn + 1))))
+        subs = sum(-(-k // (budget // fill_cuda.ragged_bytes(mm, nn)))
                    for (mm, nn), k in keys.items())
         return len(keys), subs
 
     def segments_of(pairs, budget):
         """align_pairs' traceback segments under ``budget``, by its rule:
         buckets in order of first appearance, each one's pairs in input
-        order, a segment closed where its codes packed tight ((m+1)(n+1)
-        bytes a pair) would pass the budget; a bucket whose padded pair
-        passes it goes blocked and joins none.  The (m, n) of each
-        segment's pairs."""
+        order, a segment closed where its codes (fill_cuda.ragged_bytes a
+        pair) would pass the budget; a bucket whose padded pair passes it
+        goes blocked and joins none.  The (m, n) of each segment's pairs."""
+        size = fill_cuda.ragged_bytes
         keys = {}
         for a, b in pairs:
             keys.setdefault((bucket_length(len(a)), bucket_length(len(b))),
                             []).append((len(a), len(b)))
         segs, used = [[]], 0
         for (mm, nn), shapes in keys.items():
-            if (mm + 1) * (nn + 1) > budget:
+            if size(mm, nn) > budget:
                 continue
             for m, n in shapes:
-                if used + (m + 1) * (n + 1) > budget:
+                if used + size(m, n) > budget:
                     segs.append([])
                     used = 0
                 segs[-1].append((m, n))
-                used += (m + 1) * (n + 1)
+                used += size(m, n)
         return [seg for seg in segs if seg]
 
-    def traceback_launches(pairs, budget):
-        """(gotoh_fill ragged launches, ragged walks) of a traceback
-        align_pairs call: a launch a launch class of each segment, a walk a
-        segment."""
+    def traceback_launches(pairs, budget, alphabet):
+        """(gotoh_batch_moves launches, gotoh_fill ragged launches, ragged
+        walks) of a traceback align_pairs call: a launch a width class and
+        a launch a launch class of each segment (fill_cuda.ragged_routes),
+        a walk a segment."""
         segs = segments_of(pairs, budget)
-        return (sum(len(fill_cuda.ragged_classes(*zip(*seg), sms)) for seg in segs),
+        routes = [fill_cuda.ragged_routes(*zip(*seg), alphabet, sms)
+                  for seg in segs]
+        return (sum(len(w) for w, _ in routes), sum(len(c) for _, c in routes),
                 len(segs))
 
     def cost_launches(pairs):
@@ -1500,11 +1599,13 @@ def main() -> int:
         scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
         aligner = GotohAligner(scheme, device="cuda")
         nbuckets = bucket_counts(pairs)[0]
-        nfills, nwalks = traceback_launches(
-            pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET)
-        if (nfills, nwalks) != (1, 1):
+        nwarp, nfills, nwalks = traceback_launches(
+            pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET, len(scheme.costing.values))
+        if (nfills, nwalks) != (0, 1) or nwarp != len(
+                {fill_batch.width_class(len(b)) for _, b in pairs}):
             raise SystemExit(f"phase 2 failed: the {name} chunk is "
-                             f"{nwalks} segments, {nfills} launch classes")
+                             f"{nwalks} segments, {nwarp} width classes and "
+                             f"{nfills} gotoh_fill launch classes")
         for with_tb in (False, True):
             torch.cuda.synchronize()
             reset_counts()
@@ -1513,7 +1614,7 @@ def main() -> int:
             add_main(counts)
             chunk_results[name, with_tb] = (got, counts)
             design = (  # cost-only: one gotoh_batch launch a width class
-                launches(batch_moves_ragged=nfills, walk_ragged=nwalks)
+                launches(batch_moves_warp=nwarp, walk_ragged=nwalks)
                 if with_tb else launches(batch_final3=cost_launches(pairs))
             )
             if counts != design:
@@ -1544,9 +1645,10 @@ def main() -> int:
             log(f"phase 2: align_pairs {name} 1024 pairs ({nbuckets} buckets), "
                 f"traceback={with_tb}: = single-pair path on the card, first "
                 f"32 = device='cpu'; launches {counts} (cost-only: one "
-                f"gotoh_batch launch a width class; traceback: one ragged "
-                f"gotoh_fill launch a launch class and one ragged walk a "
-                f"segment; a launch a bucket made {nbuckets})")
+                f"gotoh_batch launch a width class; traceback: one "
+                f"gotoh_batch_moves launch a width class, no gotoh_fill "
+                f"launch, and one ragged walk a segment; a launch a bucket "
+                f"made {nbuckets})")
 
     # A lowered budget: the 300-nt pairs split into three or more segments
     # and the 1200 x 1100 pair goes blocked; equal to the default budget's
@@ -1565,9 +1667,10 @@ def main() -> int:
     finally:
         batch_mod.DEVICE_WALK_MOVES_BUDGET = real_budget
     add_main(counts)
-    nfills, nsegs = traceback_launches(mixed, budget)
-    design = launches(batch_moves_ragged=nfills, walk_ragged=nsegs,
-                      batch_moves=1, batch_last_rows=1, walk_block=1)
+    nwarp, nfills, nsegs = traceback_launches(mixed, budget, 5)
+    design = launches(batch_moves_warp=nwarp, batch_moves_ragged=nfills,
+                      walk_ragged=nsegs, batch_moves=1, batch_last_rows=1,
+                      walk_block=1)
     cpu = align_pairs(mixed, device="cpu")
     if [fields(r) for r in got] != [fields(r) for r in want] or [
         fields(r) for r in cpu
@@ -1577,6 +1680,34 @@ def main() -> int:
     log(f"phase 2: align_pairs under a {budget}-byte budget: {nsegs} "
         f"segments + one blocked 1200 x 1100 pair = default budget = "
         f"device='cpu'; launches {counts}")
+
+    # Both routes in one traceback call: pairs of 290-1000 columns on
+    # gotoh_batch_moves, pairs of 1100-2300 on gotoh_fill's ragged mode,
+    # one buffer and one walk; = the single-pair path and device="cpu".
+    wide_call = serving_chunk(rng, DNA, 12, 290, 1000)
+    for k, size in ((2, 1100), (7, 2300), (9, 1500)):
+        s1 = random_seq(rng, DNA, size)
+        wide_call.insert(k, (s1, mutate(rng, s1, DNA)))
+    torch.cuda.synchronize()
+    reset_counts()
+    got = align_pairs(wide_call)
+    counts = read_counts()
+    add_main(counts)
+    nwarp, nfills, nsegs = traceback_launches(
+        wide_call, batch_mod.DEVICE_WALK_MOVES_BUDGET, 5)
+    design = launches(batch_moves_warp=nwarp, batch_moves_ragged=nfills,
+                      walk_ragged=nsegs)
+    aligner = GotohAligner(resolve_scheme(DNA, DNA), device="cuda")
+    single = [fields(aligner.align(a, b)) for a, b in wide_call]
+    cpu = align_pairs(wide_call, device="cpu")
+    if [fields(r) for r in got] != single or [fields(r) for r in cpu] != single or (
+            counts != design) or not (nwarp and nfills):
+        raise SystemExit(f"phase 2 failed: align_pairs across the 1024-column "
+                         f"cap: launches {counts}, design {design}")
+    log(f"phase 2: align_pairs over {len(wide_call)} pairs of 290-2300 "
+        f"columns (both routes): = single-pair path = device='cpu'; launches "
+        f"{counts} ({nwarp} gotoh_batch_moves, {nfills} gotoh_fill ragged, "
+        f"{nsegs} walk)")
 
     # flush=False: nothing fetched until resolve(), which equals flush=True.
     dna_pairs = chunks["dna"][0]
@@ -2679,9 +2810,25 @@ def main() -> int:
         rargs = [list(x) for x in zip(*buckets)]
         rargs[2:5] = buckets[0][2:5]
         fill_dev = device_ms(lambda: fill_cuda.batch_moves_ragged(*rargs), 5)
-        before = fill_cuda.batch_moves_ragged.launches
+        before = fill_batch.batch_moves_warp.launches
         filled = fill_cuda.batch_moves_ragged(*rargs)
-        fill_launches = fill_cuda.batch_moves_ragged.launches - before
+        fill_launches = fill_batch.batch_moves_warp.launches - before
+        # The same pairs on gotoh_fill's ragged mode (its launch classes of
+        # every pair), same descriptors and buffer size: the A/B in one call.
+        pair_layout = filled.layout[np.argsort(filled.layout[:, 6])]
+        gf_classes = fill_cuda.ragged_classes(pair_layout[:, 2], pair_layout[:, 3], sms)
+
+        def on_gotoh_fill():
+            return fill_cuda._launch_ragged(
+                [], gf_classes, pair_layout, *rargs[2:5], filled.codes.numel())
+
+        gf_dev = device_ms(on_gotoh_fill, 5)
+        gf_filled = on_gotoh_fill()
+        if not (torch.equal(gf_filled.final3, filled.final3)
+                and torch.equal(gf_filled.codes, filled.codes)):
+            raise SystemExit(f"phase 3 failed: {arm}: gotoh_batch_moves != "
+                             "gotoh_fill ragged")
+        del gf_filled
         walk_dev = device_ms(lambda: linear_tb.walk_ragged(filled), 5)
         r_ops, r_count, r_j = (x.cpu() for x in linear_tb.walk_ragged(filled))
         per_bucket = [fill_cuda.batch_moves(*a) for a in buckets]
@@ -2706,7 +2853,11 @@ def main() -> int:
         walk_bytes = 1e3 * (2 * int(r_count.sum())
                             + (8 * fill_cuda.DESC_WORDS + 12 + 8) * len(lay)) / hbm_bytes_s
         walk_b = max(max(chains), walk_bytes)
+        t_cells = 1e3 * cells / peak["moves_cells_s"]
+        t_code_bytes = 1e3 * filled.codes.numel() / hbm_bytes_s
         rec = dict(fill_ms=fill_dev, walk_ms=walk_dev, fill_launches=fill_launches,
+                   gotoh_fill_ms=gf_dev, gotoh_fill_launches=len(gf_classes),
+                   ops_bound_ms=t_cells, code_bytes_floor_ms=t_code_bytes,
                    per_bucket_fills_ms=fills_dev, per_bucket_walks_ms=walks_dev,
                    buckets=len(buckets), fill_bound_ms=fill_b, fill_bound_by=fill_b_by,
                    walk_bound_ms=walk_b,
@@ -2741,9 +2892,13 @@ def main() -> int:
                 f"(final3 and codes max abs err {ferr})")
         ragged_rec[arm] = rec
         log(f"phase 3: {arm} traceback on {card} (device time): one ragged "
-            f"fill, {fill_launches} gotoh_fill launch, {fill_dev:.4f} ms "
+            f"fill, {fill_launches} gotoh_batch_moves launch, {fill_dev:.4f} ms "
             f"({cells / fill_dev / 1e6:.4f} GCUPS, {filled.codes.numel()} code "
-            f"bytes), bound {fill_b:.4f} ms ({fill_b_by}); one ragged walk "
+            f"bytes); the same pairs on gotoh_fill's ragged mode "
+            f"({len(gf_classes)} launch) {gf_dev:.4f} ms, equal outputs; bound "
+            f"{fill_b:.4f} ms ({fill_b_by}: cells at the probe's rate with "
+            f"codes {t_cells:.4f} ms, the codes at {hbm_bytes_s / 1e12} TB/s "
+            f"{t_code_bytes:.4f} ms); one ragged walk "
             f"{walk_dev:.4f} ms (longest walk {rec['longest_walk']} steps), "
             f"bound {walk_b:.4f} ms ({rec['walk_bound_by']}: the longest "
             f"walk's loads from shared memory + one L2 latency; the old design's "
@@ -2751,6 +2906,58 @@ def main() -> int:
             f"{len(buckets)} buckets: fills {fills_dev:.4f} ms, walks "
             f"{walks_dev:.4f} ms")
         del filled
+
+    # gotoh_batch_moves against gotoh_fill's ragged mode at B pairs of
+    # n x n, device time, equal outputs: fill_cuda.ragged_routes sends every
+    # pair of at most 1024 columns to gotoh_batch_moves whatever B, which
+    # holds only if it wins at every B.  Then the mesh path's bucket shard,
+    # 8 pairs of 992 x 1024 (gotoh_fill's batch_moves there), on both.
+    moves_sweep = []
+
+    def both_routes(a):
+        """(gotoh_batch_moves ms, gotoh_fill ragged ms) of one bucket's
+        ragged moves fill, outputs held equal."""
+        rargs = ([a[0]], [a[1]], *a[2:5], [a[5]], [a[6]])
+        t_new = device_ms(lambda: fill_cuda.batch_moves_ragged(*rargs), 3)
+        filled = fill_cuda.batch_moves_ragged(*rargs)
+        lay = filled.layout[np.argsort(filled.layout[:, 6])]
+        classes = fill_cuda.ragged_classes(lay[:, 2], lay[:, 3], sms)
+
+        def run_gf():
+            return fill_cuda._launch_ragged([], classes, lay, *a[2:5],
+                                            filled.codes.numel())
+
+        t_gf = device_ms(run_gf, 3)
+        gf = run_gf()
+        if not (torch.equal(gf.final3, filled.final3)
+                and torch.equal(gf.codes, filled.codes)):
+            raise SystemExit(f"phase 3 failed: gotoh_batch_moves != gotoh_fill "
+                             f"ragged at {len(a[5])} pairs")
+        return t_new, t_gf
+
+    for nn in (1024, 256):
+        for nb in (1, 8, 33, 132, 1024):
+            a = to_dev(fill_args(dna_fill, [
+                (random_seq(rng, DNA, nn), random_seq(rng, DNA, nn))
+                for _ in range(nb)]))
+            t_new, t_gf = both_routes(a)
+            moves_sweep.append(dict(B=nb, n=nn, gotoh_batch_moves_ms=t_new,
+                                    gotoh_fill_ragged_ms=t_gf))
+            log(f"phase 3: moves crossover {nb} x {nn}^2 on {card} (device "
+                f"time): gotoh_batch_moves {t_new:.4f} ms, gotoh_fill ragged "
+                f"{t_gf:.4f} ms; outputs equal")
+    lost = [c for c in moves_sweep
+            if c["gotoh_fill_ragged_ms"] < c["gotoh_batch_moves_ms"]]
+    log(f"phase 3: moves crossover: gotoh_fill ragged faster at "
+        f"{[(c['B'], c['n']) for c in lost] or 'no shape'} of the sweep")
+    a = to_dev(fill_args(dna_fill, [
+        (random_seq(rng, DNA, 992), random_seq(rng, DNA, 1024)) for _ in range(8)]))
+    shard_new, shard_gf = both_routes(a)
+    shard_fill = device_ms(lambda: fill_cuda.batch_moves(*a), 3)
+    log(f"phase 3: the mesh path's bucket shard, 8 x 992 x 1024, on {card} "
+        f"(device time): gotoh_batch_moves {shard_new:.4f} ms, gotoh_fill "
+        f"ragged {shard_gf:.4f} ms, gotoh_fill batch_moves (the mesh path's "
+        f"launch) {shard_fill:.4f} ms")
 
     # -- phase 3, the parallel layer ---------------------------------------
     # The strip mode at its main-path shape: the first block of the
@@ -3224,16 +3431,18 @@ def main() -> int:
             "two_single_ms_64x4096": dual_rec["64 x 4096^2 a set"]["single_ms"],
         },
         {
-            "name": "gotoh_fill_ragged",
+            "name": "gotoh_batch_moves",
             "route": "cuda",
-            "source": "globalign_tpu_torch/csrc/gotoh_fill.cu",
-            "replaces": "globalign_tpu/ops/fill_lanes.py:201",
-            "replaces_note": "moves mode over a call's traceback buckets: "
-                             "lanes_batch_moves :1978 / lanes_general_moves "
-                             ":1791 as globalign_tpu/batch.py:_lanes_walk_fills "
-                             "queues them; fill_pallas.py:496 (_pallas_moves)",
-            "launches": main_launches["batch_moves_ragged"],
-            "max_abs_err": fill_ragged_err,
+            "source": "globalign_tpu_torch/csrc/gotoh_batch_moves.cu",
+            "replaces": "globalign_tpu/ops/fill_lanes.py:1667",
+            "also_replaces": ["globalign_tpu/ops/fill_pallas.py:948"],
+            "replaces_note": "moves mode over a call's traceback buckets of at "
+                             "most 1024 columns: lanes_batch_moves :1978 / "
+                             "lanes_general_moves :1791 as "
+                             "globalign_tpu/batch.py:_lanes_walk_fills queues "
+                             "them; _make_stacked_kernel(want_moves=True)",
+            "launches": main_launches["batch_moves_warp"],
+            "max_abs_err": max(warp_err, fill_ragged_err),
             "shape": f"the 1024-pair DNA chunk's {dna_rr['buckets']} buckets in "
                      f"one batch_moves_ragged call ({dna_rr['fill_launches']} "
                      "launch), device time",
@@ -3243,9 +3452,44 @@ def main() -> int:
                            f"bucket, {dna_rr['plain_pairs']} pairs",
             "bound_ms": dna_rr["fill_bound_ms"],
             "bound_by": dna_rr["fill_bound_by"],
+            "ops_bound_ms": dna_rr["ops_bound_ms"],
+            "code_bytes_floor_ms": dna_rr["code_bytes_floor_ms"],
+            "library_ms": None,
+            "gotoh_fill_ragged_ms": dna_rr["gotoh_fill_ms"],
+            "blosum62_chunk_ms": blosum_rr["fill_ms"],
+            "blosum62_chunk_gotoh_fill_ragged_ms": blosum_rr["gotoh_fill_ms"],
+            "blosum62_chunk_bound_ms": blosum_rr["fill_bound_ms"],
+            "crossover": moves_sweep,
+            "mesh_shard_8x992x1024_ms": shard_new,
+            "mesh_shard_gotoh_fill_ragged_ms": shard_gf,
+            "mesh_shard_gotoh_fill_batch_moves_ms": shard_fill,
+            "ptxas": moves_regs,
+        },
+        {
+            "name": "gotoh_fill_ragged",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/gotoh_fill.cu",
+            "replaces": "globalign_tpu/ops/fill_lanes.py:1667",
+            "replaces_note": "moves mode over a call's traceback pairs past "
+                             "1024 columns: lanes_batch_moves :1978 / "
+                             "lanes_general_moves :1791 as "
+                             "globalign_tpu/batch.py:_lanes_walk_fills queues "
+                             "them; fill_pallas.py:948 (_pallas_moves)",
+            "launches": main_launches["batch_moves_ragged"],
+            "max_abs_err": fill_ragged_err,
+            "shape": f"the 1024-pair DNA chunk's pairs on gotoh_fill's ragged "
+                     f"mode ({dna_rr['gotoh_fill_launches']} launch), device "
+                     "time; on the main path it takes the pairs past 1024 "
+                     "columns",
+            "ms": dna_rr["gotoh_fill_ms"],
+            "plain_ms": dna_rr["fill_plain_ms"],
+            "plain_shape": f"the row scan on the host over the chunk's first "
+                           f"bucket, {dna_rr['plain_pairs']} pairs",
+            "bound_ms": dna_rr["fill_bound_ms"],
+            "bound_by": dna_rr["fill_bound_by"],
             "library_ms": None,
             "per_bucket_launches_ms": dna_rr["per_bucket_fills_ms"],
-            "blosum62_chunk_ms": blosum_rr["fill_ms"],
+            "blosum62_chunk_ms": blosum_rr["gotoh_fill_ms"],
             "blosum62_chunk_bound_ms": blosum_rr["fill_bound_ms"],
             "blosum62_per_bucket_launches_ms": blosum_rr["per_bucket_fills_ms"],
         },

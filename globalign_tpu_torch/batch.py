@@ -10,10 +10,12 @@ types).  Pairs are padded into (M, N) length buckets:
     counterpart of the JAX package's fused cost chunk (``COST_CHUNK_JIT``,
     ``_chunk_costs_jit``);
   * traceback: the buckets of the call in segments, each closed where its
-    codes, packed tight ((m+1)(n+1) bytes a pair), would pass the moves
-    budget: per segment one ragged moves fill
-    (``fill_cuda.batch_moves_ragged``: one ``gotoh_fill`` launch a launch
-    class) and one ragged walk (``linear_tb.walk_ragged``: one
+    codes (``fill_cuda.ragged_bytes``: (m+1) rows of n+1 bytes rounded up
+    to 16 a pair) would pass the moves budget: per segment one ragged moves
+    fill (``fill_cuda.batch_moves_ragged``: one ``gotoh_batch_moves``
+    launch a width class for the pairs of at most 1024 columns, one
+    ``gotoh_fill`` launch a launch class for the rest) and one ragged walk
+    (``linear_tb.walk_ragged``: one
     ``walk_block`` launch) from each pair's (m, n) at the argmin level of
     its final3 — the counterpart of the JAX package's chunk-wide device
     walk (``_lanes_walk_fills``, ``_mega_walk_flush``, bounded by
@@ -336,7 +338,7 @@ def align_pairs(
         segment_bytes = 0
 
     for (M, N), indices in buckets.items():
-        per_pair = (M + 1) * (N + 1)
+        per_pair = fill_cuda.ragged_bytes(M, N)  # a padded pair's codes
         if with_traceback and per_pair > budget:
             # A single pair's move matrix exceeds the budget: the
             # checkpointed linear-space traceback, pair by pair.
@@ -382,7 +384,7 @@ def align_pairs(
         # codes would pass the budget (no pair alone passes it: per_pair).
         group = []
         for idx in indices:
-            size = (len(pairs[idx][0]) + 1) * (len(pairs[idx][1]) + 1)
+            size = fill_cuda.ragged_bytes(len(pairs[idx][0]), len(pairs[idx][1]))
             if segment_bytes + size > budget:
                 if group:
                     segment.append(encode(group, M, N))

@@ -21,8 +21,9 @@
 //   * fill_pallas.py:_make_strip_kernel (:1811) — strip_fill_block (:1956),
 //     one column strip's block of rows in the sequence-parallel fill
 //     (parallel/seqpar.py), as the strip mode below;
-//   * the moves fills of every traceback bucket of an align_pairs call,
-//     which the JAX package queues for one device walk over the call
+//   * the moves fills of an align_pairs call's traceback pairs past 1024
+//     columns (csrc/gotoh_batch_moves.cu fills the others), which the JAX
+//     package queues for one device walk over the call
 //     (globalign_tpu/batch.py:_lanes_walk_fills, _mega_walk_flush), as the
 //     ragged moves mode below.
 // The TPU needed several kernels because Mosaic has no per-lane gather and

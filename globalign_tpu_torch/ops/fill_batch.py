@@ -31,6 +31,10 @@ Routes, by the tensors' device and the call's shape only:
 No probe and no fallback: a CUDA tensor the chosen kernel cannot take
 raises.  ``batch_final3.launches`` counts ``gotoh_batch`` launches; the
 ``gotoh_fill`` route counts on its own wrappers.
+
+``batch_moves_warp`` launches the moves sibling, ``csrc/gotoh_batch_moves.cu``
+(a warp a pair with its move codes), for ``fill_cuda.batch_moves_ragged``,
+which routes a traceback call's pairs by the same :func:`plan`.
 """
 
 from __future__ import annotations
@@ -230,6 +234,35 @@ def _gotoh_batch(desc: np.ndarray, cost_mat: torch.Tensor, gap_id: int,
                 )
 
 
+def batch_moves_warp(desc: torch.Tensor, lo: int, count: int, width: int,
+                     cost_mat: torch.Tensor, gap_id: int, gap_open: int,
+                     final3: torch.Tensor, codes: torch.Tensor) -> None:
+    """Launch ``gotoh_batch_moves`` over the ``count`` pairs of ``desc``
+    ((P, 8) int64 ragged descriptors on the card, ``fill_cuda.RaggedMoves``'
+    layout) from row ``lo``, all of width class ``width``: final3 into the
+    rows and codes at the offsets (multiples of ``fill_cuda.ALIGN``, row
+    strides ``fill_cuda.ragged_stride``) that the descriptors name.  One
+    launch, counted on ``batch_moves_warp.launches``; a refused or failed
+    launch raises.  ``fill_cuda.batch_moves_ragged`` is the wrapper that
+    checks the descriptors and runs the plain version for CPU tensors."""
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    device = final3.device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        batch_moves_warp.launches += 1
+        err = lib.gotoh_batch_moves_launch(
+            desc.data_ptr() + lo * DESC_WORDS * 8, count, cost_mat.data_ptr(),
+            cost_mat.shape[0], int(gap_id), int(gap_open), final3.data_ptr(),
+            codes.data_ptr(), int(width), WARPS, stream,
+        )
+    if err != 0:
+        msg = lib.gotoh_batch_moves_error_string(err).decode()
+        raise RuntimeError(f"gotoh_batch_moves launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
 def batch_final3(
     tok_a: torch.Tensor,
     tok_b: torch.Tensor,
@@ -314,3 +347,4 @@ def batch_final3_dual(
 
 
 batch_final3.launches = 0
+batch_moves_warp.launches = 0

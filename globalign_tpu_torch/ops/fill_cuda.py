@@ -18,12 +18,15 @@ the head of that file, and :func:`plan` for the launch):
     (TPU kernel ``_make_strip_kernel``), the block fill of the
     sequence-parallel pipeline (``parallel.seqpar``);
   * ``batch_moves_ragged`` — final3 and move codes of the pairs of several
-    buckets, each pair's codes packed tight into one buffer through a
-    per-pair descriptor (:func:`ragged_offsets`), one launch a launch class
-    (:func:`ragged_classes`): the moves fills of a traceback ``align_pairs``
-    call, which the JAX package walks in one device program
-    (``globalign_tpu/batch.py:_lanes_walk_fills``, ``_mega_walk_flush``);
-    ``ops.linear_tb.walk_ragged`` walks them.
+    buckets, each pair's codes packed into one buffer in 16-byte-aligned
+    rows through a per-pair descriptor (:func:`ragged_offsets`): the moves
+    fills of a traceback ``align_pairs`` call, which the JAX package walks
+    in one device program (``globalign_tpu/batch.py:_lanes_walk_fills``,
+    ``_mega_walk_flush``); ``ops.linear_tb.walk_ragged`` walks them.  Its
+    pairs of at most 1024 columns go to a second kernel,
+    ``csrc/gotoh_batch_moves.cu`` (a warp a pair, one launch a width
+    class, ``fill_batch.batch_moves_warp``), the rest to ``gotoh_fill``'s
+    ragged mode, one launch a launch class (:func:`ragged_routes`).
 
 On CUDA tensors each launches the kernel; on CPU tensors each runs the
 plain version, the row scan of ``ops.fill_rows``, pair by pair.  There is
@@ -58,6 +61,7 @@ MOVES_WIDTHS = (4, 8, 16)  # with codes: 32 staged rows of 32 W bytes a warp
 MAX_WARPS = 8  # warps a block (the kernel's __launch_bounds__)
 MAX_BANDS = 8  # blocks a pair: the portable cluster size
 DESC_WORDS = 8  # int64 words of a ragged pair descriptor (csrc/gotoh_fill.cu)
+ALIGN = 16  # bytes: a ragged fill's code offsets and row strides
 
 
 class FillPlan(NamedTuple):
@@ -439,10 +443,11 @@ class RaggedMoves(NamedTuple):
     """What :func:`batch_moves_ragged` gives, for ``linear_tb.walk_ragged``.
 
     ``final3`` (P, 3) int32: pair k of the call at row k.  ``codes``
-    (nbytes,) uint8: pair k's codes, (m_k + 1) rows of n_k + 1 bytes at
-    byte ``layout[i, 4]`` for the descriptor i whose final3 row
-    ``layout[i, 6]`` is k, row-major, real cells as in
-    :func:`batch_moves` and every other byte of those rows 0.  ``desc``
+    (nbytes,) uint8: pair k's codes, (m_k + 1) rows of
+    ``ragged_stride(n_k)`` bytes at byte ``layout[i, 4]`` (a multiple of
+    ``ALIGN``) for the descriptor i whose final3 row ``layout[i, 6]`` is k,
+    row-major, real cells as in :func:`batch_moves` and every other byte of
+    those rows 0.  ``desc``
     (P, DESC_WORDS) int64 on the codes' device and ``layout``, the same
     descriptors on the host, in launch order: seq_1 and seq_2 token
     addresses, m, n, the codes' byte offset, their row stride, the final3
@@ -454,12 +459,28 @@ class RaggedMoves(NamedTuple):
     layout: np.ndarray
 
 
+def ragged_stride(n_true):
+    """The row stride of a ragged fill's codes (an int, or an int64 array
+    of them): n + 1 bytes rounded up to ``ALIGN``, so that every row of a
+    pair placed at a multiple of ``ALIGN`` starts aligned and
+    ``gotoh_batch_moves`` stores it in aligned units."""
+    return (n_true + ALIGN) // ALIGN * ALIGN
+
+
+def ragged_bytes(m_true, n_true):
+    """Bytes of a pair's codes in a ragged fill (ints, or int64 arrays):
+    (m + 1) rows of :func:`ragged_stride` bytes — the size ``align_pairs``
+    budgets its traceback segments by."""
+    return (m_true + 1) * ragged_stride(n_true)
+
+
 def ragged_offsets(m_true, n_true) -> np.ndarray:
-    """(P + 1,) int64: the byte offsets of P pairs' codes packed tight, pair
-    k's (m_k + 1)(n_k + 1) bytes from entry k, and the total last.  In
-    int64 end to end: the JAX package's mega-walk blob offsets are int32 and
-    wrap past 2^31 bytes (globalign_tpu/batch.py:944-948)."""
-    sizes = (np.asarray(m_true, np.int64) + 1) * (np.asarray(n_true, np.int64) + 1)
+    """(P + 1,) int64: the byte offsets of P pairs' codes packed in order,
+    pair k's :func:`ragged_bytes` from entry k (each a multiple of
+    ``ALIGN``), and the total last.  In int64 end to end: the JAX package's
+    mega-walk blob offsets are int32 and wrap past 2^31 bytes
+    (globalign_tpu/batch.py:944-948)."""
+    sizes = ragged_bytes(np.asarray(m_true, np.int64), np.asarray(n_true, np.int64))
     return np.concatenate([np.zeros(1, np.int64), np.cumsum(sizes, dtype=np.int64)])
 
 
@@ -492,6 +513,37 @@ def ragged_classes(m_true, n_true, sms: int) -> list[tuple[FillPlan, np.ndarray]
     return out
 
 
+def ragged_routes(m_true, n_true, alphabet: int, sms: int):
+    """The launches of a ragged moves fill with an (A, A) table on a card of
+    ``sms`` SMs: ``(warp, fill)``.
+
+    ``warp`` lists ``(W, pair indices)``, one ``gotoh_batch_moves`` launch a
+    width class (W ascending), for the pairs that ``fill_batch.plan``
+    accepts by their own n: at most 1024 columns, an alphabet of at most
+    256 and a table that fits in shared memory.  ``fill`` lists the other
+    pairs as :func:`ragged_classes` does, a ``gotoh_fill`` ragged launch a
+    class.  Indices run longest (m * n) first within a launch.  The batch
+    size plays no part, as for the cost fills (``fill_batch.plan``): on an
+    H100 ``gotoh_batch_moves`` is 4x faster at 1024 pairs of 1024^2 and at
+    every B of 256^2, and ~10% slower at 1 to 33 pairs of 1024^2, where a
+    lone warp a pair runs and the call's device time is ~1 ms
+    (``chip_smoke.py`` Phase 3's moves crossover; PERF.md section 6)."""
+    from . import fill_batch
+
+    m = np.asarray(m_true, np.int64)
+    n = np.asarray(n_true, np.int64)
+    widths = np.array([fill_batch.plan(cols, alphabet) or 0 for cols in n.tolist()],
+                      np.int64)
+    warp = []
+    for width in fill_batch.WIDTHS:
+        idx = np.flatnonzero(widths == width)
+        if idx.size:
+            warp.append((width, idx[np.argsort(-(m[idx] * n[idx]), kind="stable")]))
+    rest = np.flatnonzero(widths == 0)
+    fill = [(lp, rest[idx]) for lp, idx in ragged_classes(m[rest], n[rest], sms)]
+    return warp, fill
+
+
 def batch_moves_ragged(
     tok_a,
     tok_b,
@@ -514,21 +566,24 @@ def batch_moves_ragged(
         gap_id / gap_open: the gap token and the gap-open cost.
         m_true / n_true: sequences of (B_k,) host-side true lengths.
         offsets / nbytes: where each pair's codes start in a buffer of
-            ``nbytes`` bytes, pairs in bucket order; by default packed tight
-            (:func:`ragged_offsets`).  Regions may not overlap.
+            ``nbytes`` bytes, pairs in bucket order, each a multiple of
+            ``ALIGN``; by default packed in order (:func:`ragged_offsets`).
+            Regions (:func:`ragged_bytes`) may not overlap.
 
     Pairs are numbered in bucket order, each bucket's in its order.  On
-    CUDA tensors one ``gotoh_fill`` launch a class of
-    :func:`ragged_classes`, over pair descriptors; on CPU tensors the
-    plain version, the row scan pair by pair into the same packed buffer
-    at the same offsets and strides.  ``batch_moves_ragged.launches``
-    counts kernel launches.
+    CUDA tensors the launches of :func:`ragged_routes` over pair
+    descriptors: one ``gotoh_batch_moves`` launch a width class
+    (``fill_batch.batch_moves_warp.launches`` counts them), then one
+    ``gotoh_fill`` ragged launch a launch class
+    (``batch_moves_ragged.launches`` counts them).  On CPU tensors the
+    plain version, the row scan pair by pair into the same buffer at the
+    same offsets and strides.
     """
     tok_a, tok_b = list(tok_a), list(tok_b)
     device, lengths = _check_buckets(tok_a, tok_b, cost_mat, gap_id, m_true, n_true)
     m = np.concatenate([mt.numpy() for mt, _ in lengths]).astype(np.int64)
     n = np.concatenate([nt.numpy() for _, nt in lengths]).astype(np.int64)
-    sizes = (m + 1) * (n + 1)
+    sizes = ragged_bytes(m, n)
     if offsets is None:
         packed = ragged_offsets(m, n)
         offsets, nbytes = packed[:-1], int(packed[-1])
@@ -540,10 +595,11 @@ def batch_moves_ragged(
         nbytes = int(ends.max()) if nbytes is None else int(nbytes)
         by_start = np.argsort(offsets, kind="stable")
         if (offsets < 0).any() or (ends > nbytes).any() or (
-            offsets[by_start][1:] < ends[by_start][:-1]
-        ).any():
+            offsets % ALIGN
+        ).any() or (offsets[by_start][1:] < ends[by_start][:-1]).any():
             raise ValueError("offsets must place each pair's codes inside "
-                             f"{nbytes} bytes, no two overlapping")
+                             f"{nbytes} bytes at multiples of {ALIGN}, no two "
+                             "overlapping")
     layout = np.zeros((len(m), DESC_WORDS), np.int64)
     for word, toks in ((0, tok_a), (1, tok_b)):  # each pair's row of tokens
         layout[:, word] = np.concatenate([
@@ -551,7 +607,7 @@ def batch_moves_ragged(
             for t in toks
         ])
     layout[:, 2], layout[:, 3] = m, n
-    layout[:, 4], layout[:, 5] = offsets, n + 1
+    layout[:, 4], layout[:, 5] = offsets, ragged_stride(n)
     layout[:, 6] = np.arange(len(m))
     if device.type == "cpu":
         final3 = torch.empty((len(m), 3), dtype=torch.int32)
@@ -568,16 +624,34 @@ def batch_moves_ragged(
         return RaggedMoves(final3, codes, torch.from_numpy(layout), layout)
     if device.type != "cuda":
         raise ValueError(f"no gotoh_fill route for device {device}")
+    return _launch_ragged(
+        *ragged_routes(m, n, cost_mat.shape[0], _sms(device.index)), layout,
+        cost_mat, gap_id, gap_open, nbytes,
+    )
 
+
+def _launch_ragged(warp, classes, layout, cost_mat, gap_id, gap_open,
+                   nbytes) -> RaggedMoves:
+    """The launches of a ragged moves fill on the card: ``warp`` and
+    ``classes`` as :func:`ragged_routes` gives them (every pair in one of
+    them), over ``layout``, the host descriptors in pair order, into a
+    buffer of ``nbytes`` bytes; descriptors in launch order come back."""
     from ..utils import cuda_build
+    from . import fill_batch
 
     lib = cuda_build.load()
-    classes = ragged_classes(m, n, _sms(device.index))
-    layout = np.ascontiguousarray(layout[np.concatenate([i for _, i in classes])])
+    device = cost_mat.device
+    m, n = layout[:, 2], layout[:, 3]
+    layout = np.ascontiguousarray(
+        layout[np.concatenate([i for _, i in warp + classes])])
     desc = torch.from_numpy(layout).pin_memory().to(device, non_blocking=True)
     final3 = torch.empty((len(m), 3), dtype=torch.int32, device=device)
     codes = torch.empty(nbytes, dtype=torch.uint8, device=device)
     lo = 0
+    for width, idx in warp:
+        fill_batch.batch_moves_warp(desc, lo, len(idx), width, cost_mat,
+                                    gap_id, gap_open, final3, codes)
+        lo += len(idx)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for lp, idx in classes:

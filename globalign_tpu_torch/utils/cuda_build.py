@@ -63,6 +63,17 @@ SIGNATURES = {
         ),
         "gotoh_batch_error_string": ([_I32], ctypes.c_char_p),
     },
+    "gotoh_batch_moves": {
+        "gotoh_batch_moves_launch": (
+            [_PTR, _I32, _PTR]  # desc B cost
+            + [_I32] * 3  # A gap go
+            + [_PTR] * 2  # final3 codes
+            + [_I32] * 2  # W warps
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "gotoh_batch_moves_error_string": ([_I32], ctypes.c_char_p),
+    },
     "walk_block": {
         "walk_block_launch": (
             # moves i_entry j_entry level_entry ops count j_exit level_exit

@@ -238,16 +238,17 @@ def test_batch_traceback_moves_budget_fallback(monkeypatch):
 
 def test_batch_traceback_subbatch_split(monkeypatch):
     """A bucket over the moves budget is split into segments (one ragged
-    fill and one ragged walk each), each closed where its codes, packed
-    tight, would pass the budget — not degraded to per-pair replay."""
+    fill and one ragged walk each), each closed where its codes, in the
+    ragged layout (``fill_cuda.ragged_bytes``), would pass the budget —
+    not degraded to per-pair replay."""
     rng = np.random.default_rng(7)
     pairs = _ragged_pairs(rng, "ACGT", 5, lo=20, hi=30)  # one 32 x 32 bucket
     want = jax_align_pairs(pairs, with_traceback=True)
-    budget = 2 * 33 * 33 + 5  # two padded pairs
+    budget = 2 * fill_cuda.ragged_bytes(32, 32) + 5  # two padded pairs
     monkeypatch.setattr(batch_mod, "DEFAULT_BATCH_MOVES_BUDGET", budget)
     segments, used = [0], 0
     for a, b in pairs:
-        size = (len(a) + 1) * (len(b) + 1)
+        size = fill_cuda.ragged_bytes(len(a), len(b))
         if used + size > budget:
             segments.append(0)
             used = 0

@@ -448,8 +448,8 @@ def test_batch_final3_routing_on_either_side_of_the_cap(cuda_device, batch):
 def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
                                              with_traceback):
     """Ragged pairs over several buckets: the card (cost-only, one
-    gotoh_batch launch a width class; traceback, one ragged gotoh_fill
-    launch a launch class and one ragged walk) == ``device="cpu"``, pair by
+    gotoh_batch launch a width class; traceback, one gotoh_batch_moves
+    launch a width class and one ragged walk) == ``device="cpu"``, pair by
     pair; flush=False too."""
     from globalign_tpu_torch import align_pairs
     from globalign_tpu_torch.batch import bucket_length
@@ -469,13 +469,13 @@ def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
     )
     counters = (fill_batch.batch_final3, fill_cuda.batch_moves,
                 linear_tb.walk_block, fill_cuda.batch_moves_ragged,
-                linear_tb.walk_ragged)
+                linear_tb.walk_ragged, fill_batch.batch_moves_warp)
     before = [fn.launches for fn in counters]
     got = align_pairs(pairs, with_traceback=with_traceback, **kw)
-    assert len(buckets) > 1
+    assert len(buckets) > 1 and launch_classes
     assert [fn.launches - k for fn, k in zip(counters, before)] == (
-        [0, 0, 0, len(launch_classes), 1] if with_traceback
-        else [len(classes), 0, 0, 0, 0]
+        [0, 0, 0, 0, 1, len(classes)] if with_traceback
+        else [len(classes), 0, 0, 0, 0, 0]
     )
     want = align_pairs(pairs, with_traceback=with_traceback, device="cpu", **kw)
     assert got == want
@@ -489,10 +489,14 @@ def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
 @pytest.mark.parametrize("placed", [False, True])
 def test_ragged_fill_and_walk_match_plain(cuda_device, letters, kw, placed):
     """The ragged moves fill and walk on the card against their plain
-    versions: buckets of several launch classes (a pair over a cluster of
-    8 bands in two passes, m_true / n_true 0 and 1), packed tight or placed
-    with gaps out of pair order; final3, every pair's codes, tapes, counts
-    and exit columns equal, one launch a class and one walk launch."""
+    versions: pairs on both routes (gotoh_batch_moves up to 1024 columns;
+    gotoh_fill's launch classes past it, a pair over a cluster of 8 bands
+    in two passes; m_true / n_true 0 and 1), packed in order or placed with
+    gaps out of pair order; final3, every pair's codes, tapes, counts and
+    exit columns equal, one launch a width class or launch class and one
+    walk launch."""
+    from globalign_tpu_torch.ops import fill_batch
+
     rng = np.random.default_rng(61 + placed)
     shapes = [[(40, 33_000), (3, 5000)], [(1, 1), (0, 7), (9, 0)],
               [(200, 300), (1, 290), (250, 1)], [(64, 2100)]]
@@ -502,30 +506,128 @@ def test_ragged_fill_and_walk_match_plain(cuda_device, letters, kw, placed):
             [b[5] for b in buckets], [b[6] for b in buckets])
     m = [x for b in buckets for x in b[5]]
     n = [x for b in buckets for x in b[6]]
-    size = (np.array(m) + 1) * (np.array(n) + 1)
+    size = fill_cuda.ragged_bytes(np.array(m), np.array(n))
     place = {}
-    if placed:
+    if placed:  # with gaps, out of pair order, at multiples of 16
         order = rng.permutation(len(m))
         offsets = np.zeros(len(m), np.int64)
-        offsets[order] = np.cumsum(np.concatenate([[3], size[order][:-1] + 11]))
+        offsets[order] = np.cumsum(np.concatenate([[16], size[order][:-1] + 48]))
         place = dict(offsets=offsets, nbytes=int((offsets + size).max()) + 9)
     want = fill_cuda.batch_moves_ragged(*args, **place)
-    classes = fill_cuda.ragged_classes(
-        m, n, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
-    before = (fill_cuda.batch_moves_ragged.launches, linear_tb.walk_ragged.launches)
+    warp, classes = fill_cuda.ragged_routes(
+        m, n, shared[0].shape[0],
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    counters = (fill_batch.batch_moves_warp, fill_cuda.batch_moves_ragged,
+                linear_tb.walk_ragged)
+    before = [fn.launches for fn in counters]
     got = fill_cuda.batch_moves_ragged(
         [t.to(cuda_device) for t in args[0]], [t.to(cuda_device) for t in args[1]],
         shared[0].to(cuda_device), *shared[1:], *args[5:], **place)
     got_walk = linear_tb.walk_ragged(got)
     torch.cuda.synchronize()
-    assert (fill_cuda.batch_moves_ragged.launches - before[0],
-            linear_tb.walk_ragged.launches - before[1]) == (len(classes), 1)
-    assert any(lp.bands > 1 and lp.passes > 1 for lp, _ in classes)
+    assert [fn.launches - k for fn, k in zip(counters, before)] == [
+        len(warp), len(classes), 1]
+    assert any(lp.bands > 1 and lp.passes > 1 for lp, _ in classes) and warp
     assert torch.equal(got.final3.cpu(), want.final3)
     codes, want_codes = got.codes.cpu(), want.codes
     for row in want.layout.tolist():
         lo, hi = row[4], row[4] + (row[2] + 1) * row[5]
         assert torch.equal(codes[lo:hi], want_codes[lo:hi])
+    for g, w in zip(got_walk, linear_tb.walk_ragged(want)):
+        assert torch.equal(g.cpu(), w)
+
+
+UNICODE_MTX = (  # a matrix over three non-ASCII letters and A
+    "Ω Ж 字 A -\n"
+    "Ω 4 -2 -3 -1 -3\n"
+    "Ж -2 5 -1 -3 -3\n"
+    "字 -3 -1 4 -2 -3\n"
+    "A -1 -3 -2 5 -3\n"
+    "- -3 -3 -3 -3 4\n"
+)
+WARP_SHAPES = [  # every width class and its edges, m or n of 0 and 1
+    (37, 1), (1, 31), (40, 32), (33, 33), (0, 5), (5, 0), (0, 0), (1, 1),
+    (90, 127), (2, 128), (129, 129), (60, 255), (256, 256), (17, 257),
+    (11, 511), (300, 512), (9, 513), (45, 1023), (700, 1024), (1, 1024),
+    (1024, 1),
+]
+
+
+@pytest.mark.parametrize("alphabet", ["dna", "blosum62", "unicode"])
+def test_batch_moves_warp_matches_plain(cuda_device, tmp_path, alphabet):
+    """gotoh_batch_moves (the ragged moves fill up to 1024 columns) against
+    the plain row scan at tolerance 0 over every width class and its edges,
+    m or n of 0 and 1, in three alphabets: final3 and every byte of each
+    pair's rows (column 0, the bytes past n, row 0); one launch a width
+    class and no gotoh_fill launch; the walk over its codes equal to the
+    plain walk."""
+    from globalign_tpu_torch.ops import fill_batch
+
+    if alphabet == "unicode":
+        mtx = tmp_path / "unicode.mtx"
+        mtx.write_text(UNICODE_MTX, encoding="utf-8")
+        letters, kw = "ΩЖ字A", dict(scoring_mat_path=mtx)
+    else:
+        letters, kw = {"dna": ("ACGT", {}), "blosum62": (
+            "ARNDCQEGHILKMFPSTWYV", dict(scoring_mat_name="BLOSUM62"))}[alphabet]
+    rng = np.random.default_rng(70 + len(alphabet))
+    order = rng.permutation(len(WARP_SHAPES))
+    buckets = [_case(rng, letters, [WARP_SHAPES[k] for k in order[lo : lo + 7]],
+                     **kw) for lo in (0, 7, 14)]
+    shared = buckets[0][2:5]
+    args = ([b[0] for b in buckets], [b[1] for b in buckets], *shared,
+            [b[5] for b in buckets], [b[6] for b in buckets])
+    n = [x for b in buckets for x in b[6]]
+    want = fill_cuda.batch_moves_ragged(*args)
+    counters = (fill_batch.batch_moves_warp, fill_cuda.batch_moves_ragged)
+    before = [fn.launches for fn in counters]
+    got = fill_cuda.batch_moves_ragged(
+        [t.to(cuda_device) for t in args[0]], [t.to(cuda_device) for t in args[1]],
+        shared[0].to(cuda_device), *shared[1:], *args[5:])
+    got_walk = linear_tb.walk_ragged(got)
+    torch.cuda.synchronize()
+    widths = {fill_batch.width_class(x) for x in n}
+    assert [fn.launches - k for fn, k in zip(counters, before)] == [len(widths), 0]
+    assert torch.equal(got.final3.cpu(), want.final3)
+    codes = got.codes.cpu()
+    for row in want.layout.tolist():
+        lo, hi = row[4], row[4] + (row[2] + 1) * row[5]
+        assert torch.equal(codes[lo:hi], want.codes[lo:hi]), row[2:4]
+    for g, w in zip(got_walk, linear_tb.walk_ragged(want)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_batch_moves_ragged_mixes_both_routes(cuda_device):
+    """One call with pairs on both sides of 1024 columns: a gotoh_batch_moves
+    launch a width class and a gotoh_fill ragged launch a launch class into
+    one buffer, equal to the plain version byte for byte, walked by one
+    walk_ragged launch."""
+    from globalign_tpu_torch.ops import fill_batch
+
+    rng = np.random.default_rng(83)
+    buckets = [_case(rng, "ACGT", sh) for sh in (
+        [(30, 1025), (5, 100)], [(40, 2000), (20, 900), (64, 1024)])]
+    shared = buckets[0][2:5]
+    args = ([b[0] for b in buckets], [b[1] for b in buckets], *shared,
+            [b[5] for b in buckets], [b[6] for b in buckets])
+    m = [x for b in buckets for x in b[5]]
+    n = [x for b in buckets for x in b[6]]
+    warp, classes = fill_cuda.ragged_routes(
+        m, n, 5, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert [w for w, _ in warp] == [4, 32] and classes
+    want = fill_cuda.batch_moves_ragged(*args)
+    counters = (fill_batch.batch_moves_warp, fill_cuda.batch_moves_ragged,
+                linear_tb.walk_ragged)
+    before = [fn.launches for fn in counters]
+    got = fill_cuda.batch_moves_ragged(
+        [t.to(cuda_device) for t in args[0]], [t.to(cuda_device) for t in args[1]],
+        shared[0].to(cuda_device), *shared[1:], *args[5:])
+    got_walk = linear_tb.walk_ragged(got)
+    torch.cuda.synchronize()
+    assert [fn.launches - k for fn, k in zip(counters, before)] == [
+        len(warp), len(classes), 1]
+    assert torch.equal(got.final3.cpu(), want.final3)
+    assert torch.equal(got.codes.cpu(), want.codes)
     for g, w in zip(got_walk, linear_tb.walk_ragged(want)):
         assert torch.equal(g.cpu(), w)
 

@@ -83,32 +83,37 @@ def _ragged(buckets, shared, **kw):
 @pytest.mark.parametrize("name", sorted(SCHEMES))
 def test_ragged_fill_matches_per_bucket_fills(name):
     """Final lanes identical and each pair's codes — row 0 and column 0
-    zero, every real cell — equal to the per-bucket fill's, at the tight
-    packing's offsets and strides."""
+    zero, every real cell — equal to the per-bucket fill's, at the packing's
+    offsets and strides: rows of n + 1 bytes rounded up to 16, the bytes
+    past column n zero."""
     buckets, shared = _ragged_set(name, len(name))
     filled = _ragged(buckets, shared)
-    sizes = [(m + 1) * (n + 1) for _, _, mt, nt in buckets for m, n in zip(mt, nt)]
+    sizes = [(m + 1) * ((n + 16) // 16 * 16)
+             for _, _, mt, nt in buckets for m, n in zip(mt, nt)]
     assert filled.codes.shape == (sum(sizes),)
     k = 0
     for ta, tb, mt, nt in buckets:
         want3, want_mv = fill_cuda.batch_moves(ta, tb, *shared, mt, nt)
         for b, (m, n) in enumerate(zip(mt, nt)):
             row = filled.layout[filled.layout[:, 6] == k][0]
-            assert row[2:7].tolist() == [m, n, sum(sizes[:k]), n + 1, k]
-            codes = filled.codes[row[4] : row[4] + sizes[k]].view(m + 1, n + 1)
+            ld = (n + 16) // 16 * 16
+            assert row[2:7].tolist() == [m, n, sum(sizes[:k]), ld, k]
+            codes = filled.codes[row[4] : row[4] + sizes[k]].view(m + 1, ld)
             assert torch.equal(filled.final3[k], want3[b])
-            assert torch.equal(codes, want_mv[b, : m + 1, : n + 1])
+            assert torch.equal(codes[:, : n + 1], want_mv[b, : m + 1, : n + 1])
+            assert not codes[:, n + 1 :].any()
             k += 1
 
 
 def test_ragged_fill_at_given_offsets_matches_the_packed_fill():
     """Codes placed with gaps and out of pair order give each pair the same
-    region as the tight packing; overlapping or outside regions raise."""
+    region as the packing in order; overlapping, outside or unaligned
+    regions (offsets not a multiple of 16) raise."""
     buckets, shared = _ragged_set("dna", 3)
     packed = _ragged(buckets, shared)
     m, n = packed.layout[:, 2], packed.layout[:, 3]
-    sizes = (m + 1) * (n + 1)
-    offsets = np.cumsum(np.concatenate([[7], sizes[::-1][:-1] + 13]))[::-1]
+    sizes = fill_cuda.ragged_bytes(m, n)
+    offsets = np.cumsum(np.concatenate([[16], sizes[::-1][:-1] + 48]))[::-1]
     placed = _ragged(buckets, shared, offsets=offsets, nbytes=int(offsets[0] + sizes[0] + 5))
     assert torch.equal(placed.final3, packed.final3)
     assert placed.layout[:, 4].tolist() == offsets.tolist()
@@ -116,9 +121,9 @@ def test_ragged_fill_at_given_offsets_matches_the_packed_fill():
         assert torch.equal(placed.codes[a[4] : a[4] + size],
                            packed.codes[b[4] : b[4] + size])
     overlap = offsets.copy()
-    overlap[1] = overlap[0] + 1
+    overlap[1] = overlap[0] + 16
     for bad in (dict(offsets=overlap), dict(offsets=offsets, nbytes=int(offsets[0])),
-                dict(offsets=offsets[1:])):
+                dict(offsets=offsets[1:]), dict(offsets=offsets + 8)):
         with pytest.raises(ValueError, match="offsets"):
             _ragged(buckets, shared, **bad)
 
@@ -158,17 +163,28 @@ def test_ragged_walk_refuses_a_descriptor_outside_the_fill():
 
 
 def test_ragged_offsets_are_int64_past_2_31():
-    """The tight packing's offsets in int64: 600 pairs of 1900 x 1900 are
-    2.17 GB of codes, past 2^31 bytes, where int32 offsets (the JAX
-    mega-walk's, ROADMAP C1) wrap."""
+    """The packing's offsets in int64: 600 pairs of 1900 x 1900 are 2.17 GB
+    of codes, past 2^31 bytes, where int32 offsets (the JAX mega-walk's,
+    ROADMAP C1) wrap.  Rows are n + 1 bytes rounded up to 16 (1904 here)
+    and every offset is a multiple of 16, past 2^31 too; on the CPU route
+    the bytes past column n and in column 0 are zero."""
     m = np.full(600, 1900)
     offsets = fill_cuda.ragged_offsets(m.tolist(), m.astype(np.int32))
     assert offsets.dtype == np.int64
-    assert offsets[-1] == 600 * 1901 ** 2 > 2 ** 31
-    assert (np.diff(offsets) == 1901 ** 2).all()
+    assert fill_cuda.ragged_stride(1900) == 1904
+    assert (fill_cuda.ragged_stride(np.arange(64)) == np.repeat([16, 32, 48, 64], 16)).all()
+    assert offsets[-1] == 600 * 1901 * 1904 > 2 ** 31
+    assert (np.diff(offsets) == 1901 * 1904).all() and not (offsets % 16).any()
     past = int(np.argmax(offsets > 2 ** 31))
-    assert offsets[past] == past * 1901 ** 2
+    assert offsets[past] == past * 1901 * 1904
     assert offsets.astype(np.int32)[past] < 0  # what int32 would have held
+    buckets, shared = _ragged_set("dna", 6)
+    filled = _ragged(buckets, shared)
+    for _, _, mk, nk, off, ld, _, _ in filled.layout.tolist():
+        assert off % 16 == 0 and ld == fill_cuda.ragged_stride(nk)
+        rows = filled.codes[off : off + (mk + 1) * ld].view(mk + 1, ld)
+        assert not rows[:, 0].any() and not rows[:, nk + 1 :].any()
+        assert not rows[0].any()
 
 
 def test_ragged_classes():
@@ -194,9 +210,38 @@ def test_ragged_classes():
     assert wide.passes > 1 and wide.bands > 1
 
 
+def test_ragged_routes():
+    """A traceback call's pairs by kernel: those of at most 1024 columns
+    (n = 0 included) to ``gotoh_batch_moves``, one launch a width class (W
+    = 4 / 8 / 16 / 32, the narrowest with 32 W >= n), longest first; wider
+    pairs, and every pair once the alphabet passes 256 or its table shared
+    memory, to ``gotoh_fill``'s ragged classes.  The 1024-pair serving
+    chunk is one W = 32 launch and no ``gotoh_fill`` launch."""
+    m = [3, 50, 7, 9, 400, 2, 1, 0, 700, 5, 12]
+    n = [90, 40_000, 5000, 130, 129, 1, 0, 5, 1024, 1025, 600]
+    warp, rest = fill_cuda.ragged_routes(m, n, 20, 132)
+    assert [(w, idx.tolist()) for w, idx in warp] == [
+        (4, [0, 5, 6, 7]), (8, [4, 3]), (32, [8, 10])]
+    assert sorted(k for _, idx in rest for k in idx.tolist()) == [1, 2, 9]
+    sub = [1, 2, 9]  # the same classes as ragged_classes of those pairs alone
+    want = fill_cuda.ragged_classes([m[k] for k in sub], [n[k] for k in sub], 132)
+    assert [(lp, idx.tolist()) for lp, idx in rest] == [
+        (lp, [sub[k] for k in idx.tolist()]) for lp, idx in want]
+    for alphabet in (250, 300):  # past shared memory (4 A^2 bytes), past 256
+        warp, rest = fill_cuda.ragged_routes(m, n, alphabet, 132)
+        assert not warp
+        assert sorted(k for _, idx in rest for k in idx.tolist()) == list(range(11))
+    rng = np.random.default_rng(5)
+    m, n = rng.integers(819, 1025, (2, 1024))
+    (width, idx), = fill_cuda.ragged_routes(m, n, 5, 132)[0]
+    assert width == 32 and not fill_cuda.ragged_routes(m, n, 5, 132)[1]
+    assert sorted(idx.tolist()) == list(range(1024))
+    assert (np.diff(m[idx] * n[idx]) <= 0).all()
+
+
 def _call_pairs(letters, seed):
     """A call of many buckets (lengths 1-90, quantum 32) and one pair of
-    100-128 that passes a budget of 97^2 bytes."""
+    100-128 whose bucket's codes pass those of a 96 x 96 pair."""
     rng = np.random.default_rng(seed)
     pairs = [
         tuple("".join(rng.choice(list(letters), int(rng.integers(1, 91))))
@@ -207,13 +252,19 @@ def _call_pairs(letters, seed):
     return pairs
 
 
-@pytest.mark.parametrize("name", ["dna", "blosum62", "unicode"])
+@pytest.mark.parametrize("name", ["dna", "blosum62", "unicode", "dna_wide"])
 def test_align_pairs_in_segments_matches_jax(monkeypatch, tmp_path, name):
-    """Under a budget lowered to 97^2 bytes the call's traceback buckets
-    run in three or more segments (one ragged fill and one ragged walk
-    each) and the 120 x 105 pair, past it, takes the blocked route:
-    strings, cost and score equal the JAX package's (native layer off for
-    the non-ASCII matrix, whose UTF-8 it misreads: ROADMAP C5)."""
+    """Under a budget lowered to the codes of a 96 x 96 pair the call's
+    traceback buckets run in three or more segments (one ragged fill and
+    one ragged walk each) and the 120 x 105 pair, past it, takes the
+    blocked route: strings, cost and score equal the JAX package's (native
+    layer off for the non-ASCII matrix, whose UTF-8 it misreads: ROADMAP
+    C5).  ``dna_wide`` adds pairs of 1030 and 1024 columns, on both sides
+    of ``gotoh_batch_moves``' cap, under a budget of the wide bucket's pair
+    (nothing blocked): a segment then routes pairs to both kernels."""
+    wide = name == "dna_wide"
+    if wide:
+        name = "dna"
     if name == "unicode":
         from globalign_tpu.utils import native
 
@@ -224,8 +275,15 @@ def test_align_pairs_in_segments_matches_jax(monkeypatch, tmp_path, name):
     else:
         letters, kw = SCHEMES[name]
     pairs = _call_pairs(letters, len(name))
+    budget = fill_cuda.ragged_bytes(96, 96)  # the largest bucket's pair
+    if wide:
+        rng = np.random.default_rng(1030)
+        for k, (m, n) in ((3, (20, 1030)), (9, (25, 1024))):
+            pairs.insert(k, tuple("".join(rng.choice(list(letters), x))
+                                  for x in (m, n)))
+        budget = fill_cuda.ragged_bytes(32, bucket_length(1030))
     want = jax_align_pairs(pairs, with_traceback=True, **kw)
-    monkeypatch.setattr(batch_mod, "DEFAULT_BATCH_MOVES_BUDGET", 97 * 97)
+    monkeypatch.setattr(batch_mod, "DEFAULT_BATCH_MOVES_BUDGET", budget)
     fills = []
     real = fill_cuda.batch_moves_ragged
 
@@ -238,7 +296,11 @@ def test_align_pairs_in_segments_matches_jax(monkeypatch, tmp_path, name):
     assert _fields(got) == _fields(want)
     buckets = {(bucket_length(len(a)), bucket_length(len(b))) for a, b in pairs}
     filled = sum(t.shape[0] for f in fills for t in f[0])
-    assert len(fills) >= 3 and len(buckets) > len(fills) and filled == len(pairs) - 1
+    assert len(fills) >= 3 and len(buckets) > len(fills)
+    assert filled == len(pairs) - (not wide)
+    routes = [fill_cuda.ragged_routes(np.concatenate(f[5]), np.concatenate(f[6]),
+                                      f[2].shape[0], 132) for f in fills]
+    assert any(warp and rest for warp, rest in routes) == wide
     for f in fills:  # each segment's codes fit the budget
-        assert sum((m + 1) * (n + 1) for mt, nt in zip(f[5], f[6])
-                   for m, n in zip(mt, nt)) <= 97 * 97
+        assert sum(fill_cuda.ragged_bytes(m, n) for mt, nt in zip(f[5], f[6])
+                   for m, n in zip(mt, nt)) <= budget
