@@ -12,12 +12,19 @@ phase fails:
      parallel) and print the build time, and ``ptxas -v`` of
      ``gotoh_batch`` (beside its earlier registers), ``gotoh_batch_moves``
      (a spill fails the phase), ``wave_split``, every ``gotoh_fill``
-     instance and both ``walk_block`` kernels (registers, spills,
-     occupancy);
+     instance, both ``walk_block`` kernels and every ``gotoh_tile``
+     instance (a spill fails the phase) (registers, spills, occupancy);
   1. kernel vs plain, on the card against the plain versions on the CPU,
      same seeded inputs, tolerance 0 (all integers): ``batch_moves``
-     (final3 and every move code); ``batch_moves`` and ``batch_last_rows``
-     seeded from a real checkpoint row (``row0`` / ``col0y_top``);
+     (final3 and every move code) on ``gotoh_fill`` (``fill_tile.route``
+     set aside) and on ``gotoh_tile``; ``batch_moves`` and
+     ``batch_last_rows`` seeded from a real checkpoint row (``row0`` /
+     ``col0y_top``), on both kernels, with replay blocks of 3355 rows;
+     ``gotoh_tile`` at every (H, W) at its tile edges (k H +- 1 rows,
+     k 32 W +- 1 columns, m or n of 0 and 1, B = 1 and 2), plain and
+     injected, codes and cost only, last rows and lists of rows, under
+     DNA, BLOSUM62 and the 60-letter alphabet, and the 20 000^2 blocked
+     align's checkpoint rows from one launch;
      ``batch_last_rows`` with the default boundary; the same at the launch
      shapes of ``fill_cuda.plan`` (1, 2 and 8 bands a pair, band and pass
      widths +-1, fewer than 32 columns, m_true 0 / 1, ragged batches whose
@@ -56,10 +63,13 @@ phase fails:
      reference goldens and pairs up to the moves budget (one fill and one
      walk each, equal to ``device="cpu"``; the 8000^2 DNA and 1500^2
      BLOSUM62 alignments also equal to the host walk, ``traceback_moves``,
-     over their fetched codes); 10 000² and 20 000² DNA and 9000² BLOSUM62
-     pairs past the budget (blocked: one checkpoint fill, one replay fill
-     and one walk per block), each equal — strings, cost, score, report
-     bytes — to the full-matrix route with the budget raised; a 3000 x 2500
+     over their fetched codes, and to the same align on ``gotoh_fill``);
+     every non-strip fill counted on ``gotoh_tile`` where
+     ``fill_tile.route`` sends it, on its ``gotoh_fill`` wrapper else;
+     10 000² and 20 000² DNA and 9000² BLOSUM62
+     pairs past the budget (blocked: one checkpoint launch for the pass,
+     one replay fill and one walk per block), each equal — strings, cost,
+     score, report bytes — to the full-matrix route with the budget raised; a 3000 x 2500
      pair forced into >= 4 blocks, equal to ``device="cpu"``; ``cost`` (the
      split from ``SPLIT_MIN_ROWS`` rows, else the direct fill; one launch)
      on every pair, equal to the direct fill and to the alignment's cost;
@@ -96,14 +106,22 @@ phase fails:
      (report bytes = the CLI with ``--device cpu``) and ``dp_compat``'s
      interpreted 200^2 fill (= the card's cost); every ``gotoh_fill`` launch of these
      paths tallied by mode and (B, M, N) (the census);
-  3. times with CUDA events: the fill kernel beside the plain row scan on
-     the card; end-to-end ``align`` split into fill, walk kernel and fetch +
-     render, beside the route it replaced (the codes to the host and the
-     host walk); blocked
+  3. times with CUDA events: ``gotoh_tile`` beside ``gotoh_fill`` in turns
+     and the plain row scan on the card (4096², 8000²); end-to-end
+     ``align`` split into fill, walk kernel and fetch + render, beside the
+     same align on ``gotoh_fill`` and the route the walk kernel replaced
+     (the codes to the host and the host walk); blocked
      ``align`` at 10 000² and 20 000² split into checkpoint pass, replay
-     fills, walks, fetch and host assembly, beside the full-matrix route;
-     split ``cost`` beside the direct cost-only fill, from a golden-sized
-     pair up; the walk kernel beside the plain walk; ``align_pairs`` at
+     fills, walks, fetch and host assembly, beside the full-matrix route,
+     the checkpoint pass as one ``gotoh_tile`` launch beside a
+     ``gotoh_fill`` launch a block (in turns), a replay block on
+     ``gotoh_fill`` and on every (H, W);
+     split ``cost`` on both kernels beside the direct cost-only fill, from
+     a golden-sized pair up; ``gotoh_tile``'s tile time at every (H, W)
+     (a pair one tile column wide) and its crossover sweep against
+     ``gotoh_fill`` (B in {1, 2, 8} x 256² .. 8000², 3355 x 20 000 and
+     20 000 x 512, codes and cost only), each beside the critical-path
+     model (tiles on the path x the tile time); the walk kernel beside the plain walk; ``align_pairs`` at
      64 x 1024², 64 x 4096² and the two chunks, both modes, split into
      device fill and walk and host enqueue, fetch and render; each traceback
      chunk's one ragged fill and one ragged walk in device time beside
@@ -147,6 +165,7 @@ into ``build/``) or an edited copy.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import io
 import json
@@ -240,10 +259,11 @@ def device_ms(fn, reps: int) -> float:
 
 def fill_census(fill_cuda):
     """Tally every gotoh_fill launch on the card by (mode, B, M, N): wraps
-    ``fill_cuda._fill``, which each of its three wrappers calls once a
-    launch.  Returns the tally, a Counter the caller may clear."""
+    ``fill_cuda._launch``, which each of its three wrappers calls once a
+    gotoh_fill launch (fills that ``fill_tile.route`` sends to gotoh_tile
+    do not reach it).  Returns the tally, a Counter the caller may clear."""
     tally = collections.Counter()
-    real = fill_cuda._fill
+    real = fill_cuda._launch
 
     def counted(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
                 row0, col0y_top, want_moves, want_last, counter, col0=None):
@@ -257,8 +277,21 @@ def fill_census(fill_cuda):
         return real(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
                     row0, col0y_top, want_moves, want_last, counter, col0=col0)
 
-    fill_cuda._fill = counted
+    fill_cuda._launch = counted
     return tally
+
+
+@contextlib.contextmanager
+def gotoh_fill_only(fill_tile):
+    """Within: every non-strip fill goes to gotoh_fill (``fill_tile.route``
+    says no), to hold and time gotoh_fill where the route would take
+    gotoh_tile."""
+    real = fill_tile.route
+    fill_tile.route = lambda *args: False
+    try:
+        yield
+    finally:
+        fill_tile.route = real
 
 
 def _rank_main(rank, world, store, jobs, queue, backend):
@@ -276,7 +309,7 @@ def _rank_main(rank, world, store, jobs, queue, backend):
 
         from globalign_tpu_torch import align_pairs, resolve_scheme
         from globalign_tpu_torch.models.gotoh import GotohAligner
-        from globalign_tpu_torch.ops import fill_cuda, linear_tb
+        from globalign_tpu_torch.ops import fill_cuda, fill_tile, linear_tb
         from globalign_tpu_torch.parallel import comm, make_pair_mesh, multihost
         from globalign_tpu_torch.parallel import seqpar
 
@@ -294,7 +327,8 @@ def _rank_main(rank, world, store, jobs, queue, backend):
         comm.shift = timed_shift
         census = fill_census(fill_cuda)
         wrappers = (fill_cuda.strip_fill_block, fill_cuda.batch_moves,
-                    fill_cuda.batch_last_rows, linear_tb.walk_block)
+                    fill_cuda.batch_last_rows, fill_tile.gotoh_tile,
+                    linear_tb.walk_block)
         answers = []
         for kind, job in jobs:
             scheme = resolve_scheme(*job["scheme_seqs"], **job["scheme_kw"])
@@ -417,6 +451,7 @@ def main() -> int:
         fill_cuda,
         fill_rows,
         fill_split,
+        fill_tile,
         fill_wave,
         linear_tb,
     )
@@ -453,7 +488,7 @@ def main() -> int:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for stem in ("gotoh_batch", "gotoh_batch_moves", "wave_split",
-                     "gotoh_fill", "walk_block")
+                     "gotoh_fill", "walk_block", "gotoh_tile")
     }
     libs = cuda_build.build(cuda_build.sources() + [peaks.SOURCE])
     cuda_build.load()
@@ -542,6 +577,24 @@ def main() -> int:
         f"{v['registers']} registers, {v['spill_bytes']} spill bytes, "
         f"{v['stack_bytes']} stack bytes" for v in walk_regs))
 
+    # gotoh_tile: an instance per (H, W), codes or not, the table in shared
+    # memory or not; blocks of 4 warps, one an SM.  A spill fails the phase.
+    tile_regs = {}
+    for args, regs, spills, stack, _ in ptxas_report("gotoh_tile"):
+        height, width, moves, tsmem = re.match(
+            r"Li(\d+)ELi(\d+)ELb([01])ELb([01])", args).groups()
+        tile_regs[(f"H={height} W={width}{' codes' if moves == '1' else ''}"
+                   f"{' table in smem' if tsmem == '1' else ''}")] = dict(
+            registers=regs, spill_bytes=spills, stack_bytes=stack)
+    log("phase 0: gotoh_tile (ptxas -v, sm_90a): " + "; ".join(
+        f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes, "
+        f"{v['stack_bytes']} stack bytes" for k, v in sorted(tile_regs.items())))
+    if len(tile_regs) != 4 * len(fill_tile.SHAPES) or any(
+            v["spill_bytes"] for v in tile_regs.values()):
+        raise SystemExit("phase 0 failed: gotoh_tile instances or spills")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     counters = {
         "batch_moves": fill_cuda.batch_moves,
         "batch_last_rows": fill_cuda.batch_last_rows,
@@ -552,6 +605,7 @@ def main() -> int:
         "batch_moves_ragged": fill_cuda.batch_moves_ragged,
         "walk_ragged": linear_tb.walk_ragged,
         "batch_moves_warp": fill_batch.batch_moves_warp,
+        "gotoh_tile": fill_tile.gotoh_tile,
     }
 
     # gotoh_fill launches on the main paths by (mode, B, M, N): those
@@ -573,6 +627,22 @@ def main() -> int:
     def launches(**kw):
         """A launch design: the given counts, 0 for every other wrapper."""
         return dict(dict.fromkeys(counters, 0), **kw)
+
+    def design(*fills, **kw):
+        """A launch design: ``launches(**kw)`` plus one launch a non-strip
+        fill (batch, m, n, with codes, its gotoh_fill wrapper), counted on
+        gotoh_tile where ``fill_tile.route`` sends it."""
+        out = launches(**kw)
+        for batch, m, n, moves, wrapper in fills:
+            out["gotoh_tile" if fill_tile.route(batch, m, n, moves, sms)
+                else wrapper] += 1
+        return out
+
+    def blocked_fills(m, n, budget=DEFAULT_MOVES_BUDGET_BYTES):
+        """The replay fills of a blocked align (one a block, B = 1, codes)."""
+        bounds = linear_tb.block_bounds(m, n, block_moves_bytes=budget)
+        return [(1, i1 - i0, n, True, "batch_moves")
+                for i0, i1 in zip(bounds, bounds[1:])]
 
     main_launches = dict.fromkeys(counters, 0)
 
@@ -662,23 +732,33 @@ def main() -> int:
             raise SystemExit(f"wide60 alphabet has {scheme.alphabet.size}")
         return fill_args(scheme, pairs)
 
-    max_abs_err = 0
+    # Each case on gotoh_fill (the route set aside) and on gotoh_tile at its
+    # plan's tile shape, both against the one plain fill.
+    max_abs_err = tile_err = 0
     for name, letters, shapes in cases:
         args = make_pairs(name, letters, shapes)
         want3, want_mv = fill_cuda.batch_moves(*args)
-        got3, got_mv = fill_cuda.batch_moves(*to_dev(args))
+        with gotoh_fill_only(fill_tile):
+            got3, got_mv = fill_cuda.batch_moves(*to_dev(args))
+            got3c, no_mv = fill_cuda.batch_moves(*to_dev(args), want_moves=False)
         got3 = got3.cpu()
         got_mv = got_mv.cpu()
         torch.cuda.synchronize()
         err = max(abs_err(got3, want3), abs_err(got_mv, want_mv))
         max_abs_err = max(max_abs_err, err)
         bad = int((got_mv != want_mv).sum())
+        t3, t_mv, _ = fill_tile.gotoh_tile(*to_dev(args))
+        t3c, _, _ = fill_tile.gotoh_tile(*to_dev(args), want_moves=False)
+        terr = max(abs_err(t3, want3), abs_err(t_mv, want_mv),
+                   abs_err(t3c, want3))
+        tile_err = max(tile_err, terr)
         log(f"phase 1: {name} {shapes}: final3 {got3.tolist()[:1]} "
-            f"code mismatches {bad}, max abs err {err}")
-        if err != 0:
+            f"code mismatches {bad}, max abs err {err}; gotoh_tile "
+            f"(H, W) = {fill_tile.plan(len(shapes), max(args[5]), max(args[6]), True, sms)}"
+            f" max abs err {terr}")
+        if err != 0 or terr != 0:
             raise SystemExit(f"phase 1 failed: {name} {shapes}")
         # cost-only mode gives the same final3
-        got3c, no_mv = fill_cuda.batch_moves(*to_dev(args), want_moves=False)
         if no_mv is not None or not torch.equal(got3c.cpu(), want3):
             raise SystemExit(f"phase 1 failed (cost mode): {name} {shapes}")
 
@@ -701,6 +781,10 @@ def main() -> int:
         ("odd_asym", DNA, [(300, 417)], [150]),
         ("wide60", WIDE, [(256, 300)], [100]),
         ("dna", DNA, [(50, 70), (64, 3), (9, 128)], [20, 63, 0]),
+        # replay blocks of 3355 rows (the 20 000^2 blocked align's) below
+        # row 1000 of a 10 000- and a 20 000-column pair
+        ("dna", DNA, [(4355, 10_000)], [1000]),
+        ("dna", DNA, [(4355, 20_000)], [1000]),
     ]
     walk_codes = {}  # columns -> (codes, final3) of an injected block
     for name, letters, shapes, cuts in inj_cases:
@@ -718,20 +802,32 @@ def main() -> int:
         want3, want_mv = fill_cuda.batch_moves(*args, **inj)
         want_last = fill_cuda.batch_last_rows(*args, **inj)
         want_def = fill_cuda.batch_last_rows(ta, tb, cost, gid, go, mt, nt)
-        got3, got_mv = fill_cuda.batch_moves(*to_dev(args), **dev_inj)
-        got_last = fill_cuda.batch_last_rows(*to_dev(args), **dev_inj)
-        got_def = fill_cuda.batch_last_rows(
-            *to_dev((ta, tb, cost, gid, go, mt, nt))
-        )
+        with gotoh_fill_only(fill_tile):
+            got3, got_mv = fill_cuda.batch_moves(*to_dev(args), **dev_inj)
+            got_last = fill_cuda.batch_last_rows(*to_dev(args), **dev_inj)
+            got_def = fill_cuda.batch_last_rows(
+                *to_dev((ta, tb, cost, gid, go, mt, nt))
+            )
         torch.cuda.synchronize()
         err = max(abs_err(got3, want3), abs_err(got_mv, want_mv),
                   abs_err(got_last, want_last), abs_err(got_def, want_def))
         max_abs_err = max(max_abs_err, err)
+        # gotoh_tile: the injected codes and last rows, the default last rows
+        t3, t_mv, t_last = fill_tile.gotoh_tile(
+            *to_dev(args), rows=[[r] for r in rows], **dev_inj)
+        _, _, t_def = fill_tile.gotoh_tile(
+            *to_dev((ta, tb, cost, gid, go, mt, nt)), want_moves=False,
+            rows=[[m] for m in mt])
+        terr = max(abs_err(t3, want3), abs_err(t_mv, want_mv),
+                   abs_err(t_last[:, 0], want_last), abs_err(t_def[:, 0], want_def))
+        tile_err = max(tile_err, terr)
         log(f"phase 1: injected {name} {shapes} cut at {cuts}: codes, final3, "
-            f"last rows (injected and default) max abs err {err}")
-        if err != 0:
+            f"last rows (injected and default) max abs err {err}; gotoh_tile "
+            f"{terr}")
+        if err != 0 or terr != 0:
             raise SystemExit(f"phase 1 failed (injection): {name} {shapes}")
-        if len(shapes) == 1 and shapes[0][1] in (4096, 20_000):
+        if len(shapes) == 1 and shapes[0][1] in (4096, 20_000) and (
+                shapes[0][1] not in walk_codes):
             walk_codes[shapes[0][1]] = (got_mv, got3)
 
     # The launch shapes of gotoh_fill's plan (ops/fill_cuda.plan) against
@@ -782,7 +878,8 @@ def main() -> int:
         ]
         for fn, a, kw_cpu, kw_dev in calls:
             want = fn(a, **kw_cpu)
-            got = fn(to_dev(a), **kw_dev)
+            with gotoh_fill_only(fill_tile):  # gotoh_fill's own plan shapes
+                got = fn(to_dev(a), **kw_dev)
             torch.cuda.synchronize()
             want = want if isinstance(want, tuple) else (want,)
             got = got if isinstance(got, tuple) else (got,)
@@ -803,6 +900,97 @@ def main() -> int:
             f"passes), cost-only bands a pair {bands}; codes, final3, last "
             f"rows, injected codes and last rows max abs err 0")
     max_abs_err = max(max_abs_err, band_err)
+
+    # gotoh_tile against its plain version (the row scan; the rows block by
+    # block between them), tolerance 0: every (H, W) instance at its tile
+    # edges (k H +- 1 rows, k 32 W +- 1 columns, m or n of 0 and 1, two
+    # pairs of other shapes in one launch), with codes and cost only, plain
+    # and injected below row m // 2, the last row and (one pair) a list of
+    # rows around the tile rows, under DNA, BLOSUM62 and the 60-letter
+    # alphabet; then the 20 000^2 blocked align's checkpoint rows.
+    def tile_check(args, shape, rows, inj=None):
+        inj = inj or {}
+        dev_inj = {k: v.to(dev) for k, v in inj.items()}
+        err = 0
+        for want_moves in (True, False):
+            want = fill_tile.gotoh_tile(*args, want_moves=want_moves, rows=rows,
+                                        **inj)
+            before = fill_tile.gotoh_tile.launches
+            got = fill_tile.gotoh_tile(*to_dev(args), want_moves=want_moves,
+                                       rows=rows, shape=shape, **dev_inj)
+            torch.cuda.synchronize()
+            if fill_tile.gotoh_tile.launches != before + 1:
+                raise SystemExit("phase 1 failed: gotoh_tile not one launch")
+            for g, w in zip(got, want):
+                if (g is None) != (w is None):
+                    raise SystemExit("phase 1 failed: gotoh_tile outputs")
+                if w is not None:
+                    err = max(err, abs_err(g, w))
+        return err
+
+    for height, width in fill_tile.SHAPES:
+        cols = 32 * width
+        edge_shapes = [
+            [(height - 1, cols - 1)], [(height, cols)], [(height + 1, cols + 1)],
+            [(2 * height + 1, 3 * cols - 1)], [(3 * height - 1, 2 * cols + 1)],
+            [(1, 1)], [(1, 3 * cols + 1)], [(3 * height + 1, 1)], [(0, 5)],
+            [(5, 0)], [(0, 0)],
+            [(2 * height + 1, cols + 1), (height - 1, 2 * cols + 3)],
+        ]
+        runs_tile = [("dna", DNA, sh) for sh in edge_shapes] + [
+            ("blosum62", PROTEIN, sh) for sh in edge_shapes[:5] + edge_shapes[-1:]
+        ] + [("wide60", WIDE, [(2 * height + 1, 3 * cols - 1)])]
+        for name, letters, shapes in runs_tile:
+            pairs = [(random_seq(rng, letters, m), random_seq(rng, letters, n))
+                     for m, n in shapes]
+            ta, tb, cost, gid, go, mt, nt = args = fill_args(
+                schemes[name](letters, letters), pairs)
+            rows = [[m] for m in mt]
+            if len(mt) == 1 and mt[0] > height + 1:
+                rows = [[1, height - 1, height, height + 1, mt[0]]]
+            err = tile_check(args, (height, width), rows)
+            cuts = [m // 2 for m in mt]
+            top = fill_cuda.batch_last_rows(ta, tb, cost, gid, go, cuts, nt)
+            blk = torch.zeros_like(ta)
+            c0 = torch.empty(len(mt), dtype=torch.int32)
+            for b, i0 in enumerate(cuts):
+                blk[b, 1 : mt[b] - i0 + 1] = ta[b, i0 + 1 : mt[b] + 1]
+                c0[b] = go if i0 == 0 else int(top[b, 2, 0])
+            rest = [m - i0 for m, i0 in zip(mt, cuts)]
+            err = max(err, tile_check((blk, tb, cost, gid, go, rest, nt),
+                                      (height, width), [[r] for r in rest],
+                                      dict(row0=top, col0y_top=c0)))
+            tile_err = max(tile_err, err)
+            if err != 0:
+                raise SystemExit(f"phase 1 failed: gotoh_tile H={height} "
+                                 f"W={width} {name} {shapes}")
+        log(f"phase 1: gotoh_tile H={height} W={width} at its tile edges "
+            f"({len(runs_tile)} calls: DNA, BLOSUM62, wide60; B = 1 and 2; "
+            f"plain and injected; codes and cost only; last rows and a list "
+            f"of rows): max abs err 0")
+
+    # The 20 000^2 blocked align's checkpoint rows from one launch at every
+    # (H, W), against the row scan block by block.
+    s1 = random_seq(rng, DNA, 20_000)
+    ck_args = fill_args(schemes["dna"](DNA, DNA), [(s1, mutate(rng, s1, DNA))])
+    ck_rows = linear_tb.block_bounds(
+        ck_args[5][0], ck_args[6][0],
+        block_moves_bytes=DEFAULT_MOVES_BUDGET_BYTES)[1:]
+    t0 = time.perf_counter()
+    want_ck = fill_tile.checkpoint_rows(ck_args[0][0], ck_args[1][0],
+                                        *ck_args[2:5], ck_rows)
+    ck_plain_s = time.perf_counter() - t0
+    ck_err = 0
+    for shape in fill_tile.SHAPES:
+        _, _, got_ck = fill_tile.gotoh_tile(*to_dev(ck_args), want_moves=False,
+                                            rows=[ck_rows], shape=shape)
+        ck_err = max(ck_err, abs_err(got_ck[0], want_ck))
+    tile_err = max(tile_err, ck_err)
+    log(f"phase 1: gotoh_tile checkpoint rows {ck_rows} of a 20000^2 DNA pair "
+        f"at every (H, W), one launch each: max abs err {ck_err} (the row "
+        f"scan block by block on the host: {ck_plain_s:.3f} s)")
+    if ck_err != 0:
+        raise SystemExit("phase 1 failed: gotoh_tile checkpoint rows 20000^2")
 
     # The walk over the injected 4096- and 20 000-column blocks' codes,
     # from the block's corner and from inside it.
@@ -1314,15 +1502,17 @@ def main() -> int:
                         np.reshape(nt, (2, batch)))
                 want = fill_batch.batch_final3_dual(*args)
                 before = (fill_batch.batch_final3.launches
-                          + fill_cuda.batch_moves.launches)
+                          + fill_cuda.batch_moves.launches
+                          + fill_tile.gotoh_tile.launches)
                 got = fill_batch.batch_final3_dual(
                     args[0].to(dev), args[1].to(dev), cost.to(dev), *args[3:]
                 )
                 torch.cuda.synchronize()
-                design = 1 if n_cols > fill_batch.MAX_COLUMNS else len(
+                dual_design = 1 if n_cols > fill_batch.MAX_COLUMNS else len(
                     {fill_batch.width_class(n) for n in nt})
                 if (fill_batch.batch_final3.launches
-                        + fill_cuda.batch_moves.launches) != before + design:
+                        + fill_cuda.batch_moves.launches
+                        + fill_tile.gotoh_tile.launches) != before + dual_design:
                     raise SystemExit("phase 1 failed: batch_final3_dual is not "
                                      "one launch a width class")
                 err = abs_err(got, want)
@@ -1366,11 +1556,15 @@ def main() -> int:
                              f"{(r.score, r.cost)}")
         log(f"phase 2: {m} x {n}: score {r.score} cost {r.cost} "
             f"(= device='cpu')")
-    if counts != launches(batch_moves=len(runs), walk_block=len(runs)):
+    single_design = design(
+        *[(1, len(kw["seq_1"]), len(kw["seq_2"]), True, "batch_moves")
+          for kw, _ in runs], walk_block=len(runs))
+    if counts != single_design:
         raise SystemExit(f"phase 2 failed: launches {counts} for "
-                         f"{len(runs)} align calls")
+                         f"{len(runs)} align calls, design {single_design}")
     log(f"phase 2: launches on the full-matrix path (a fill and a walk a "
-        f"pair): {counts}")
+        f"pair; the fill on gotoh_tile where fill_tile.route sends it): "
+        f"{counts}")
 
     # The card's walk on the main path against an independent oracle: the
     # host walk (ops/traceback.traceback_moves) over the same codes, fetched
@@ -1387,10 +1581,15 @@ def main() -> int:
                 want_tb):
             raise SystemExit(f"phase 2 failed: the card's walk != "
                              f"traceback_moves at {len(kw['seq_1'])}")
+        with gotoh_fill_only(fill_tile):  # the route before gotoh_tile
+            old_route = find_global_alignment(**kw, device="cuda")
+        if old_route != r or str(old_route) != str(r):
+            raise SystemExit(f"phase 2 failed: the gotoh_tile route != the "
+                             f"gotoh_fill route at {len(kw['seq_1'])}")
         log(f"phase 2: {len(kw['seq_1'])} x {len(kw['seq_2'])}"
             f"{' ' + kw['scoring_mat_name'] if 'scoring_mat_name' in kw else ''}"
             f": align (walked on the card) = traceback_moves over the fetched "
-            f"codes (strings and cost)")
+            f"codes (strings and cost) = the same align on gotoh_fill")
 
     # A custom matrix over non-ASCII letters: single pairs and align_pairs
     # in both modes on the card = device="cpu", strings and reports (the
@@ -1412,8 +1611,9 @@ def main() -> int:
         if uni_got != uni_want or [str(r) for r in uni_got] != [
             str(r) for r in uni_want
         ] or (
-            uni_counts != launches(batch_moves=len(uni_pairs),
-                                   walk_block=len(uni_pairs))
+            uni_counts != design(*[(1, len(a), len(b), True, "batch_moves")
+                                   for a, b in uni_pairs],
+                                 walk_block=len(uni_pairs))
         ):
             raise SystemExit(f"phase 2 failed: non-ASCII single pairs, "
                              f"launches {uni_counts}")
@@ -1461,15 +1661,16 @@ def main() -> int:
         counts = read_counts()
         add_main(counts)
         long_results.append(r)
-        design = launches(batch_moves=nblocks, batch_last_rows=nblocks,
-                          walk_block=nblocks)
+        # the checkpoint pass: one gotoh_tile launch; a replay fill a block
+        blocked_design = design(*blocked_fills(m, n), gotoh_tile=1,
+                                walk_block=nblocks)
         w = full_matrix_route(**kw)
         if r != w or str(r) != str(w):
             raise SystemExit(f"phase 2 failed: blocked != full matrix for "
                              f"{m} x {n}")
-        if counts != design:
+        if counts != blocked_design:
             raise SystemExit(f"phase 2 failed: {m} x {n} launches {counts}, "
-                             f"design {design}")
+                             f"design {blocked_design}")
         log(f"phase 2: blocked {m} x {n} ({nblocks} blocks): score {r.score} "
             f"cost {r.cost} (= full-matrix route, report bytes equal); "
             f"launches {counts}")
@@ -1490,9 +1691,8 @@ def main() -> int:
     )
     counts = read_counts()
     add_main(counts)
-    if nblocks < 4 or counts != launches(batch_moves=nblocks,
-                                         batch_last_rows=nblocks,
-                                         walk_block=nblocks):
+    if nblocks < 4 or counts != design(*blocked_fills(3000, 2500, budget),
+                                       gotoh_tile=1, walk_block=nblocks):
         raise SystemExit(f"phase 2 failed: forced blocks {nblocks}, "
                          f"launches {counts}")
     if (r.seq_1_aligned, r.middle_part, r.seq_2_aligned, r.cost, r.score) != (
@@ -1520,10 +1720,11 @@ def main() -> int:
         counts = read_counts()
         add_main(counts)
         split = len(s1) >= SPLIT_MIN_ROWS
-        design = launches(batch_moves=int(not split),
-                          batch_last_rows=int(split))
+        cost_design = design(
+            (2, len(s1) - len(s1) // 2, len(s2), False, "batch_last_rows")
+            if split else (1, len(s1), len(s2), False, "batch_moves"))
         direct, _ = aligner._batch_fill(s1, s2, want_moves=False)
-        if counts != design or c != int(direct.min()) or c != r.cost:
+        if counts != cost_design or c != int(direct.min()) or c != r.cost:
             raise SystemExit(f"phase 2 failed: cost {c} direct "
                              f"{int(direct.min())} align {r.cost} launches "
                              f"{counts} for {len(s1)} x {len(s2)}")
@@ -1584,6 +1785,23 @@ def main() -> int:
         return (sum(len(w) for w, _ in routes), sum(len(c) for _, c in routes),
                 len(segs))
 
+    def mesh_fills(pairs, budget):
+        """The moves fills of align_pairs(mesh=world of one, traceback): a
+        bucket sub-batch each, under the budget, as (B, its longest m and
+        n, codes, wrapper)."""
+        keys = {}
+        for a, b in pairs:
+            keys.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                            []).append((len(a), len(b)))
+        out = []
+        for (mm, nn), shapes in keys.items():
+            per = budget // fill_cuda.ragged_bytes(mm, nn)
+            for lo in range(0, len(shapes), per):
+                group = shapes[lo : lo + per]
+                out.append((len(group), max(m for m, _ in group),
+                            max(n for _, n in group), True, "batch_moves"))
+        return out
+
     def cost_launches(pairs):
         """gotoh_batch launches of a cost-only align_pairs call: one per
         width class of the pairs (every bucket within the cap)."""
@@ -1613,14 +1831,14 @@ def main() -> int:
             counts = read_counts()
             add_main(counts)
             chunk_results[name, with_tb] = (got, counts)
-            design = (  # cost-only: one gotoh_batch launch a width class
+            chunk_design = (  # cost-only: one gotoh_batch launch a width class
                 launches(batch_moves_warp=nwarp, walk_ragged=nwalks)
                 if with_tb else launches(batch_final3=cost_launches(pairs))
             )
-            if counts != design:
+            if counts != chunk_design:
                 raise SystemExit(f"phase 2 failed: align_pairs {name} "
                                  f"traceback={with_tb} launches {counts}, "
-                                 f"design {design}")
+                                 f"design {chunk_design}")
             for (s1, s2), r in zip(pairs, got):
                 if with_tb:
                     w = aligner.align(s1, s2)
@@ -1668,15 +1886,16 @@ def main() -> int:
         batch_mod.DEVICE_WALK_MOVES_BUDGET = real_budget
     add_main(counts)
     nwarp, nfills, nsegs = traceback_launches(mixed, budget, 5)
-    design = launches(batch_moves_warp=nwarp, batch_moves_ragged=nfills,
-                      walk_ragged=nsegs, batch_moves=1, batch_last_rows=1,
-                      walk_block=1)
+    mixed_design = design(  # the blocked pair: its checkpoint pass and replay
+        *blocked_fills(1200, 1100), batch_moves_warp=nwarp,
+        batch_moves_ragged=nfills, walk_ragged=nsegs, gotoh_tile=1,
+        walk_block=1)
     cpu = align_pairs(mixed, device="cpu")
     if [fields(r) for r in got] != [fields(r) for r in want] or [
         fields(r) for r in cpu
-    ] != [fields(r) for r in want] or counts != design or nsegs < 3:
+    ] != [fields(r) for r in want] or counts != mixed_design or nsegs < 3:
         raise SystemExit(f"phase 2 failed: budget {budget}: launches {counts}, "
-                         f"design {design}")
+                         f"design {mixed_design}")
     log(f"phase 2: align_pairs under a {budget}-byte budget: {nsegs} "
         f"segments + one blocked 1200 x 1100 pair = default budget = "
         f"device='cpu'; launches {counts}")
@@ -1695,15 +1914,15 @@ def main() -> int:
     add_main(counts)
     nwarp, nfills, nsegs = traceback_launches(
         wide_call, batch_mod.DEVICE_WALK_MOVES_BUDGET, 5)
-    design = launches(batch_moves_warp=nwarp, batch_moves_ragged=nfills,
-                      walk_ragged=nsegs)
+    wide_design = launches(batch_moves_warp=nwarp, batch_moves_ragged=nfills,
+                           walk_ragged=nsegs)
     aligner = GotohAligner(resolve_scheme(DNA, DNA), device="cuda")
     single = [fields(aligner.align(a, b)) for a, b in wide_call]
     cpu = align_pairs(wide_call, device="cpu")
     if [fields(r) for r in got] != single or [fields(r) for r in cpu] != single or (
-            counts != design) or not (nwarp and nfills):
+            counts != wide_design) or not (nwarp and nfills):
         raise SystemExit(f"phase 2 failed: align_pairs across the 1024-column "
-                         f"cap: launches {counts}, design {design}")
+                         f"cap: launches {counts}, design {wide_design}")
     log(f"phase 2: align_pairs over {len(wide_call)} pairs of 290-2300 "
         f"columns (both routes): = single-pair path = device='cpu'; launches "
         f"{counts} ({nwarp} gotoh_batch_moves, {nfills} gotoh_fill ragged, "
@@ -1773,7 +1992,8 @@ def main() -> int:
             nbuckets, nsubs = bucket_counts(
                 pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET)
             want_counts = (  # the mesh path keeps a launch a bucket shard
-                launches(batch_moves=nsubs, walk_block=nsubs) if with_tb
+                design(*mesh_fills(pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET),
+                       walk_block=nsubs) if with_tb
                 else launches(batch_final3=nbuckets))
             torch.cuda.synchronize()
             reset_counts()
@@ -2023,7 +2243,8 @@ def main() -> int:
     dual_final3 = fill_batch.batch_final3_dual(*dual_args)
     counts = read_counts()
     add_main(counts)
-    dual_main_launches = counts["batch_final3"] + counts["batch_moves"]
+    dual_main_launches = (counts["batch_final3"] + counts["batch_moves"]
+                          + counts["gotoh_tile"])
     want_costs = [[chunk_results["dna", False][0][k].cost for k in ids]
                   for ids in dual_ids]
     if dual_final3.min(-1).values.tolist() != want_costs or counts != launches(
@@ -2052,7 +2273,9 @@ def main() -> int:
     add_main(counts)
     if [str(r) for r in got] != [str(w) for w in want_golden] or (
         got != want_golden
-        or counts != launches(batch_moves=len(goldens), walk_block=len(goldens))
+        or counts != design(*[(1, len(kw["seq_1"]), len(kw["seq_2"]), True,
+                               "batch_moves") for kw, _ in goldens],
+                            walk_block=len(goldens))
         or [(r.score, r.cost) for r in got] != [g for _, g in goldens]
     ):
         raise SystemExit(f"phase 2 failed: compat goldens, launches {counts}")
@@ -2083,7 +2306,8 @@ def main() -> int:
         cost_counts = read_counts()
         add_main(cost_counts)
         if r != want_r or str(r) != str(want_r) or r.cost != c or (
-            counts != launches(batch_moves=1, walk_block=1)
+            counts != design((1, len(kw["seq_1"]), len(kw["seq_2"]), True,
+                              "batch_moves"), walk_block=1)
         ):
             raise SystemExit(f"phase 2 failed: compat {label}: cost {r.cost}, "
                              f"cpu {want_r.cost}, cost() {c}, launches {counts}")
@@ -2097,7 +2321,7 @@ def main() -> int:
         compat_ms[label] = times
         log(f"phase 2: compat {label}: score {r.score} cost {r.cost} = "
             f"device='cpu' (strings, cost, score, str) = cost() on the card "
-            f"({cost_counts['batch_last_rows']} last-rows launch); launches "
+            f"(launches {cost_counts}); launches "
             f"{counts}; end to end on {card}: {', '.join(f'{t:.3f}' for t in times)} ms")
 
     # The two caps: start's validation refuses the reference's limit, the
@@ -2119,7 +2343,9 @@ def main() -> int:
     add_main(counts)
     past_cost = GotohAligner(validate_and_transform_args(**past).scheme,
                              device="cuda").cost(past["seq_1"], past["seq_2"])
-    if r.cost != past_cost or counts != launches(batch_moves=1, walk_block=1):
+    if r.cost != past_cost or counts != design(
+            (1, len(past["seq_1"]), len(past["seq_2"]), True, "batch_moves"),
+            walk_block=1):
         raise SystemExit(f"phase 2 failed: compat find_global_alignment "
                          f"4473 x 4472: cost {r.cost}, cost() {past_cost}, "
                          f"launches {counts}")
@@ -2141,7 +2367,7 @@ def main() -> int:
         add_main(counts)
         report = Path(f"{tmp}/card.txt").read_bytes()
         if report != Path(f"{tmp}/cpu.txt").read_bytes() or (
-            counts != launches(batch_moves=1, walk_block=1)
+            counts != design((1, 1500, 1400, True, "batch_moves"), walk_block=1)
         ):
             raise SystemExit(f"phase 2 failed: compat main report differs, "
                              f"launches {counts}")
@@ -2179,6 +2405,14 @@ def main() -> int:
         + "; ".join(f"{k}: {v}" for k, v in sorted(census.items())))
 
     # -- phase 3: times -------------------------------------------------
+    def timed_call(fn) -> float:
+        """Seconds of one synchronised call on the host clock."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     def cuda_ms(fn, reps: int) -> float:
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -2193,23 +2427,48 @@ def main() -> int:
 
     kernel_ms = plain_ms = fill_size = None
     align_split = {}  # size -> the single-pair align's parts, ms
+    tile_fill = {}  # size -> gotoh_tile and gotoh_fill, codes and cost only
     for size in (4096, 8000):
         s1 = random_seq(rng, DNA, size)
         s2 = mutate(rng, s1, DNA)
         scheme = resolve_scheme(s1, s2)
         args = to_dev(fill_args(scheme, [(s1, s2)]))
         cells = size * size
-        k_ms = cuda_ms(lambda: fill_cuda.batch_moves(*args), 5)
-        c_ms = cuda_ms(
-            lambda: fill_cuda.batch_moves(*args, want_moves=False), 5
-        )
+        # gotoh_fill (the route set aside) and gotoh_tile in turns: fill,
+        # tile, tile, fill
+        turns = {}
+        for arm in ("fill", "tile", "tile", "fill"):
+            for moves in (True, False):
+                if arm == "fill":
+                    with gotoh_fill_only(fill_tile):
+                        t = cuda_ms(lambda: fill_cuda.batch_moves(
+                            *args, want_moves=moves), 5)
+                else:
+                    t = cuda_ms(lambda: fill_tile.gotoh_tile(
+                        *args, want_moves=moves), 5)
+                turns.setdefault((arm, moves), []).append(t)
+        k_ms, c_ms, t_ms, tc_ms = (float(np.mean(turns[k])) for k in (
+            ("fill", True), ("fill", False), ("tile", True), ("tile", False)))
+        shape = fill_tile.plan(1, size, len(s2), True, sms)
+        tile_fill[size] = dict(
+            gotoh_tile_ms=t_ms, gotoh_tile_cost_only_ms=tc_ms,
+            gotoh_fill_ms=k_ms, gotoh_fill_cost_only_ms=c_ms,
+            shape=list(shape), shape_cost_only=list(
+                fill_tile.plan(1, size, len(s2), False, sms)),
+            path_tiles=fill_tile.model(1, size, len(s2), shape, True, sms).path_tiles,
+            turns={f"{a} {'codes' if mv else 'cost only'}": v
+                   for (a, mv), v in turns.items()})
+        log(f"phase 3: fill {size}x{size} on {card}: gotoh_tile {t_ms:.4f} ms "
+            f"with codes (H, W) = {shape}, {tc_ms:.4f} ms cost only; "
+            f"gotoh_fill {k_ms:.4f} / {c_ms:.4f} ms (turns fill, tile, tile, "
+            f"fill: {tile_fill[size]['turns']})")
         p_ms = cuda_ms(
             lambda: fill_rows.row_fill(
                 args[0][0], args[1][0], args[2], args[3], args[4]
             ),
             2,
         )
-        log(f"phase 3: fill {size}x{size} on {card}: kernel {k_ms:.4f} ms "
+        log(f"phase 3: fill {size}x{size} on {card}: gotoh_fill {k_ms:.4f} ms "
             f"({cells / k_ms / 1e6:.4f} GCUPS), cost-only kernel "
             f"{c_ms:.4f} ms ({cells / c_ms / 1e6:.4f} GCUPS), plain row scan "
             f"on the card {p_ms:.4f} ms ({cells / p_ms / 1e6:.4f} GCUPS)")
@@ -2221,6 +2480,10 @@ def main() -> int:
         # the host walk, ops/traceback.traceback_moves).
         aligner = GotohAligner(scheme, device="cuda")
         aligner.align(s1, s2)  # warm-up
+        with gotoh_fill_only(fill_tile):  # the route before gotoh_tile
+            aligner.align(s1, s2)
+            old_e2e = 1e3 * float(np.median([
+                timed_call(lambda: aligner.align(s1, s2)) for _ in range(3)]))
         parts = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -2250,9 +2513,11 @@ def main() -> int:
                           1e3 * (time.perf_counter() - t2)))
         a_ms, f_ms, w_ms, r_ms, old_ms = (float(np.median(x)) for x in zip(*parts))
         align_split[size] = dict(end_to_end_ms=a_ms, fill_ms=f_ms, walk_ms=w_ms,
-                                 fetch_render_ms=r_ms, host_walk_route_ms=old_ms)
+                                 fetch_render_ms=r_ms, host_walk_route_ms=old_ms,
+                                 gotoh_fill_route_ms=old_e2e)
         log(f"phase 3: align {size}x{size} on {card}: end to end "
-            f"{a_ms:.4f} ms ({cells / a_ms / 1e6:.4f} GCUPS); fill "
+            f"{a_ms:.4f} ms ({cells / a_ms / 1e6:.4f} GCUPS; on gotoh_fill, "
+            f"the route before, {old_e2e:.4f} ms); fill "
             f"{f_ms:.4f} ms, walk kernel {w_ms:.4f} ms (device), fetch + "
             f"render {r_ms:.4f} ms (host); the route it replaced, the codes "
             f"to the host + the host walk: {old_ms:.4f} ms")
@@ -2265,9 +2530,12 @@ def main() -> int:
     args = to_dev(fill_args(resolve_scheme(s1, s2), [(s1, s2)]))
     row0 = fill_cuda.batch_last_rows(*args)
     c0 = torch.full((1,), args[4], dtype=torch.int32, device=dev)
-    last_ms = cuda_ms(
-        lambda: fill_cuda.batch_last_rows(*args, row0=row0, col0y_top=c0), 5
-    )
+    with gotoh_fill_only(fill_tile):
+        last_ms = cuda_ms(
+            lambda: fill_cuda.batch_last_rows(*args, row0=row0, col0y_top=c0), 5
+        )
+    tile_last_ms = cuda_ms(lambda: fill_tile.gotoh_tile(
+        *args, want_moves=False, rows=[[4096]], row0=row0, col0y_top=c0), 5)
     plain_last_ms = cuda_ms(
         lambda: fill_rows.row_fill(
             args[0][0], args[1][0], args[2], args[3], args[4], row0=row0[0],
@@ -2275,9 +2543,10 @@ def main() -> int:
         ),
         2,
     )
-    log(f"phase 3: injected last-row fill 4096x4096 on {card}: kernel "
-        f"{last_ms:.4f} ms ({4096 * 4096 / last_ms / 1e6:.4f} GCUPS), plain "
-        f"row scan on the card {plain_last_ms:.4f} ms")
+    log(f"phase 3: injected last-row fill 4096x4096 on {card}: gotoh_fill "
+        f"{last_ms:.4f} ms ({4096 * 4096 / last_ms / 1e6:.4f} GCUPS), "
+        f"gotoh_tile {tile_last_ms:.4f} ms, plain row scan on the card "
+        f"{plain_last_ms:.4f} ms")
 
     # Blocked align, phase by phase, beside the full-matrix route; the
     # split cost beside the direct cost-only fill; the walk kernel beside
@@ -2294,6 +2563,8 @@ def main() -> int:
 
     walk_ms = plain_walk_ms = walk_steps = walk_path = None
     blocked_dev = {}  # size -> (checkpoint pass, replay fills) device ms
+    blocked_rec = {}  # size -> the checkpoint pass and a replay, both kernels
+    split_rec = {}  # size -> the split on gotoh_tile and on gotoh_fill
     for size in (10_000, 20_000):
         s1 = random_seq(rng, DNA, size)
         s2 = mutate(rng, s1, DNA)
@@ -2338,9 +2609,83 @@ def main() -> int:
             float(np.median(c)) for c in zip(*parts)
         )
         blocked_dev[size] = (ck, fi)
-        nblocks = len(linear_tb.block_bounds(
-            size, len(s2), block_moves_bytes=budget
-        )) - 1
+        bounds = linear_tb.block_bounds(size, len(s2), block_moves_bytes=budget)
+        nblocks = len(bounds) - 1
+
+        # The checkpoint pass as one gotoh_tile launch (align_blocked's)
+        # beside the pass as it was, a gotoh_fill last-rows launch a block
+        # seeded from the block above, in turns; both give the same rows.
+        b_row0, b_col0 = default_boundary(*enc[:5])
+        c0_top = b_col0[2].clone()
+        c0_top[0] = blocked.gap_open
+
+        def ck_per_block():
+            rows = [b_row0[None]]
+            for i0, i1 in zip(bounds, bounds[1:]):
+                rows.append(fill_cuda.batch_last_rows(
+                    enc[0][None, i0 : i1 + 1], enc[1][None], *enc[2:5],
+                    [i1 - i0], [len(s2)], row0=rows[-1],
+                    col0y_top=c0_top[i0 : i0 + 1]))
+            return torch.cat(rows[1:])
+
+        def ck_one_launch():
+            return fill_tile.checkpoint_rows(*enc[:5], bounds[1:])
+
+        ck_turns = {"one gotoh_tile launch": [], "gotoh_fill a block": []}
+        for arm in ("one gotoh_tile launch", "gotoh_fill a block",
+                    "gotoh_fill a block", "one gotoh_tile launch"):
+            if arm == "gotoh_fill a block":
+                with gotoh_fill_only(fill_tile):
+                    ck_turns[arm].append(cuda_ms(ck_per_block, 3))
+            else:
+                ck_turns[arm].append(cuda_ms(ck_one_launch, 3))
+        with gotoh_fill_only(fill_tile):
+            old_rows = ck_per_block()
+        if not torch.equal(old_rows, ck_one_launch()):
+            raise SystemExit(f"phase 3 failed: checkpoint rows at {size}: "
+                             "one launch != a launch a block")
+        ck_new = float(np.mean(ck_turns["one gotoh_tile launch"]))
+        ck_old = float(np.mean(ck_turns["gotoh_fill a block"]))
+        ck_shape = fill_tile.plan(1, size, len(s2), False, sms)
+        ck_model = fill_tile.model(1, size, len(s2), ck_shape, False, sms)
+        # A replay fill (the second block, injected) on gotoh_fill and on
+        # gotoh_tile at every (H, W).
+        i0, i1 = bounds[1], bounds[2]
+        rp_args = (enc[0][None, i0 : i1 + 1].contiguous(), enc[1][None],
+                   *enc[2:5], [i1 - i0], [len(s2)])
+        rp_inj = dict(row0=old_rows[0:1], col0y_top=c0_top[i0 : i0 + 1])
+        with gotoh_fill_only(fill_tile):
+            rp_fill = cuda_ms(lambda: fill_cuda.batch_moves(*rp_args, **rp_inj), 3)
+            want_rp = fill_cuda.batch_moves(*rp_args, **rp_inj)
+        rp_tile = {}
+        for shape in fill_tile.SHAPES:
+            rp_tile[f"H={shape[0]} W={shape[1]}"] = cuda_ms(
+                lambda: fill_tile.gotoh_tile(*rp_args, shape=shape, **rp_inj), 3)
+            got_rp = fill_tile.gotoh_tile(*rp_args, shape=shape, **rp_inj)
+            if not (torch.equal(got_rp[0], want_rp[0])
+                    and torch.equal(got_rp[1], want_rp[1])):
+                raise SystemExit(f"phase 3 failed: replay fill {shape} != "
+                                 "gotoh_fill")
+        blocked_rec[size] = dict(
+            checkpoint_pass_ms=ck_new, checkpoint_pass_gotoh_fill_ms=ck_old,
+            checkpoint_turns_ms=ck_turns, checkpoint_shape=list(ck_shape),
+            checkpoint_path_tiles=ck_model.path_tiles, blocks=nblocks,
+            replay_shape=[i1 - i0, len(s2)], replay_gotoh_fill_ms=rp_fill,
+            replay_gotoh_tile_ms=rp_tile,
+            replay_route_shape=list(fill_tile.plan(1, i1 - i0, len(s2), True, sms)),
+            replay_path_tiles={
+                f"H={sh[0]} W={sh[1]}": fill_tile.model(
+                    1, i1 - i0, len(s2), sh, True, sms).path_tiles
+                for sh in fill_tile.SHAPES},
+        )
+        log(f"phase 3: checkpoint pass {size}x{len(s2)} ({nblocks} blocks) on "
+            f"{card}: one gotoh_tile launch (H, W) = {ck_shape}, "
+            f"{ck_model.path_tiles} tiles on the path: {ck_new:.4f} ms; a "
+            f"gotoh_fill launch a block: {ck_old:.4f} ms (turns {ck_turns}); "
+            f"rows equal. Replay fill {i1 - i0} x {len(s2)} injected: "
+            f"gotoh_fill {rp_fill:.4f} ms, gotoh_tile "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in rp_tile.items())
+            + " (codes and final3 equal)")
         b_ms = 1e3 * median_s(lambda: blocked.align(s1, s2))
         full.align(s1, s2)  # warm-up
         f_ms = 1e3 * median_s(lambda: full.align(s1, s2))
@@ -2358,13 +2703,23 @@ def main() -> int:
 
         direct_args = to_dev(fill_args(scheme, [(s1, s2)]))
         split_ms = cuda_ms(lambda: fill_split.split_fill_cost(*enc[:5]), 3)
+        with gotoh_fill_only(fill_tile):
+            split_fill_ms = cuda_ms(
+                lambda: fill_split.split_fill_cost(*enc[:5]), 3)
+        split_shape = fill_tile.plan(2, size - size // 2, len(s2), False, sms)
+        split_rec[size] = dict(
+            ms=split_ms, gotoh_fill_ms=split_fill_ms, shape=list(split_shape),
+            routed=fill_tile.route(2, size - size // 2, len(s2), False, sms),
+            path_tiles=fill_tile.model(2, size - size // 2, len(s2), split_shape,
+                                       False, sms).path_tiles)
         direct_ms = cuda_ms(
             lambda: fill_cuda.batch_moves(*direct_args, want_moves=False), 3
         )
         cost_ms = 1e3 * median_s(lambda: blocked.cost(s1, s2))
         log(f"phase 3: cost {size}x{len(s2)} on {card}: split {split_ms:.4f} "
-            f"ms (one 2-pair launch + join), direct cost-only fill "
-            f"{direct_ms:.4f} ms; cost() end to end {cost_ms:.4f} ms")
+            f"ms (one 2-pair launch + join; on gotoh_fill {split_fill_ms:.4f} "
+            f"ms), direct cost-only fill {direct_ms:.4f} ms; cost() end to "
+            f"end {cost_ms:.4f} ms")
 
         if size == 10_000:  # the walk over a whole 10 000-row matrix
             final3, moves = fill_cuda.batch_moves(*full_args)
@@ -2417,6 +2772,80 @@ def main() -> int:
         log(f"phase 3: cost {size}x{len(s2)} on {card}: split {sp_ms:.4f} "
             f"ms, direct {di_ms:.4f} ms, cost() {co_ms:.4f} ms (split from "
             f"{SPLIT_MIN_ROWS} rows)")
+
+    # -- phase 3, gotoh_tile: a tile's time, the crossover sweep ------------
+    # A tile's time at each (H, W), with codes and cost only: a pair one
+    # tile column wide (64 H x 32 W), whose 64 tiles run one after another.
+    def dna_args(nb, m, n):
+        pairs = [(random_seq(rng, DNA, m), random_seq(rng, DNA, n))
+                 for _ in range(nb)]
+        return to_dev(fill_args(dna_fill, pairs))
+
+    tile_us = {}
+    for height, width in fill_tile.SHAPES:
+        col_args = dna_args(1, 64 * height, 32 * width)
+        for moves in (True, False):
+            t = cuda_ms(lambda: fill_tile.gotoh_tile(
+                *col_args, want_moves=moves, shape=(height, width)), 5)
+            tile_us[f"H={height} W={width}{' codes' if moves else ''}"] = (
+                1e3 * t / 64)
+    log(f"phase 3: gotoh_tile one tile column (64 H x 32 W, 64 tiles in a "
+        f"chain) on {card}, us a tile: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in tile_us.items()))
+
+    def path_model_ms(nb, m, n, shape, moves):
+        """The critical path: its tiles x a tile's time (the column above)."""
+        tiles = fill_tile.model(nb, m, n, shape, moves, sms).path_tiles
+        key = f"H={shape[0]} W={shape[1]}{' codes' if moves else ''}"
+        return tiles, tiles * tile_us[key] / 1e3
+
+    # The crossover sweep: B in {1, 2, 8} x {256^2, 1024^2, 4096^2, 8000^2},
+    # a 3355 x 20 000 replay block, 20 000 x 512 and a short, wide 600 x
+    # 20 000 block, with codes and cost only, on gotoh_fill and on gotoh_tile at every (H, W) (device time,
+    # CUDA events; each tile shape's final3 and codes equal gotoh_fill's).
+    sweep_points = [(nb, sz, sz) for nb in (1, 2, 8)
+                    for sz in (256, 1024, 4096, 8000)]
+    sweep_points += [(1, 3355, 20_000), (1, 20_000, 512), (1, 600, 20_000)]
+    tile_sweep = []
+    for nb, m, n in sweep_points:
+        a = dna_args(nb, m, n)
+        reps = 5 if nb * m * n < 1e8 else 3
+        for moves in (True, False):
+            with gotoh_fill_only(fill_tile):
+                gf = cuda_ms(lambda: fill_cuda.batch_moves(*a, want_moves=moves),
+                             reps)
+                want_f3, want_mv = fill_cuda.batch_moves(*a, want_moves=moves)
+            row = dict(batch=nb, m=m, n=n, codes=moves, gotoh_fill_ms=gf,
+                       gotoh_tile_ms={}, path_model_ms={},
+                       plan=list(fill_tile.plan(nb, m, n, moves, sms)),
+                       route=fill_tile.route(nb, m, n, moves, sms))
+            for shape in fill_tile.SHAPES:
+                key = f"H={shape[0]} W={shape[1]}"
+                row["gotoh_tile_ms"][key] = cuda_ms(lambda: fill_tile.gotoh_tile(
+                    *a, want_moves=moves, shape=shape), reps)
+                row["path_model_ms"][key] = path_model_ms(nb, m, n, shape, moves)[1]
+                got_f3, got_mv, _ = fill_tile.gotoh_tile(*a, want_moves=moves,
+                                                         shape=shape)
+                if not torch.equal(got_f3, want_f3) or (
+                        moves and not torch.equal(got_mv, want_mv)):
+                    raise SystemExit(f"phase 3 failed: gotoh_tile {shape} != "
+                                     f"gotoh_fill at {nb} x {m} x {n}")
+            best = min(row["gotoh_tile_ms"], key=row["gotoh_tile_ms"].get)
+            row["best_tile"] = best
+            tile_sweep.append(row)
+            log(f"phase 3: tile sweep {nb} x {m} x {n} "
+                f"{'codes' if moves else 'cost only'} on {card} (device time): "
+                f"gotoh_fill {gf:.4f} ms; gotoh_tile "
+                + ", ".join(f"{k} {v:.4f} ms (path model "
+                            f"{row['path_model_ms'][k]:.4f})"
+                            for k, v in row["gotoh_tile_ms"].items())
+                + f"; best {best}, plan {row['plan']}, route "
+                f"{'gotoh_tile' if row['route'] else 'gotoh_fill'}")
+    wins = [(r["batch"], r["m"], r["n"], "codes" if r["codes"] else "cost")
+            for r in tile_sweep
+            if min(r["gotoh_tile_ms"].values()) < r["gotoh_fill_ms"]]
+    log(f"phase 3: tile sweep: gotoh_tile (its best shape) faster than "
+        f"gotoh_fill at {wins}")
 
     # -- phase 3, batch serving -------------------------------------------
     # Each wrapper's launches are bracketed by CUDA events (device fill and
@@ -3259,7 +3688,8 @@ def main() -> int:
                               key=lambda kv: (kv[1], kv[0][0] * kv[0][1] * kv[0][2]))
         mode = key[0]
         cells = nb * mm * nn
-        t_ms = cuda_ms(census_call(mode, nb, mm, nn), 1 if cells > 2e8 else 3)
+        with gotoh_fill_only(fill_tile):  # the class is gotoh_fill's
+            t_ms = cuda_ms(census_call(mode, nb, mm, nn), 1 if cells > 2e8 else 3)
         b_ms, _ = bound(cells, "moves" if mode.startswith("codes") else "cost",
                         8 * nb * (mm + nn + 2))
         loss = cls["launches"] * (t_ms - b_ms)
@@ -3279,6 +3709,27 @@ def main() -> int:
         "256 x 50000 strip block 17.1011 ms")
     dna_rr = ragged_rec["1024-pair DNA chunk"]
     blosum_rr = ragged_rec["1024-pair BLOSUM62 chunk"]
+    # gotoh_tile's critical-path bounds (tiles on the path x a tile's time,
+    # measured above) at the shapes of the prediction table.
+    tile_paths = {
+        "8000^2 codes": path_model_ms(
+            1, 8000, 8000, tuple(tile_fill[8000]["shape"]), True),
+        "4096^2 codes": path_model_ms(
+            1, 4096, 4096, tuple(tile_fill[4096]["shape"]), True),
+        **{f"checkpoint pass {k}^2": path_model_ms(
+            1, k, k, tuple(v["checkpoint_shape"]), False)
+           for k, v in blocked_rec.items()},
+        **{f"split {k}^2": path_model_ms(
+            2, k - k // 2, k, tuple(v["shape"]), False)
+           for k, v in split_rec.items()},
+        **{f"replay {blocked_rec[20_000]['replay_shape'][0]} x 20000 H={h} "
+           f"W={w}": path_model_ms(1, *blocked_rec[20_000]["replay_shape"],
+                                   (h, w), True)
+           for h, w in fill_tile.SHAPES},
+    }
+    log(f"phase 3: gotoh_tile critical-path bounds on {card} (tiles on the "
+        f"path, ms): " + "; ".join(f"{k} {t} tiles {v:.4f}"
+                                   for k, (t, v) in tile_paths.items()))
     log(json.dumps({"kernels": [
         {
             "name": "gotoh_fill",
@@ -3492,6 +3943,45 @@ def main() -> int:
             "blosum62_chunk_ms": blosum_rr["gotoh_fill_ms"],
             "blosum62_chunk_bound_ms": blosum_rr["fill_bound_ms"],
             "blosum62_per_bucket_launches_ms": blosum_rr["per_bucket_fills_ms"],
+        },
+        {
+            "name": "gotoh_tile",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/gotoh_tile.cu",
+            "replaces": "globalign_tpu/ops/fill_lanes.py:201",
+            "also_replaces": [
+                "globalign_tpu/ops/fill_pallas.py:496",
+                "globalign_tpu/ops/fill_pallas.py:153",
+                "globalign_tpu/ops/fill_pallas.py:735",
+            ],
+            "replaces_note": "the single-pair launches: align's fill, the "
+                             "blocked traceback's checkpoint pass (one launch "
+                             "for every block) and replays, cost()'s 2-pair "
+                             "split, where fill_tile.route sends them",
+            "launches": main_launches["gotoh_tile"],
+            "max_abs_err": tile_err,
+            "shape": "moves fill, 8000^2 DNA, one pair",
+            "ms": tile_fill[8000]["gotoh_tile_ms"],
+            "gotoh_fill_ms": tile_fill[8000]["gotoh_fill_ms"],
+            "plain_ms": plain_ms,
+            "bound_ms": fill_bound,
+            "bound_by": fill_by,
+            "critical_path_bound_ms": tile_paths["8000^2 codes"][1],
+            "critical_path_tiles": tile_paths["8000^2 codes"][0],
+            "library_ms": None,
+            "fills": tile_fill,
+            "align_ms": {k: v for k, v in align_split.items()},
+            "blocked": blocked_rec,
+            "split": split_rec,
+            "critical_paths": {k: {"tiles": t, "ms": v}
+                               for k, (t, v) in tile_paths.items()},
+            "tile_us": tile_us,
+            "sweep": tile_sweep,
+            "route": {"max_batch": fill_tile.ROUTE_MAX_BATCH,
+                      "min_side_codes": fill_tile.ROUTE_MIN_SIDE,
+                      "min_side_cost_only": fill_tile.ROUTE_MIN_SIDE_COST,
+                      "max_aspect": fill_tile.ROUTE_MAX_ASPECT},
+            "ptxas": tile_regs,
         },
         {
             "name": "walk_block_ragged",

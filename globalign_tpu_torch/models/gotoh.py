@@ -2,8 +2,9 @@
 
 The port of ``globalign_tpu/models/gotoh.py``.  For one pair:
 
-    tokenize -> device fill (ops.fill_cuda: the CUDA kernel on a card, the
-                row scan of ops.fill_rows on the CPU)
+    tokenize -> device fill (ops.fill_cuda: a CUDA kernel on a card —
+                gotoh_tile where ops.fill_tile.route sends a large pair,
+                gotoh_fill else —, the row scan of ops.fill_rows on the CPU)
              -> device walk over the move codes (ops.linear_tb.walk_block:
                 the walk kernel on a card, the plain walk on the CPU)
              -> one fetch of final3 and the op tape (at most m + n bytes)
@@ -165,9 +166,9 @@ class GotohAligner(nn.Module):
 
     def align(self, seq_1: str, seq_2: str) -> GotohAlignment:
         """Full alignment with deterministic traceback: the full move matrix
-        walked where it was filled (one ``gotoh_fill`` and one
-        ``walk_block`` launch on a card) up to the moves budget, blocked
-        past it."""
+        walked where it was filled (one fill launch, ``gotoh_tile`` or
+        ``gotoh_fill`` as ``fill_tile.route`` says, and one ``walk_block``
+        launch on a card) up to the moves budget, blocked past it."""
         m, n = len(seq_1), len(seq_2)
         if (m + 1) * (n + 1) > self.moves_budget_bytes:
             tb = linear_tb.align_blocked(

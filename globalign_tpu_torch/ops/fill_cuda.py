@@ -30,7 +30,13 @@ the head of that file, and :func:`plan` for the launch):
 
 On CUDA tensors each launches the kernel; on CPU tensors each runs the
 plain version, the row scan of ``ops.fill_rows``, pair by pair.  There is
-no other route: a CUDA tensor that the kernel cannot take raises.
+no other route: a CUDA tensor that the kernel cannot take raises.  One
+exception by rule: a non-strip fill of one or two large pairs, which a
+cluster of 8 SMs a pair serves poorly, goes to
+``csrc/gotoh_tile.cu`` (tiles over every SM; ``ops.fill_tile``) where
+``fill_tile.route`` says so — the same outputs, counted on
+``fill_tile.gotoh_tile.launches``; each wrapper's own counter counts its
+``gotoh_fill`` launches.
 
 Unlike the TPU path there is no skewed layout and no host unskew
 (``fill_lanes.lanes_moves_to_row``): the kernel writes ``moves[b, i, j]``
@@ -53,6 +59,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import fill_tile
 from .fill_rows import row_fill
 from .fill_scan import BIG
 
@@ -248,7 +255,9 @@ def _plain_strip(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
 
 def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
           col0y_top, want_moves, want_last, counter, col0=None):
-    """Route one fill: the plain version on CPU tensors, else the kernel.
+    """Route one fill: the plain version on CPU tensors; on CUDA tensors
+    ``gotoh_tile`` where ``fill_tile.route`` sends a non-strip fill (a few
+    large pairs), else ``gotoh_fill`` (:func:`_launch`).
     Returns ``(final3, moves, last, edge)``; ``col0`` selects strip mode
     (``edge`` is None otherwise)."""
     m_true, n_true = _check(
@@ -271,9 +280,28 @@ def _fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
         ), None)
     if device.type != "cuda":
         raise ValueError(f"no gotoh_fill route for device {device}")
+    if col0 is None and fill_tile.route(
+        tok_a.shape[0], int(m_true.max()), int(n_true.max()), want_moves,
+        _sms(device.index),
+    ):
+        final3, moves, rows = fill_tile.launch(
+            tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
+            want_moves=want_moves,
+            rows=[[m] for m in m_true.tolist()] if want_last else None,
+            row0=row0, col0y_top=col0y_top,
+        )
+        return final3, moves, None if rows is None else rows[:, 0], None
+    return _launch(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
+                   row0, col0y_top, want_moves, want_last, counter, col0)
 
+
+def _launch(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, row0,
+            col0y_top, want_moves, want_last, counter, col0):
+    """One ``gotoh_fill`` launch on checked CUDA inputs (``_fill``'s
+    arguments, host-side lengths); ``counter.launches`` counts it."""
     from ..utils import cuda_build
 
+    device = tok_a.device
     lib = cuda_build.load()
     batch, m1 = tok_a.shape
     n1 = tok_b.shape[1]

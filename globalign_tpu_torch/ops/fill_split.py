@@ -4,7 +4,8 @@ The port of ``globalign_tpu/ops/fill_lanes.py:lanes_split_fill_cost`` and
 ``globalign_tpu/ops/fill_pallas.py:split_fill_cost`` (the same math):
 split seq_1 at ``mid = m // 2``; fill the top half (rows 1..mid) forward
 and the bottom half (rows m..mid+1) reversed against reversed seq_2, as
-one ``fill_cuda.batch_last_rows`` launch with B = 2; then join across the
+one ``fill_cuda.batch_last_rows`` launch with B = 2 (``gotoh_tile`` or
+``gotoh_fill``, as ``fill_tile.route`` says); then join across the
 middle row in plain torch, as the JAX package does outside its kernels:
 
     cost = min_{j, L, L'} F_L(mid, j) + G_L'(m - mid, n - j)

@@ -6,10 +6,10 @@ full traceback keeps (m+1)(n+1) bytes of move codes; past the aligner's
 moves budget this module aligns in O(n * (m/K + K)) device memory
 instead:
 
-1. **Checkpoint pass** — fill the DP in blocks of K rows with
-   ``fill_cuda.batch_last_rows``, each block seeded (``row0`` /
-   ``col0y_top``) from the last row of the block above; keep each block's
-   last row, (3, n+1).
+1. **Checkpoint pass** — one fill of the whole DP that keeps the last row
+   of each block of K rows, (3, n+1) a block
+   (``fill_tile.checkpoint_rows``: one ``gotoh_tile`` launch on a card,
+   where the JAX package fills a block a call).
 2. **Replay pass** — from (m, n) upward, block by block (last block
    first): re-fill the block with move codes (``fill_cuda.batch_moves``,
    same seeds), then walk them where they lie (``walk_block``), which
@@ -29,8 +29,10 @@ tapes; the host then rebuilds the strings from the tapes alone
 fill work is 2x a plain fill; the path is bit-identical to the
 full-matrix traceback (same codes, tie order M > Ix > Iy).
 
-Routing is by device only: on CUDA tensors the kernels (``gotoh_fill``,
-``walk_block``), on CPU tensors their plain versions; anything else raises.
+Routing is by device only: on CUDA tensors the kernels (``gotoh_tile``
+for the checkpoint pass; the replays as ``fill_cuda.batch_moves`` routes
+them, to ``gotoh_tile`` or ``gotoh_fill``; ``walk_block``), on CPU tensors
+their plain versions; anything else raises.
 Unlike the JAX module there is no backend ladder, no probe and no padding
 of n: the kernels take run-time lengths.
 
@@ -46,7 +48,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .fill_cuda import RaggedMoves, batch_last_rows, batch_moves
+from .fill_cuda import RaggedMoves, batch_moves
+from .fill_tile import checkpoint_rows
 from .fill_scan import default_boundary
 from .traceback import (
     GAP_CHAR,
@@ -337,20 +340,16 @@ def align_blocked(
 
         sharded = ShardedCheckpointFill(mesh, tok_b, cost_mat, gap_id, go)
         state = sharded.pad_row0(row0)
-    for b in range(nblocks):
-        i0, i1 = bounds[b], bounds[b + 1]
-        if sharded is not None:
+    if sharded is not None:
+        for b in range(nblocks):
+            i0, i1 = bounds[b], bounds[b + 1]
             state = sharded.block_last_rows(
                 tok_a[i0 : i1 + 1], state, col0[:, i0 : i1 + 1]
             )
             rows.append(state[None, :, : n + 1].contiguous())
-            continue
-        rows.append(
-            batch_last_rows(
-                tok_a[None, i0 : i1 + 1], tok_b[None], cost_mat, gap_id, go,
-                [i1 - i0], [n], row0=rows[b], col0y_top=c0_top[i0 : i0 + 1],
-            )
-        )
+    else:  # every block's last row from one fill
+        ck = checkpoint_rows(tok_a, tok_b, cost_mat, gap_id, go, bounds[1:])
+        rows += [ck[b][None] for b in range(nblocks)]
     mark("checkpoints")
     final3 = rows[-1][0, :, n]
 

@@ -92,6 +92,17 @@ SIGNATURES = {
         "walk_tile_cols": ([], _I32),
         "walk_block_error_string": ([_I32], ctypes.c_char_p),
     },
+    "gotoh_tile": {
+        "gotoh_tile_launch": (
+            # tok_a tok_b cost row0 col0y_top meta order final3 moves
+            # rows_out rowbuf colbuf flags
+            [_PTR] * 13
+            + [_I32] * 10  # B M N A gap go K tiles H W
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "gotoh_tile_error_string": ([_I32], ctypes.c_char_p),
+    },
     "wave_split": {
         "wave_split_launch": (
             [_PTR] * 7  # tok_a tok_b out order rowbuf colbuf flags

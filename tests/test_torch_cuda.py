@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from globalign_tpu_torch import GotohAligner, find_global_alignment, resolve_scheme
-from globalign_tpu_torch.ops import fill_cuda, fill_split, linear_tb
+from globalign_tpu_torch.ops import fill_cuda, fill_split, fill_tile, linear_tb
 
 pytestmark = pytest.mark.cuda
 
@@ -109,13 +109,19 @@ def test_kernel_matches_plain_with_the_strip_state_in_global_memory(cuda_device)
 
 
 def test_main_path_runs_the_kernel(cuda_device):
+    """One fill launch (gotoh_tile where fill_tile.route sends the pair,
+    gotoh_fill else) and one walk launch."""
     rng = np.random.default_rng(8)
     s1 = "".join(rng.choice(list("ACGT"), 300))
     s2 = "".join(rng.choice(list("ACGT"), 280))
-    before = (fill_cuda.batch_moves.launches, linear_tb.walk_block.launches)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tiled = fill_tile.route(1, 300, 280, True, sms)
+    before = (fill_cuda.batch_moves.launches, fill_tile.gotoh_tile.launches,
+              linear_tb.walk_block.launches)
     got = find_global_alignment(seq_1=s1, seq_2=s2, device="cuda")
-    assert (fill_cuda.batch_moves.launches,
-            linear_tb.walk_block.launches) == (before[0] + 1, before[1] + 1)
+    assert (fill_cuda.batch_moves.launches, fill_tile.gotoh_tile.launches,
+            linear_tb.walk_block.launches) == (
+        before[0] + (not tiled), before[1] + tiled, before[2] + 1)
     want = find_global_alignment(seq_1=s1, seq_2=s2, device="cpu")
     assert got == want and str(got) == str(want)
 
@@ -327,10 +333,16 @@ def test_blocked_align_matches_full_matrix(cuda_device):
         scheme = resolve_scheme(s1, s2, **kw)
         full = GotohAligner(scheme, device="cuda").align(s1, s2)
         small = GotohAligner(scheme, device="cuda", moves_budget_bytes=4096)
-        before = (fill_cuda.batch_last_rows.launches, linear_tb.walk_block.launches)
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        tiled = fill_tile.route(1, 400, 350, True, sms)  # the one replay
+        before = (fill_cuda.batch_last_rows.launches,
+                  fill_tile.gotoh_tile.launches, linear_tb.walk_block.launches)
         assert small.align(s1, s2) == full
-        assert (fill_cuda.batch_last_rows.launches, linear_tb.walk_block.launches) == (
-            before[0] + 1, before[1] + 1
+        # the checkpoint pass: one gotoh_tile launch; the replay as routed
+        assert (fill_cuda.batch_last_rows.launches,
+                fill_tile.gotoh_tile.launches,
+                linear_tb.walk_block.launches) == (
+            before[0], before[1] + 1 + tiled, before[2] + 1
         )
         assert GotohAligner(scheme, device="cpu", moves_budget_bytes=4096).align(
             s1, s2
@@ -880,3 +892,158 @@ def test_batch_final3_dual_rejects_mixed_devices(cuda_device):
     with pytest.raises(ValueError, match="is on"):
         fill_batch.batch_final3_dual(args[0].to(cuda_device),
                                      args[1].to(cuda_device), *args[2:])
+
+
+# -- gotoh_tile: one pair's fill over the whole card -------------------------
+
+PROTEIN = "ARNDCQEGHILKMFPSTWYV"
+
+
+def _tile_shapes(height, width):
+    """Pairs at a tile shape's edges: k H +- 1 rows, k 32 W +- 1 columns,
+    m or n of 0 and 1, and two pairs of different shapes in one launch."""
+    cols = 32 * width
+    return [
+        [(height - 1, cols - 1)], [(height, cols)], [(height + 1, cols + 1)],
+        [(2 * height + 1, 3 * cols - 1)], [(3 * height - 1, 2 * cols + 1)],
+        [(1, 1)], [(1, 3 * cols + 1)], [(3 * height + 1, 1)], [(0, 5)],
+        [(5, 0)], [(0, 0)],
+        [(2 * height + 1, cols + 1), (height - 1, 2 * cols + 3)],
+    ]
+
+
+def _assert_tile_equals_plain(dev, args, shape, rows=None, **inj):
+    """gotoh_tile on the card == its plain version, one launch a call:
+    final3, codes, and the rows (the last row by default)."""
+    rows = rows or [[m] for m in args[5]]
+    dev_inj = {k: v.to(dev) for k, v in inj.items()}
+    for want_moves in (True, False):
+        want = fill_tile.gotoh_tile(*args, want_moves=want_moves, rows=rows,
+                                    **inj)
+        before = fill_tile.gotoh_tile.launches
+        got = fill_tile.gotoh_tile(*_on(dev, args), want_moves=want_moves,
+                                   rows=rows, shape=shape, **dev_inj)
+        torch.cuda.synchronize()
+        assert fill_tile.gotoh_tile.launches == before + 1
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert torch.equal(g.cpu(), w), (shape, args[5], args[6])
+
+
+@pytest.mark.parametrize("shape", fill_tile.SHAPES)
+@pytest.mark.parametrize("letters,scheme_kw", [
+    ("ACGT", {}), (PROTEIN, dict(scoring_mat_name="BLOSUM62")),
+    ("ACGT", dict(gap_open_cost=0)),
+])
+def test_gotoh_tile_matches_plain_at_its_tile_edges(cuda_device, shape,
+                                                    letters, scheme_kw):
+    """Every (H, W) instance at its tile edges, B = 1 and 2: final3, every
+    code, the last row; and the same fills injected below row m // 2."""
+    height, width = shape
+    for k, shapes in enumerate(_tile_shapes(height, width)):
+        rng = np.random.default_rng(100 * height + 10 * width + k)
+        args = _case(rng, letters, shapes, **scheme_kw)
+        _assert_tile_equals_plain(cuda_device, args, shape)
+        blk, top, c0 = _checkpointed(args, [m // 2 for m in args[5]])
+        _assert_tile_equals_plain(cuda_device, blk, shape, row0=top,
+                                  col0y_top=c0)
+
+
+@pytest.mark.parametrize("shape", fill_tile.SHAPES)
+def test_gotoh_tile_checkpoint_rows_match_plain(cuda_device, shape):
+    """Lists of rows (0, 1, every tile row's edges, m) from one launch,
+    plain and injected, equal the row scan block by block."""
+    height, _ = shape
+    rng = np.random.default_rng(height)
+    args = _case(rng, "ACGT", [(5 * height + 3, 700)])
+    m = args[5][0]
+    lists = [[m], [0, m], [1, height - 1, height, height + 1, m - 1, m],
+             list(range(1, m + 1, 37)) + [m], list(range(0, m + 1))]
+    for rows in lists:
+        _assert_tile_equals_plain(cuda_device, args, shape, rows=[rows])
+    blk, top, c0 = _checkpointed(args, [height + 7])
+    _assert_tile_equals_plain(cuda_device, blk, shape,
+                              rows=[[1, height, blk[5][0]]], row0=top,
+                              col0y_top=c0)
+
+
+def test_gotoh_tile_takes_a_table_in_global_memory(cuda_device):
+    """A 400-letter alphabet: its table does not fit in shared memory."""
+    rng = np.random.default_rng(16)
+    letters = "".join(chr(0x4E00 + k) for k in range(399))
+    for shape in fill_tile.SHAPES:
+        _assert_tile_equals_plain(cuda_device, _case(rng, letters, [(70, 300)]),
+                                  shape)
+
+
+def _fill_launches():
+    return (fill_cuda.batch_moves.launches, fill_cuda.batch_last_rows.launches,
+            fill_tile.gotoh_tile.launches)
+
+
+def test_single_pair_align_on_gotoh_tile(cuda_device):
+    """A pair that fill_tile.route sends to gotoh_tile: one gotoh_tile and
+    one walk_block launch, equal to device='cpu'."""
+    rng = np.random.default_rng(17)
+    s1 = "".join(rng.choice(list("ACGT"), 1200))
+    s2 = "".join(rng.choice(list("ACGT"), 1100))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert fill_tile.route(1, 1200, 1100, True, sms)
+    before = _fill_launches(), linear_tb.walk_block.launches
+    got = find_global_alignment(seq_1=s1, seq_2=s2, device="cuda")
+    after = _fill_launches(), linear_tb.walk_block.launches
+    assert after == ((before[0][0], before[0][1], before[0][2] + 1),
+                     before[1] + 1)
+    want = find_global_alignment(seq_1=s1, seq_2=s2, device="cpu")
+    assert got == want and str(got) == str(want)
+
+
+def test_blocked_checkpoint_pass_is_one_launch(cuda_device):
+    """3000 x 2500 in blocks: the checkpoint pass is one gotoh_tile launch,
+    each replay one fill where fill_tile.route sends it; = device='cpu'."""
+    rng = np.random.default_rng(18)
+    s1 = "".join(rng.choice(list("ACGT"), 3000))
+    s2 = "".join(rng.choice(list("ACGT"), 2500))
+    scheme = resolve_scheme(s1, s2)
+    budget = 2_000_000
+    bounds = linear_tb.block_bounds(3000, 2500, block_moves_bytes=budget)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tiled = sum(fill_tile.route(1, i1 - i0, 2500, True, sms)
+                for i0, i1 in zip(bounds, bounds[1:]))
+    before = _fill_launches()
+    got = GotohAligner(scheme, moves_budget_bytes=budget, device="cuda").align(
+        s1, s2)
+    after = _fill_launches()
+    nblocks = len(bounds) - 1
+    assert nblocks >= 4
+    assert after == (before[0] + nblocks - tiled, before[1],
+                     before[2] + 1 + tiled)
+    want = GotohAligner(scheme, moves_budget_bytes=budget, device="cpu").align(
+        s1, s2)
+    assert got == want
+
+
+@pytest.mark.parametrize("m,n", [(2048, 1900), (1025, 4000)])
+def test_split_cost_on_gotoh_tile(cuda_device, m, n):
+    """cost() from SPLIT_MIN_ROWS rows: the 2-pair last-rows fill where
+    fill_tile.route sends it, equal to the plain split and the direct fill."""
+    from globalign_tpu_torch.models.gotoh import SPLIT_MIN_ROWS
+
+    rng = np.random.default_rng(m + n)
+    ta, tb, cost, gid, go, _, _ = _case(rng, "ACGT", [(m, n)])
+    assert m >= SPLIT_MIN_ROWS
+    want = fill_split.split_fill_cost(ta[0], tb[0], cost, gid, go)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tiled = fill_tile.route(2, m - m // 2, n, False, sms)
+    before = _fill_launches()
+    got = fill_split.split_fill_cost(
+        ta[0].to(cuda_device), tb[0].to(cuda_device), cost.to(cuda_device), gid, go
+    )
+    after = _fill_launches()
+    assert after == (before[0], before[1] + (not tiled), before[2] + tiled)
+    direct, _ = fill_cuda.batch_moves(
+        ta.to(cuda_device), tb.to(cuda_device), cost.to(cuda_device), gid, go,
+        [m], [n], want_moves=False,
+    )
+    assert int(got) == int(want) == int(direct.min())
