@@ -12,8 +12,10 @@ phase fails:
      parallel) and print the build time, and ``ptxas -v`` of
      ``gotoh_batch`` (beside its earlier registers), ``gotoh_batch_moves``
      (a spill fails the phase), ``wave_split``, every ``gotoh_fill``
-     instance, both ``walk_block`` kernels and every ``gotoh_tile``
-     instance (a spill fails the phase) (registers, spills, occupancy);
+     instance, both ``walk_block`` kernels, every ``gotoh_tile``
+     instance and the ``tokenize`` and ``render`` instances (a spill
+     in either of the last three fails the phase) (registers, spills,
+     occupancy);
   1. kernel vs plain, on the card against the plain versions on the CPU,
      same seeded inputs, tolerance 0 (all integers): ``batch_moves``
      (final3 and every move code) on ``gotoh_fill`` (``fill_tile.route``
@@ -82,7 +84,15 @@ phase fails:
      chunk); a lowered moves budget (three or more segments and a blocked
      pair); a call with pairs on both sides of 1024 columns (both routes,
      one walk); ``flush=False`` +
-     ``resolve()``; the
+     ``resolve()`` (render queued, nothing fetched before ``resolve()``);
+     every unsharded call one letters upload, one ``tokenize_ragged``
+     launch, one ``render_ragged`` launch a traceback segment and one
+     fetch; ``tokenize_ragged`` and ``render_ragged`` against their plain
+     versions (run on the card on the same tensors) on both chunks as
+     ``align_pairs`` packs them, each chunk's segment rendered from its own
+     fill and walk (lines = the numpy route's ``render_many``), a 1024-pair
+     chunk under the non-ASCII matrix, and rows and lines past byte 2^31
+     of a 2.2 GB arena and a 3.2 GB lines buffer; the
      batch CLI on the card and on the CPU (byte-identical TSVs); the
      parallel layer: on an NCCL world of one, ``align_pairs(mesh=)`` on both
      chunks (= unsharded, same launches) and ``sharded_pair_cost`` on a
@@ -123,7 +133,11 @@ phase fails:
      20 000 x 512, codes and cost only), each beside the critical-path
      model (tiles on the path x the tile time); the walk kernel beside the plain walk; ``align_pairs`` at
      64 x 1024², 64 x 4096² and the two chunks, both modes, split into
-     device fill and walk and host enqueue, fetch and render; each traceback
+     device fill and walk and every host phase of ``phase_seconds``;
+     ``tokenize_ragged`` and ``render_ragged`` on both chunks beside their
+     plain versions on the card and their byte bounds, and the numpy route
+     they replaced (``_encode_bucket`` and two uploads a bucket; the tapes
+     fetched and ``render_many``) timed in the same call; each traceback
      chunk's one ragged fill and one ragged walk in device time beside
      their bounds and plain versions, the same fill on ``gotoh_fill``'s
      ragged mode, and the per-bucket launches they replace; the moves
@@ -454,6 +468,7 @@ def main() -> int:
         fill_tile,
         fill_wave,
         linear_tb,
+        packed,
     )
     import torch.distributed as dist
 
@@ -488,7 +503,8 @@ def main() -> int:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for stem in ("gotoh_batch", "gotoh_batch_moves", "wave_split",
-                     "gotoh_fill", "walk_block", "gotoh_tile")
+                     "gotoh_fill", "walk_block", "gotoh_tile", "tokenize",
+                     "render")
     }
     libs = cuda_build.build(cuda_build.sources() + [peaks.SOURCE])
     cuda_build.load()
@@ -593,6 +609,20 @@ def main() -> int:
             v["spill_bytes"] for v in tile_regs.values()):
         raise SystemExit("phase 0 failed: gotoh_tile instances or spills")
 
+    # A call's letters: tokenize (bytes, code points) and render (bytes,
+    # code points), an instance each.  A spill fails the phase.
+    letters_regs = {}
+    for stem in ("tokenize", "render"):
+        for args, regs, spills, stack, _ in ptxas_report(stem):
+            letters_regs[f"{stem} {args}"] = dict(
+                registers=regs, spill_bytes=spills, stack_bytes=stack)
+    log("phase 0: tokenize and render (ptxas -v, sm_90a): " + "; ".join(
+        f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes, "
+        f"{v['stack_bytes']} stack bytes" for k, v in sorted(letters_regs.items())))
+    if len(letters_regs) != 4 or any(
+            v["spill_bytes"] for v in letters_regs.values()):
+        raise SystemExit("phase 0 failed: tokenize / render instances or spills")
+
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     counters = {
@@ -606,7 +636,12 @@ def main() -> int:
         "walk_ragged": linear_tb.walk_ragged,
         "batch_moves_warp": fill_batch.batch_moves_warp,
         "gotoh_tile": fill_tile.gotoh_tile,
+        "tokenize_ragged": packed.tokenize_ragged,
+        "render_ragged": packed.render_ragged,
     }
+    # Copies counted beside the launches: an unsharded align_pairs call's
+    # one letters upload and the batch path's one fetch.
+    copies = {"letters_upload": packed.upload, "fetch": batch_mod._to_host}
 
     # gotoh_fill launches on the main paths by (mode, B, M, N): those
     # between reset_counts() and the read_counts() that add_main() takes.
@@ -617,16 +652,20 @@ def main() -> int:
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
+        for fn in copies.values():
+            fn.copies = 0
         fill_tally.clear()
 
     def read_counts():
         tally_read.clear()
         tally_read.update(fill_tally)
-        return {name: fn.launches for name, fn in counters.items()}
+        return {**{name: fn.launches for name, fn in counters.items()},
+                **{name: fn.copies for name, fn in copies.items()}}
 
     def launches(**kw):
-        """A launch design: the given counts, 0 for every other wrapper."""
-        return dict(dict.fromkeys(counters, 0), **kw)
+        """A launch design: the given counts, 0 for every other wrapper
+        and copy."""
+        return dict(dict.fromkeys([*counters, *copies], 0), **kw)
 
     def design(*fills, **kw):
         """A launch design: ``launches(**kw)`` plus one launch a non-strip
@@ -644,7 +683,7 @@ def main() -> int:
         return [(1, i1 - i0, n, True, "batch_moves")
                 for i0, i1 in zip(bounds, bounds[1:])]
 
-    main_launches = dict.fromkeys(counters, 0)
+    main_launches = dict.fromkeys([*counters, *copies], 0)
 
     def add_main(counts):
         for name, k in counts.items():
@@ -1802,6 +1841,10 @@ def main() -> int:
                             max(n for _, n in group), True, "batch_moves"))
         return out
 
+    # An unsharded call's letters: one upload, one tokenize launch, one
+    # fetch (and one render launch a traceback segment).
+    packed_design = dict(letters_upload=1, tokenize_ragged=1, fetch=1)
+
     def cost_launches(pairs):
         """gotoh_batch launches of a cost-only align_pairs call: one per
         width class of the pairs (every bucket within the cap)."""
@@ -1832,8 +1875,10 @@ def main() -> int:
             add_main(counts)
             chunk_results[name, with_tb] = (got, counts)
             chunk_design = (  # cost-only: one gotoh_batch launch a width class
-                launches(batch_moves_warp=nwarp, walk_ragged=nwalks)
-                if with_tb else launches(batch_final3=cost_launches(pairs))
+                launches(batch_moves_warp=nwarp, walk_ragged=nwalks,
+                         render_ragged=nwalks, **packed_design)
+                if with_tb else launches(batch_final3=cost_launches(pairs),
+                                         **packed_design)
             )
             if counts != chunk_design:
                 raise SystemExit(f"phase 2 failed: align_pairs {name} "
@@ -1865,8 +1910,9 @@ def main() -> int:
                 f"32 = device='cpu'; launches {counts} (cost-only: one "
                 f"gotoh_batch launch a width class; traceback: one "
                 f"gotoh_batch_moves launch a width class, no gotoh_fill "
-                f"launch, and one ragged walk a segment; a launch a bucket "
-                f"made {nbuckets})")
+                f"launch, and one ragged walk and one render a segment; "
+                f"one letters upload, one tokenize, one fetch a call; a "
+                f"launch a bucket made {nbuckets})")
 
     # A lowered budget: the 300-nt pairs split into three or more segments
     # and the 1200 x 1100 pair goes blocked; equal to the default budget's
@@ -1889,7 +1935,7 @@ def main() -> int:
     mixed_design = design(  # the blocked pair: its checkpoint pass and replay
         *blocked_fills(1200, 1100), batch_moves_warp=nwarp,
         batch_moves_ragged=nfills, walk_ragged=nsegs, gotoh_tile=1,
-        walk_block=1)
+        walk_block=1, render_ragged=nsegs, **packed_design)
     cpu = align_pairs(mixed, device="cpu")
     if [fields(r) for r in got] != [fields(r) for r in want] or [
         fields(r) for r in cpu
@@ -1915,7 +1961,8 @@ def main() -> int:
     nwarp, nfills, nsegs = traceback_launches(
         wide_call, batch_mod.DEVICE_WALK_MOVES_BUDGET, 5)
     wide_design = launches(batch_moves_warp=nwarp, batch_moves_ragged=nfills,
-                           walk_ragged=nsegs)
+                           walk_ragged=nsegs, render_ragged=nsegs,
+                           **packed_design)
     aligner = GotohAligner(resolve_scheme(DNA, DNA), device="cuda")
     single = [fields(aligner.align(a, b)) for a, b in wide_call]
     cpu = align_pairs(wide_call, device="cpu")
@@ -1939,8 +1986,148 @@ def main() -> int:
     add_main(counts)
     if [fields(r) for r in got] != [fields(r) for r in want]:
         raise SystemExit("phase 2 failed: flush=False then resolve() != flush")
+    if (counts["fetch"], counts["render_ragged"], counts["tokenize_ragged"],
+            counts["letters_upload"]) != (0, 1, 1, 1):
+        raise SystemExit(f"phase 2 failed: flush=False fetched or did not "
+                         f"queue its render: {counts}")
     log(f"phase 2: align_pairs(flush=False).resolve() = flush=True on the DNA "
         f"chunk; launches {counts}")
+
+    # -- phase 2, a call's letters: tokenize_ragged and render_ragged -----
+    # Each kernel against its plain version (ops/packed.py, run on the card
+    # on the same tensors), tolerance 0, at the main path's shapes: both
+    # 1024-pair chunks packed as align_pairs packs them, each chunk's
+    # traceback segment rendered from the tapes of its own fill and walk; a
+    # 1024-pair chunk under the non-ASCII matrix (code points); and an arena
+    # and a lines buffer whose rows lie past byte 2^31 (ROADMAP C1).  The
+    # rendered lines of both ASCII chunks also = the numpy route's strings
+    # (the tapes fetched, reversed behind their left moves,
+    # linear_tb.render_many).
+    def pack_of(pairs, scheme):
+        """align_pairs' pack of ``pairs`` on the card, uploaded and
+        tokenized: (the packed call, the pairs in pack order)."""
+        keys = {}
+        for k, (a, b) in enumerate(pairs):
+            keys.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                            []).append(k)
+        spec = [([pairs[i][0] for i in idx], [pairs[i][1] for i in idx], mm, nn)
+                for (mm, nn), idx in keys.items()]
+        call = packed.pack_call(scheme.alphabet, spec, with_render=True,
+                                pin=True)
+        call.upload(dev)
+        call.tokenize()
+        return call, [pairs[i] for idx in keys.values() for i in idx]
+
+    def walked(call, order, scheme):
+        """The chunk's one traceback segment on the card: (ops, count,
+        j_exit) of its ragged fill and walk over the arena's buckets."""
+        cost = torch.from_numpy(np.ascontiguousarray(
+            scheme.costing.values, dtype=np.int32)).to(dev)
+        tas, tbs, mts, nts, row = [], [], [], [], 0
+        for k, (_, _, nb, _, _) in enumerate(call.slots):
+            ta, tb = call.bucket(k)
+            tas.append(ta)
+            tbs.append(tb)
+            mts.append([len(a) for a, _ in order[row : row + nb]])
+            nts.append([len(b) for _, b in order[row : row + nb]])
+            row += nb
+        filled = fill_cuda.batch_moves_ragged(
+            tas, tbs, cost, scheme.alphabet.gap_id, scheme.gap_open_cost,
+            mts, nts)
+        return linear_tb.walk_ragged(filled)
+
+    def token_check(call, shift=0):
+        """max |tokenize_ragged - tokenize_plain| over the arena, the rows
+        placed ``shift`` tokens further into an arena of their own."""
+        want = packed.tokenize_plain(call.letters, call.table, call.token_desc,
+                                     torch.zeros_like(call.arena))
+        desc = call.token_desc.clone()
+        desc[:, 2] += shift
+        arena = torch.zeros(shift + call.arena_size, dtype=torch.int32,
+                            device=dev)
+        packed.tokenize_ragged(call.letters, call.table, desc, arena)
+        torch.cuda.synchronize()
+        return int((arena[shift:].long() - want.long()).abs().max())
+
+    def render_check(call, walk, base=0):
+        """max |render_ragged - render_plain| over the lines and ends, the
+        lines written from ``base`` into a buffer of their own."""
+        ops, count, j_exit = walk
+        lens = count.long() + j_exit.long()
+        total = int(lens.sum())
+        want = torch.zeros_like(call.lines())
+        packed.render_plain(ops, count, j_exit, torch.cumsum(lens, 0) - lens,
+                            call.letters, call.render_desc, want)
+        got = torch.zeros((3, base + call.line_cap), dtype=want.dtype,
+                          device=dev)
+        ends = packed.render_ragged(
+            ops, count, j_exit, call.letters, call.render_desc, got,
+            torch.tensor([base], dtype=torch.int64, device=dev))
+        torch.cuda.synchronize()
+        err = int((got[:, base : base + total].long()
+                   - want[:, :total].long()).abs().max())
+        return max(err, int((ends - base - torch.cumsum(lens, 0)).abs().max()))
+
+    def numpy_strings(walk, order):
+        """The numpy route's lines: the tapes fetched, each reversed behind
+        its row-0 left moves, linear_tb.render_many."""
+        tapes, counts, j_exits = (x.cpu().numpy() for x in walk)
+        fwd = [np.concatenate((np.full(j_exits[k], linear_tb.OP_LEFT, np.uint8),
+                               tapes[k, : counts[k]][::-1]))
+               for k in range(len(order))]
+        return linear_tb.render_many(fwd, [a for a, _ in order],
+                                     [b for _, b in order])
+
+    packed_rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mtx = Path(tmp) / "unicode.mtx"
+        mtx.write_text(uni_mtx, encoding="utf-8")
+        letter_sets = {
+            "dna": chunks["dna"],
+            "blosum62": chunks["blosum62"],
+            "non-ASCII": (serving_chunk(rng, uni_letters, 1024, 819, 1024),
+                          dict(scoring_mat_path=mtx)),
+        }
+        for name, (pairs, kw) in letter_sets.items():
+            scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
+            call, order = pack_of(pairs, scheme)
+            tok_err = token_check(call)
+            walk = walked(call, order, scheme)
+            ren_err = render_check(call, walk)
+            lines = call.lines()
+            ends = packed.render_ragged(*walk, call.letters, call.render_desc,
+                                        lines)
+            host_lines, host_ends = batch_mod._to_host([lines, ends])
+            strings = packed.decode_lines(host_lines, host_ends, call.wide)
+            same = strings == numpy_strings(walk, order)
+            packed_rec[name] = dict(
+                call=call, walk=walk, order=order, scheme=scheme,
+                tokenize_err=tok_err, render_err=ren_err, wide=call.wide,
+            )
+            log(f"phase 2: tokenize_ragged / render_ragged on the {name} "
+                f"chunk ({len(pairs)} pairs, {len(call.slots)} buckets, "
+                f"{'code points' if call.wide else 'bytes'}): max abs err "
+                f"against the plain versions {tok_err} / {ren_err}; lines = "
+                f"the numpy route's: {same}")
+            if tok_err or ren_err or not same:
+                raise SystemExit(f"phase 2 failed: tokenize_ragged / "
+                                 f"render_ragged on the {name} chunk")
+        # Past byte 2^31: the DNA chunk's rows 2^29 + 64 tokens into an
+        # arena (2.2 GB), its lines from 2^30 + 4096 letters on in a lines
+        # buffer of 3 rows (line 1 from byte 2^31 + 8192 on, 3.2 GB).
+        rec = packed_rec["dna"]
+        far_tok = token_check(rec["call"], shift=(1 << 29) + 64)
+        far_ren = render_check(rec["call"], rec["walk"], base=(1 << 30) + 4096)
+        log(f"phase 2: tokenize_ragged with its rows past byte 2^31 of a "
+            f"{4 * ((1 << 29) + 64 + rec['call'].arena_size) / 1e9:.2f} GB "
+            f"arena, render_ragged with its lines past byte 2^31 of a "
+            f"{3 * ((1 << 30) + 4096 + rec['call'].line_cap) / 1e9:.2f} GB "
+            f"buffer: max abs err {far_tok} / {far_ren}")
+        if far_tok or far_ren:
+            raise SystemExit("phase 2 failed: tokenize / render past byte 2^31")
+        torch.cuda.empty_cache()
+    packed_err = max(max(r["tokenize_err"], r["render_err"])
+                     for r in packed_rec.values())
 
     # The batch CLI on the card and on the CPU: the same results TSV, byte
     # for byte, and the same manifest fingerprint.
@@ -1993,8 +2180,8 @@ def main() -> int:
                 pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET)
             want_counts = (  # the mesh path keeps a launch a bucket shard
                 design(*mesh_fills(pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET),
-                       walk_block=nsubs) if with_tb
-                else launches(batch_final3=nbuckets))
+                       walk_block=nsubs, fetch=1) if with_tb
+                else launches(batch_final3=nbuckets, fetch=1))
             torch.cuda.synchronize()
             reset_counts()
             got = align_pairs(pairs, scheme=scheme, with_traceback=with_tb,
@@ -2394,6 +2581,11 @@ def main() -> int:
     log(f"phase 2: compat leg end to end on {card}, ms: "
         + json.dumps(compat_ms))
     log(f"phase 2: launches on the main paths: {main_launches}")
+    idle = [k for k in counters
+            if k != "batch_last_rows" and not main_launches[k]]
+    if idle:  # batch_last_rows is gotoh_fill's, counted with batch_moves
+        raise SystemExit(f"phase 2 failed: kernels never launched on the "
+                         f"main paths: {idle}")
     census_total = sum(census.values())
     if census_total != (main_launches["batch_moves"]
                         + main_launches["batch_last_rows"]
@@ -2891,12 +3083,12 @@ def main() -> int:
                 1e3 * total,
                 sum(s.elapsed_time(e) for s, e in spans["fill"]),
                 sum(s.elapsed_time(e) for s, e in spans["walk"]),
-                1e3 * phases.get("fill", 0.0),
-                1e3 * phases.get("fetch", 0.0),
-                1e3 * phases.get("traceback", 0.0),
-                1e3 * phases.get("encode", 0.0),
+                {k: 1e3 * v for k, v in phases.items()},
             ))
-        return [float(np.median(col)) for col in zip(*rows)]
+        names = sorted({k for row in rows for k in row[3]})
+        return [float(np.median(col)) for col in list(zip(*rows))[:3]] + [
+            {k: float(np.median([row[3].get(k, 0.0) for row in rows]))
+             for k in names}]
 
     def bucket_inputs(pairs, scheme):
         """align_pairs' buckets of ``pairs`` as fill arguments on the card."""
@@ -2991,19 +3183,22 @@ def main() -> int:
         "1024-pair BLOSUM62 chunk": chunks["blosum62"],
     }
     arm_cost = {}
+    serving_rec = {}  # (arm, traceback) -> e2e, device fill / walk, phases
     for arm, (pairs, kw) in arms.items():
         scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
         cells = sum(len(a) * len(b) for a, b in pairs)
         for with_tb in (False, True):
-            tot, fill_ms, walk_ms_b, enq, fetch, render, enc = time_align_pairs(
+            tot, fill_ms, walk_ms_b, phase_ms = time_align_pairs(
                 pairs, scheme, with_tb
             )
+            serving_rec[arm, with_tb] = dict(e2e=tot, fill=fill_ms,
+                                             walk=walk_ms_b, phases=phase_ms)
             log(f"phase 3: align_pairs {arm} traceback={with_tb} on {card}: "
                 f"{tot:.4f} ms ({len(pairs) / tot * 1e3:.2f} pairs/s, "
                 f"{cells / tot / 1e6:.4f} GCUPS); device: fill {fill_ms:.4f} ms"
-                f", walk {walk_ms_b:.4f} ms; host: encode {enc:.4f} ms, enqueue "
-                f"{enq:.4f} ms, fetch (wait + copy) {fetch:.4f} ms, render "
-                f"{render:.4f} ms")
+                f", walk {walk_ms_b:.4f} ms; host phases (ms, phase_seconds): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in phase_ms.items())
+                + f"; their sum {sum(phase_ms.values()):.4f} ms")
         buckets = bucket_inputs(pairs, scheme)
         ragged = [list(x) for x in zip(*buckets)]  # the main path's one call
         ragged[2:5] = buckets[0][2:5]
@@ -3032,6 +3227,92 @@ def main() -> int:
             f"call) {gr:.4f} ms ({cells / gr / 1e6:.4f} GCUPS), one "
             f"gotoh_fill launch a bucket {gm:.4f} ms ({cells / gm / 1e6:.4f} "
             f"GCUPS); bound {m_ms:.4f} ms ({m_by})")
+
+    # A call's letters on both chunks: tokenize_ragged and render_ragged
+    # (device time, the card held while the host enqueues) beside their
+    # plain versions on the card and their bounds (bytes: each letter, tape
+    # op, descriptor and table entry read once, each token and line letter
+    # written once, at the HBM rate); then the host steps they replaced,
+    # timed in this call on the same chunk: the numpy route's encode (each
+    # bucket's tokens by _encode_bucket, two pinned uploads a bucket) and
+    # render (one fetch of the tapes, each reversed behind its left moves,
+    # linear_tb.render_many), beside align_pairs' pack and its render,
+    # fetch and decode phases (above).
+    def packed_times(rec):
+        call, walk, order, scheme = (rec[k] for k in ("call", "walk", "order",
+                                                      "scheme"))
+        ops, count, j_exit = walk
+        size = call.letters.element_size()
+        tok_bytes = (call.letters.numel() * size + call.table.numel() * 4
+                     + call.token_desc.numel() * 8
+                     + 4 * int(call.token_desc[:, 3].sum()))
+        steps, left = int(count.long().sum()), int(j_exit.long().sum())
+        ren_bytes = (steps + size * call.line_cap + 3 * size * (steps + left)
+                     + 4 * 2 * len(order) + 8 * 3 * len(order)
+                     + call.render_desc.numel() * 8)
+        lines = call.lines()
+        tok_args = (call.letters, call.table, call.token_desc, call.arena)
+        lens = count.long() + j_exit.long()
+        starts = torch.cumsum(lens, 0) - lens
+        out = dict(
+            tokenize_ms=device_ms(lambda: packed.tokenize_ragged(*tok_args), 20),
+            tokenize_plain_ms=cuda_ms(lambda: packed.tokenize_plain(*tok_args), 3),
+            tokenize_bound_ms=1e3 * tok_bytes / hbm_bytes_s,
+            tokenize_bytes=tok_bytes,
+            render_ms=device_ms(lambda: packed.render_ragged(
+                *walk, call.letters, call.render_desc, lines), 20),
+            render_plain_ms=cuda_ms(lambda: packed.render_plain(
+                *walk, starts, call.letters, call.render_desc, lines), 3),
+            render_bound_ms=1e3 * ren_bytes / hbm_bytes_s,
+            render_bytes=ren_bytes,
+        )
+        keys = {}
+        for k, (a, b) in enumerate(order):
+            keys.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                            []).append(k)
+        enc, ren = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for (mm, nn), idx in keys.items():
+                batch_mod._to_device(batch_mod._encode_bucket(
+                    scheme.alphabet, [order[i][0] for i in idx], mm), dev)
+                batch_mod._to_device(batch_mod._encode_bucket(
+                    scheme.alphabet, [order[i][1] for i in idx], nn), dev)
+            torch.cuda.synchronize()
+            enc.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            tapes, counts, j_exits = batch_mod._to_host(
+                [ops.reshape(-1), count, j_exit])
+            width = ops.shape[1]
+            fwd = [np.concatenate((
+                np.full(j_exits[k], linear_tb.OP_LEFT, np.uint8),
+                tapes[k * width : k * width + counts[k]][::-1]))
+                for k in range(len(order))]
+            linear_tb.render_many(fwd, [a for a, _ in order],
+                                  [b for _, b in order])
+            ren.append(1e3 * (time.perf_counter() - t0))
+        out.update(numpy_encode_ms=float(np.median(enc)),
+                   numpy_fetch_and_render_ms=float(np.median(ren)))
+        return out
+
+    for name in ("dna", "blosum62"):
+        packed_rec[name].update(packed_times(packed_rec[name]))
+        r = packed_rec[name]
+        arm = f"1024-pair {'DNA' if name == 'dna' else 'BLOSUM62'} chunk"
+        ph = serving_rec[arm, True]["phases"]
+        log(f"phase 3: a call's letters, the {name} chunk on {card} (device "
+            f"time): tokenize_ragged {r['tokenize_ms']:.4f} ms (plain on the "
+            f"card {r['tokenize_plain_ms']:.4f}, bound {r['tokenize_bound_ms']:.4f}"
+            f" ms, {r['tokenize_bytes']} bytes), render_ragged "
+            f"{r['render_ms']:.4f} ms with its offsets (plain on the card "
+            f"{r['render_plain_ms']:.4f}, bound {r['render_bound_ms']:.4f} ms, "
+            f"{r['render_bytes']} bytes); host, this call: the numpy route's "
+            f"encode {r['numpy_encode_ms']:.4f} ms against align_pairs' pack "
+            f"{ph.get('pack', 0.0):.4f} ms, its fetch + render "
+            f"{r['numpy_fetch_and_render_ms']:.4f} ms against align_pairs' "
+            f"render + fetch + traceback {ph.get('render', 0.0):.4f} + "
+            f"{ph.get('fetch', 0.0):.4f} + {ph.get('traceback', 0.0):.4f} ms")
 
     # The kernel record's bucket: the DNA chunk's largest bucket, one launch.
     dna_buckets = arm_cost["1024-pair DNA chunk"][0]
@@ -4009,6 +4290,56 @@ def main() -> int:
             "blosum62_chunk_ms": blosum_rr["walk_ms"],
             "blosum62_chunk_bound_ms": blosum_rr["walk_bound_ms"],
             "blosum62_per_bucket_launches_ms": blosum_rr["per_bucket_walks_ms"],
+        },
+        {
+            "name": "tokenize_ragged",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/tokenize.cu",
+            "replaces": "native/runtime.cpp:159",
+            "replaces_note": "ga_tokenize, the JAX package's host tokenize "
+                             "(not a Pallas kernel); in the port the numpy "
+                             "encode a bucket, batch._encode_bucket",
+            "launches": main_launches["tokenize_ragged"],
+            "launches_note": "one an unsharded align_pairs call",
+            "max_abs_err": packed_err,
+            "shape": "the 1024-pair DNA chunk's letters (1 byte each) into "
+                     f"its {len(packed_rec['dna']['call'].slots)} buckets' "
+                     "token rows, one launch, device time",
+            "ms": packed_rec["dna"]["tokenize_ms"],
+            "plain_ms": packed_rec["dna"]["tokenize_plain_ms"],
+            "plain_shape": "tokenize_plain on the card, the same tensors",
+            "bound_ms": packed_rec["dna"]["tokenize_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "blosum62_chunk_ms": packed_rec["blosum62"]["tokenize_ms"],
+            "numpy_encode_ms": packed_rec["dna"]["numpy_encode_ms"],
+            "ptxas": {k: v for k, v in letters_regs.items()
+                      if k.startswith("tokenize")},
+        },
+        {
+            "name": "render_ragged",
+            "route": "cuda",
+            "source": "globalign_tpu_torch/csrc/render.cu",
+            "replaces": "native/runtime.cpp:227",
+            "replaces_note": "ga_render_ops, the JAX package's host render "
+                             "(globalign_tpu/batch.py:1097; not a Pallas "
+                             "kernel); in the port linear_tb.render_many",
+            "launches": main_launches["render_ragged"],
+            "launches_note": "one a traceback segment",
+            "max_abs_err": packed_err,
+            "shape": "the 1024-pair DNA chunk's one traceback segment, its "
+                     "offsets (torch.cumsum) and one launch, device time",
+            "ms": packed_rec["dna"]["render_ms"],
+            "plain_ms": packed_rec["dna"]["render_plain_ms"],
+            "plain_shape": "render_plain on the card, the same tensors",
+            "bound_ms": packed_rec["dna"]["render_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "blosum62_chunk_ms": packed_rec["blosum62"]["render_ms"],
+            "numpy_fetch_and_render_ms": packed_rec["dna"][
+                "numpy_fetch_and_render_ms"],
+            "ptxas": {k: v for k, v in letters_regs.items()
+                      if k.startswith("render")},
         },
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,12 @@
 """Batched many-pair alignment: length bucketing, fused fills and walks.
 
 The port of ``globalign_tpu/batch.py`` (``align_pairs`` and its result
-types).  Pairs are padded into (M, N) length buckets:
+types).  Pairs are padded into (M, N) length buckets.  An unsharded call
+first packs the letters of every batched pair on the host and sends them
+to the device in one copy, where one ``tokenize_ragged`` launch writes
+every bucket's tokens into one arena (``ops.packed``: the counterpart of
+the native runtime's ``ga_tokenize``); the buckets the fills take are
+views of it.  Then:
 
   * cost-only: every bucket of the call in one
     ``ops.fill_batch.batch_final3_ragged`` call — one ``gotoh_batch``
@@ -14,21 +19,22 @@ types).  Pairs are padded into (M, N) length buckets:
     to 16 a pair) would pass the moves budget: per segment one ragged moves
     fill (``fill_cuda.batch_moves_ragged``: one ``gotoh_batch_moves``
     launch a width class for the pairs of at most 1024 columns, one
-    ``gotoh_fill`` launch a launch class for the rest) and one ragged walk
+    ``gotoh_fill`` launch a launch class for the rest), one ragged walk
     (``linear_tb.walk_ragged``: one
     ``walk_block`` launch) from each pair's (m, n) at the argmin level of
     its final3 — the counterpart of the JAX package's chunk-wide device
     walk (``_lanes_walk_fills``, ``_mega_walk_flush``, bounded by
-    ``WALK_GROUP_BYTES``) and of ``TB_CHUNK_JIT``.  The codes never leave
-    the device.
+    ``WALK_GROUP_BYTES``) and of ``TB_CHUNK_JIT`` — and one
+    ``render_ragged`` launch that writes every pair's three alignment lines
+    into the call's lines buffer (``ops.packed``: the counterpart of
+    ``ga_render_ops``).  The codes and the op tapes never leave the device.
 
-Final lanes, op tapes, counts and exit columns stay on the device until
-``resolve()`` (or the end of a ``flush=True`` call) brings every bucket's
-results to the host in one synchronisation; the host then prepends the
-row-0 left moves, reverses each tape and renders it
-(``ops.linear_tb.render_ops``).  A pair whose codes alone exceed the moves
-budget takes the blocked linear-space traceback (``linear_tb.align_blocked``)
-on its own, eagerly.
+Final lanes and lines stay on the device until ``resolve()`` (or the end
+of a ``flush=True`` call) brings them to the host in one copy and one
+synchronisation; the host decodes the lines once and cuts them pair by
+pair.  A pair whose codes alone exceed the moves budget takes the blocked
+linear-space traceback (``linear_tb.align_blocked``) on its own, eagerly,
+from its own tokens (``encode_padded``).
 
 With ``mesh=`` (a ``parallel.Mesh``; every rank calls with the same pairs)
 each bucket's batch axis is sharded over the ranks
@@ -39,7 +45,9 @@ all-gathered — every rank returns every result.  Buckets are issued in the
 same order on every rank, so the collectives pair up.  Each rank holds only
 its shard's codes, so a traceback sub-batch may hold the moves budget once
 per rank; blocked pairs pass the mesh on (a column-sharded checkpoint
-pass).  On CPU tensors the same code runs the plain versions
+pass).  The mesh path keeps the host's tokenize a bucket
+(``_encode_bucket``) and renders the fetched tapes on the host
+(``linear_tb.render_many``).  On CPU tensors the same code runs the plain versions
 of the kernels — the counterpart of the JAX package's CPU branch.  Results
 come back in input order with the single-pair API's cost, score and
 alignment.
@@ -71,6 +79,7 @@ import torch
 from .config import ResolvedScheme, resolve_scheme
 from .models.gotoh import GotohAlignment, resolve_device
 from .ops import fill_batch, fill_cuda, linear_tb
+from .ops import packed as packed_mod
 from .ops.transforms import final_cost_to_score
 from .parallel import mesh as mesh_mod
 from .utils.tokenize import GAP, encode_padded
@@ -87,8 +96,8 @@ DEFAULT_BATCH_MOVES_BUDGET = int(
 )
 
 # The same bound on the card, where the codes never leave device memory
-# (only O(m+n) op tapes cross to the host): every traceback bucket is
-# walked on the device.
+# (only the rendered lines cross to the host): every traceback bucket is
+# walked and rendered on the device.
 DEVICE_WALK_MOVES_BUDGET = 1536 * 1024 * 1024
 
 
@@ -97,8 +106,8 @@ class PendingAlignments:
     """A dispatched-but-unfetched :func:`align_pairs` call.
 
     Returned by ``align_pairs(..., flush=False)``: every bucket's fill (and
-    walk, in traceback mode) is queued on the device, nothing has been
-    fetched.  ``resolve()`` waits for the device, fetches, renders and
+    walk and render, in traceback mode) is queued on the device, nothing
+    has been fetched.  ``resolve()`` waits for the device, fetches, renders and
     returns the results — the runner dispatches chunk k+1 before resolving
     chunk k, so the host's fetch and render overlap the device's fills.
     """
@@ -158,7 +167,9 @@ def _moves_budget(device: torch.device) -> int:
 def _encode_bucket(alphabet, seqs: list[str], padded_len: int) -> np.ndarray:
     """(B, padded_len + 1) int32 1-origin tokens: ``encode_padded`` of each
     sequence, vectorised over an ASCII bucket with one lookup table
-    (``encode_padded`` looks every character up in Python)."""
+    (``encode_padded`` looks every character up in Python).  The mesh
+    path's tokenize; an unsharded call tokenizes on its device
+    (``ops.packed``)."""
     out = np.zeros((len(seqs), padded_len + 1), np.int32)
     text = "".join(seqs)
     if text.isascii():
@@ -187,25 +198,53 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
-    """Every tensor on the host after one synchronisation."""
+    """Every tensor on the host: from a card in one device-to-host copy of
+    their bytes and one synchronisation (``_to_host.copies`` counts the
+    copies)."""
     if not tensors or tensors[0].device.type == "cpu":
         return [t.numpy() for t in tensors]
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
+    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
+    host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+    _to_host.copies += 1
+    host.copy_(flat, non_blocking=True)
     torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [h.numpy() for h in host]
+    buf, out, lo = host.numpy(), [], 0
+    for t in tensors:
+        size = t.numel() * t.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(buf[lo : lo + size].view(dtype).reshape(t.shape))
+        lo += size
+    return out
+
+
+_to_host.copies = 0
+
+
+def _raise_unknown(alphabet, pairs, buckets, blocked) -> None:
+    """Raise what encoding the call bucket by bucket raises for a letter
+    outside ``alphabet``: ``Alphabet.encode``'s error for the first such
+    sequence, in the order the per-bucket encode met them (a bucket's
+    seq_1s, then its seq_2s; a blocked bucket pair by pair)."""
+    for key, indices in buckets.items():
+        if key in blocked:
+            seqs = [s for i in indices for s in pairs[i]]
+        else:
+            seqs = [pairs[i][0] for i in indices] + [pairs[i][1] for i in indices]
+        for seq in seqs:
+            alphabet.encode(seq)
 
 
 @dataclass
 class _Dispatched:
     """Pairs on the device — a traceback segment, the call's cost-only
     buckets, or over a mesh one bucket sub-batch: their final lanes and, in
-    traceback mode, their op tapes (row k pair k, walk order), tape lengths
-    and exit columns."""
+    traceback mode, where their rendered lines end in the call's lines
+    buffer (unsharded) or their op tapes (row k pair k, walk order), tape
+    lengths and exit columns (over a mesh)."""
 
     indices: list[int]
     final3: torch.Tensor
+    ends: torch.Tensor | None = None
     ops: torch.Tensor | None = None
     count: torch.Tensor | None = None
     j_exit: torch.Tensor | None = None
@@ -240,14 +279,20 @@ def align_pairs(
     (module docstring); ``device`` is then this rank's.
 
     ``phase_seconds`` (optional dict) accumulates host wall-clock per phase:
-    "encode" (buckets' tokens encoded and, unsharded, sent to the device),
-    "fill" (bucket fills and walks queued), "fetch" (waiting for the device
-    and the device-to-host copies), "traceback" (rendering the strings),
-    "blocked" (pairs past the moves budget, fill to strings).  Each phase is
-    also a ``torch.profiler.record_function`` range, ``globalign.<phase>``.
+    "validate" (checking and upper-casing the pairs), "scheme" (resolving
+    the scheme, its costs to the device), "bucket" (grouping the pairs by
+    padded lengths), "pack" (unsharded: the call's letters packed, sent to
+    the device in one copy and tokenized there), "encode" (over a mesh:
+    each bucket's tokens), "fill" (fills and walks queued), "render"
+    (unsharded traceback: the lines' render queued), "blocked" (pairs past
+    the moves budget, fill to strings), "fetch" (waiting for the device and
+    the device-to-host copy), "traceback" (the lines cut into strings, or
+    over a mesh rendered from the tapes) and "results" (costs to scores and
+    results).  Together they cover the call.  Each phase is also a
+    ``torch.profiler.record_function`` range, ``globalign.<phase>``.
 
     ``flush=False`` returns a :class:`PendingAlignments` whose ``resolve()``
-    runs the fetch and the rendering; nothing synchronises with the device
+    runs the fetch and the rest; nothing synchronises with the device
     before it (pairs past the moves budget excepted).
     """
     dev = resolve_device(device)
@@ -262,43 +307,74 @@ def align_pairs(
                 time.perf_counter() - t0
             )
 
-    pairs = _validate_pairs(pairs)
+    with _phase("validate"):
+        pairs = _validate_pairs(pairs)
     if not pairs:
         return []
 
-    if scheme is None:
-        # Union alphabet across the batch: for simple schemes the matrix
-        # entries depend only on char-class (match/mismatch/gap), so a wider
-        # alphabet leaves every pair's cost and score unchanged relative to
-        # the reference's per-pair alphabet (start.py:355-358).
-        all_1 = "".join(s1 for s1, _ in pairs)
-        all_2 = "".join(s2 for _, s2 in pairs)
-        scheme = resolve_scheme(
-            all_1,
-            all_2,
-            scoring_mat_name=scoring_mat_name,
-            scoring_mat_path=scoring_mat_path,
-            match_score=match_score,
-            mismatch_score=mismatch_score,
-            mismatch_cost=mismatch_cost,
-            gap_open_score=gap_open_score,
-            gap_open_cost=gap_open_cost,
-            gap_extension_score=gap_extension_score,
-            gap_extension_cost=gap_extension_cost,
-        )
-
-    cost_mat = _to_device(np.asarray(scheme.costing.values, np.int32), dev)
+    with _phase("scheme"):
+        if scheme is None:
+            # Union alphabet across the batch: for simple schemes the matrix
+            # entries depend only on char-class (match/mismatch/gap), so a
+            # wider alphabet leaves every pair's cost and score unchanged
+            # relative to the reference's per-pair alphabet
+            # (start.py:355-358).
+            all_1 = "".join(s1 for s1, _ in pairs)
+            all_2 = "".join(s2 for _, s2 in pairs)
+            scheme = resolve_scheme(
+                all_1,
+                all_2,
+                scoring_mat_name=scoring_mat_name,
+                scoring_mat_path=scoring_mat_path,
+                match_score=match_score,
+                mismatch_score=mismatch_score,
+                mismatch_cost=mismatch_cost,
+                gap_open_score=gap_open_score,
+                gap_open_cost=gap_open_cost,
+                gap_extension_score=gap_extension_score,
+                gap_extension_cost=gap_extension_cost,
+            )
+        cost_mat = _to_device(np.asarray(scheme.costing.values, np.int32), dev)
     gap_id = scheme.alphabet.gap_id
     gap_open = scheme.gap_open_cost
 
-    # Bucket by padded (M, N).
-    buckets: dict[tuple[int, int], list[int]] = {}
-    for idx, (s1, s2) in enumerate(pairs):
-        key = (
-            bucket_length(len(s1), bucket_quantum),
-            bucket_length(len(s2), bucket_quantum),
-        )
-        buckets.setdefault(key, []).append(idx)
+    with _phase("bucket"):
+        # Bucket by padded (M, N).
+        buckets: dict[tuple[int, int], list[int]] = {}
+        for idx, (s1, s2) in enumerate(pairs):
+            key = (
+                bucket_length(len(s1), bucket_quantum),
+                bucket_length(len(s2), bucket_quantum),
+            )
+            buckets.setdefault(key, []).append(idx)
+        budget = _moves_budget(dev)
+        # Buckets whose padded pair's codes alone pass the budget: the
+        # checkpointed linear-space traceback, pair by pair.
+        blocked = [key for key in buckets
+                   if with_traceback and fill_cuda.ragged_bytes(*key) > budget]
+        batched = [(key, indices) for key, indices in buckets.items()
+                   if key not in blocked]
+        lengths = [([len(pairs[i][0]) for i in indices],
+                    [len(pairs[i][1]) for i in indices])
+                   for _, indices in batched]
+        segments = (_segments(lengths, budget)
+                    if with_traceback and mesh is None else [])
+
+    packed = lines = None
+    if mesh is None and batched:
+        with _phase("pack"):
+            packed = packed_mod.pack_call(
+                scheme.alphabet,
+                [([pairs[i][0] for i in indices], [pairs[i][1] for i in indices],
+                  M, N) for (M, N), indices in batched],
+                with_render=with_traceback, pin=dev.type == "cuda",
+                on_unknown=lambda: _raise_unknown(scheme.alphabet, pairs,
+                                                  buckets, blocked),
+            )
+            packed.upload(dev)
+            packed.tokenize()
+            if with_traceback:
+                lines = packed.lines()
 
     def score_of(idx: int, cost: int) -> int:
         s1, s2 = pairs[idx]
@@ -308,48 +384,16 @@ def align_pairs(
 
     results: list[PairResult | None] = [None] * len(pairs)
     dispatched: list[_Dispatched] = []
-    budget = _moves_budget(dev)
-    costed = []  # unsharded cost-only buckets: (group, tok_a, tok_b, m, n)
-    segment = []  # the open traceback segment's bucket groups, likewise
-    segment_bytes = 0  # its codes, packed tight
 
-    def encode(group, M, N):
-        with _phase("encode"):
-            tok_a = _encode_bucket(scheme.alphabet, [pairs[i][0] for i in group], M)
-            tok_b = _encode_bucket(scheme.alphabet, [pairs[i][1] for i in group], N)
-            if mesh is None:
-                tok_a, tok_b = _to_device(tok_a, dev), _to_device(tok_b, dev)
-        return (group, tok_a, tok_b, [len(pairs[i][0]) for i in group],
-                [len(pairs[i][1]) for i in group])
-
-    def close_segment():
-        nonlocal segment_bytes
-        groups, tok_as, tok_bs, m_trues, n_trues = zip(*segment)
-        with _phase("fill"):
-            filled = fill_cuda.batch_moves_ragged(
-                tok_as, tok_bs, cost_mat, gap_id, gap_open, m_trues, n_trues
-            )
-            ops, count, j_exit = linear_tb.walk_ragged(filled)
-        dispatched.append(_Dispatched(
-            [idx for group in groups for idx in group], filled.final3, ops,
-            count, j_exit,
-        ))
-        segment.clear()
-        segment_bytes = 0
-
-    for (M, N), indices in buckets.items():
-        per_pair = fill_cuda.ragged_bytes(M, N)  # a padded pair's codes
-        if with_traceback and per_pair > budget:
-            # A single pair's move matrix exceeds the budget: the
-            # checkpointed linear-space traceback, pair by pair.
-            for idx in indices:
-                s1, s2 = pairs[idx]
-                with _phase("blocked"):
-                    tb = linear_tb.align_blocked(
-                        _to_device(encode_padded(scheme.alphabet, s1, len(s1)), dev),
-                        _to_device(encode_padded(scheme.alphabet, s2, len(s2)), dev),
-                        cost_mat, gap_id, gap_open, s1, s2, mesh=mesh,
-                    )
+    for key in blocked:
+        for idx in buckets[key]:
+            s1, s2 = pairs[idx]
+            with _phase("blocked"):
+                tb = linear_tb.align_blocked(
+                    _to_device(encode_padded(scheme.alphabet, s1, len(s1)), dev),
+                    _to_device(encode_padded(scheme.alphabet, s2, len(s2)), dev),
+                    cost_mat, gap_id, gap_open, s1, s2, mesh=mesh,
+                )
                 results[idx] = PairResult(
                     cost=tb.cost,
                     score=score_of(idx, tb.cost),
@@ -357,47 +401,69 @@ def align_pairs(
                     middle_part=tb.middle_part,
                     seq_2_aligned=tb.seq_2_aligned,
                 )
-            continue
-        if mesh is not None:
+
+    def runs(parts):
+        """Rows lo..hi of batched bucket k, for each (k, lo, hi) of
+        ``parts``: (indices, tok_a, tok_b, m_true, n_true) each, the tokens
+        views of the arena."""
+        out = []
+        for k, lo, hi in parts:
+            tok_a, tok_b = packed.bucket(k)
+            m_true, n_true = lengths[k]
+            out.append((batched[k][1][lo:hi], tok_a[lo:hi], tok_b[lo:hi],
+                        m_true[lo:hi], n_true[lo:hi]))
+        return zip(*out)
+
+    if mesh is not None:
+        for (M, N), indices in batched:
             groups = [indices]
             if with_traceback:
                 # Split oversized buckets into sub-batches under the budget
                 # (a rank's share of a sub-batch) rather than losing the
                 # batched path.
-                max_pairs = budget // per_pair * mesh.size
+                max_pairs = budget // fill_cuda.ragged_bytes(M, N) * mesh.size
                 groups = [
                     indices[lo : lo + max_pairs]
                     for lo in range(0, len(indices), max_pairs)
                 ]
             for group in groups:
-                enc = encode(group, M, N)
+                with _phase("encode"):
+                    tok_a = _encode_bucket(
+                        scheme.alphabet, [pairs[i][0] for i in group], M)
+                    tok_b = _encode_bucket(
+                        scheme.alphabet, [pairs[i][1] for i in group], N)
                 with _phase("fill"):
                     dispatched.append(_sharded_bucket(
-                        mesh, *enc[:3], cost_mat, gap_id, gap_open, *enc[3:],
-                        with_traceback,
+                        mesh, group, tok_a, tok_b, cost_mat, gap_id, gap_open,
+                        [len(pairs[i][0]) for i in group],
+                        [len(pairs[i][1]) for i in group], with_traceback,
                     ))
-            continue
-        if not with_traceback:  # filled with the call's other buckets
-            costed.append(encode(indices, M, N))
-            continue
-        # The bucket's pairs join the open segment, which closes where its
-        # codes would pass the budget (no pair alone passes it: per_pair).
-        group = []
-        for idx in indices:
-            size = fill_cuda.ragged_bytes(len(pairs[idx][0]), len(pairs[idx][1]))
-            if segment_bytes + size > budget:
-                if group:
-                    segment.append(encode(group, M, N))
-                    group = []
-                close_segment()
-            group.append(idx)
-            segment_bytes += size
-        segment.append(encode(group, M, N))
-    if segment:
-        close_segment()
-    if costed:  # every cost-only bucket of the call in one ragged fill
-        groups, tok_as, tok_bs, m_trues, n_trues = zip(*costed)
+    elif with_traceback:
+        line_end = None  # where the last rendered pair's lines end
+        rendered = 0  # traceback pairs rendered: the next render descriptor
+        for segment in segments:
+            with _phase("fill"):
+                groups, tok_as, tok_bs, m_trues, n_trues = runs(segment)
+                filled = fill_cuda.batch_moves_ragged(
+                    tok_as, tok_bs, cost_mat, gap_id, gap_open, m_trues, n_trues
+                )
+                ops, count, j_exit = linear_tb.walk_ragged(filled)
+            with _phase("render"):
+                lo, rendered = rendered, rendered + ops.shape[0]
+                line_end = packed_mod.render_ragged(
+                    ops, count, j_exit, packed.letters,
+                    packed.render_desc[lo:rendered], lines,
+                    None if line_end is None else line_end[-1:],
+                )
+            dispatched.append(_Dispatched(
+                [idx for group in groups for idx in group], filled.final3,
+                line_end,
+            ))
+    elif batched:  # every cost-only bucket of the call in one ragged fill
         with _phase("fill"):
+            groups, tok_as, tok_bs, m_trues, n_trues = runs(
+                [(k, 0, len(indices)) for k, (_, indices) in enumerate(batched)]
+            )
             final3 = fill_batch.batch_final3_ragged(
                 tok_as, tok_bs, cost_mat, gap_id, gap_open, m_trues, n_trues
             )
@@ -410,7 +476,9 @@ def align_pairs(
             return results  # type: ignore[return-value]
         with _phase("fetch"):
             device_parts = [torch.cat([d.final3 for d in dispatched])]
-            if with_traceback:
+            if with_traceback and mesh is None:
+                device_parts += [torch.cat([d.ends for d in dispatched]), lines]
+            elif with_traceback:
                 device_parts += [
                     torch.cat([d.ops.reshape(-1) for d in dispatched]),
                     torch.cat([d.count for d in dispatched]),
@@ -418,39 +486,72 @@ def align_pairs(
                 ]
             fetched = _to_host(device_parts)
         order = [idx for d in dispatched for idx in d.indices]
-        costs = fetched[0].min(axis=1).tolist()
-        lines = [(None, None, None)] * len(order)
+        strings = [(None, None, None)] * len(order)
         if with_traceback:
             with _phase("traceback"):
-                tapes, counts, j_exits = fetched[1:]
-                left = np.full(j_exits.max(), linear_tb.OP_LEFT, np.uint8)
-                fwd, row, off = [], 0, 0
-                for d in dispatched:
-                    width = d.ops.shape[1]
-                    for k in range(len(d.indices)):
-                        start = off + k * width
-                        tape = tapes[start : start + counts[row + k]]
-                        # Forward op order: the walk records from (m, n)
-                        # upward and stops at row 0 with j_exit LEFT moves
-                        # remaining (reference globaligner.py:542-561).
-                        fwd.append(np.concatenate(
-                            (left[: j_exits[row + k]], tape[::-1])
-                        ))
-                    row += len(d.indices)
-                    off += d.ops.numel()
-                lines = linear_tb.render_many(
-                    fwd,
-                    [pairs[idx][0] for idx in order],
-                    [pairs[idx][1] for idx in order],
-                )
-        for idx, cost, (s1a, midl, s2a) in zip(order, costs, lines):
-            results[idx] = PairResult(cost, score_of(idx, cost), s1a, midl, s2a)
+                if mesh is None:
+                    strings = packed_mod.decode_lines(
+                        fetched[2], fetched[1], packed.wide
+                    )
+                else:
+                    strings = _render_tapes(dispatched, *fetched[1:], [
+                        pairs[idx] for idx in order
+                    ])
+        with _phase("results"):
+            costs = fetched[0].min(axis=1).tolist()
+            for idx, cost, (s1a, midl, s2a) in zip(order, costs, strings):
+                results[idx] = PairResult(cost, score_of(idx, cost), s1a, midl,
+                                          s2a)
         dispatched.clear()
         return results  # type: ignore[return-value]
 
     if flush:
         return _flush()
     return PendingAlignments(_flush)
+
+
+def _segments(lengths, budget: int) -> list[list[tuple[int, int, int]]]:
+    """The traceback segments of an unsharded call: batched bucket k's
+    pairs have the (m_true, n_true) lists ``lengths[k]``; buckets in order,
+    each one's pairs in order, a segment closed where its codes
+    (``fill_cuda.ragged_bytes`` a pair) would pass ``budget``.  Each
+    segment lists its runs (k, lo, hi): rows lo..hi of bucket k."""
+    segments, runs, used = [], [], 0
+    for k, (m_true, n_true) in enumerate(lengths):
+        lo = 0
+        for row, size in enumerate(fill_cuda.ragged_bytes(
+                np.asarray(m_true, np.int64), np.asarray(n_true, np.int64)).tolist()):
+            if used + size > budget and used:
+                if row > lo:
+                    runs.append((k, lo, row))
+                    lo = row
+                segments.append(runs)
+                runs, used = [], 0
+            used += size
+        runs.append((k, lo, len(m_true)))
+    if runs:
+        segments.append(runs)
+    return segments
+
+
+def _render_tapes(dispatched, tapes, counts, j_exits, order_pairs):
+    """The lines of a mesh call's pairs from their fetched walk tapes: each
+    tape reversed behind its row-0 left moves (the walk records from (m, n)
+    upward and stops at row 0 with j_exit LEFT moves remaining, reference
+    globaligner.py:542-561), rendered by ``linear_tb.render_many``."""
+    left = np.full(j_exits.max(), linear_tb.OP_LEFT, np.uint8)
+    fwd, row, off = [], 0, 0
+    for d in dispatched:
+        width = d.ops.shape[1]
+        for k in range(len(d.indices)):
+            start = off + k * width
+            tape = tapes[start : start + counts[row + k]]
+            fwd.append(np.concatenate((left[: j_exits[row + k]], tape[::-1])))
+        row += len(d.indices)
+        off += d.ops.numel()
+    return linear_tb.render_many(
+        fwd, [s1 for s1, _ in order_pairs], [s2 for _, s2 in order_pairs]
+    )
 
 
 def _sharded_bucket(mesh, group, tok_a, tok_b, cost_mat, gap_id, gap_open,
@@ -473,7 +574,7 @@ def _sharded_bucket(mesh, group, tok_a, tok_b, cost_mat, gap_id, gap_open,
     ops, count, j_exit = (
         mesh_mod.gather_batch(mesh, x, len(group)) for x in (ops, count, j_exit)
     )
-    return _Dispatched(group, shard.final3, ops, count, j_exit)
+    return _Dispatched(group, shard.final3, ops=ops, count=count, j_exit=j_exit)
 
 
 def alignment_to_pair_result(a: GotohAlignment) -> PairResult:

@@ -2,13 +2,15 @@
 
 The chunk has the shape of the batch runner's default chunk: lengths
 819-1024, each drawn on its own, seq_2 a ~85%-identity relative of seq_1.
-For cost-only and traceback calls, unsharded and over an NCCL world of one
-(``parallel.make_pair_mesh``), it prints one JSON line: per arm the median,
+For cost-only and traceback calls, unsharded and then over an NCCL world
+of one (``parallel.make_pair_mesh``, set up after the unsharded arms), it
+prints one JSON line: per arm the median,
 least and greatest over 7 calls (after one warm-up) of the
-end-to-end time (host clock around a synchronised call) and of
-``align_pairs``' host phases (``phase_seconds``: encode, enqueue, fetch,
-render; a checkout whose ``align_pairs`` has no encode phase reports 0),
-in ms, beside the card's name and power limit.
+end-to-end time (host clock around a synchronised call), of each of
+``align_pairs``' host phases (``phase_seconds``, whatever phases the
+checkout's ``align_pairs`` records; a phase a call lacks counts 0), of
+their sum and of the rest of the end-to-end time (``unphased``), in ms,
+beside the card's name and power limit.
 
 ``--root DIR`` imports ``globalign_tpu_torch`` from the checkout at DIR
 (default: the one that holds this file), so two checkouts are compared on
@@ -79,11 +81,15 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     pairs = dna_chunk(SEED)
     scheme = resolve_scheme("".join(a for a, _ in pairs), "".join(b for _, b in pairs))
-    multihost.initialize(num_processes=1)
-    world1 = make_pair_mesh()
+
+    def world_of_one():  # after the unsharded arms: NCCL's threads start here
+        multihost.initialize(num_processes=1)
+        return make_pair_mesh()
 
     arms = {}
-    for mesh_name, mesh in (("unsharded", None), ("world of one", world1)):
+    for mesh_name, make_mesh in (("unsharded", lambda: None),
+                                 ("world of one", world_of_one)):
+        mesh = make_mesh()
         for with_tb in (False, True):
             def call(phases=None):
                 return align_pairs(pairs, scheme=scheme, with_traceback=with_tb,
@@ -97,15 +103,13 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 call(phases)
                 torch.cuda.synchronize()
-                rows.append((
-                    1e3 * (time.perf_counter() - t0),
-                    1e3 * phases.get("encode", 0.0),
-                    1e3 * phases.get("fill", 0.0),
-                    1e3 * phases.get("fetch", 0.0),
-                    1e3 * phases.get("traceback", 0.0),
-                ))
-            cols = dict(zip(("e2e", "encode", "enqueue", "fetch", "render"),
-                            zip(*rows)))
+                e2e = 1e3 * (time.perf_counter() - t0)
+                phase_ms = {k: 1e3 * v for k, v in phases.items()}
+                rows.append(dict(e2e=e2e, **phase_ms,
+                                 phases=sum(phase_ms.values()),
+                                 unphased=e2e - sum(phase_ms.values())))
+            names = list(dict.fromkeys(k for row in rows for k in row))
+            cols = {k: [row.get(k, 0.0) for row in rows] for k in names}
             arms[f"{mesh_name}, {'traceback' if with_tb else 'cost'}"] = {
                 k: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
                 for k, v in cols.items()

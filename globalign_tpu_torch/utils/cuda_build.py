@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _PTR = ctypes.c_void_p
 _I32 = ctypes.c_int
+_I64 = ctypes.c_longlong
 # Per source: the C entry points and their (argtypes, restype).
 SIGNATURES = {
     "gotoh_fill": {
@@ -102,6 +103,25 @@ SIGNATURES = {
             _I32,
         ),
         "gotoh_tile_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "tokenize": {
+        "tokenize_ragged_launch": (
+            [_PTR, _I32, _PTR, _I32, _PTR, _I32, _PTR]  # desc R letters wide
+            # table A arena
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "tokenize_error_string": ([_I32], ctypes.c_char_p),
+    },
+    "render": {
+        "render_ragged_launch": (
+            [_PTR, _PTR, _I64]  # desc ops ld
+            + [_PTR] * 4  # count j_exit starts letters
+            + [_I32, _PTR, _I64, _I32]  # wide lines stride P
+            + [_PTR],  # stream
+            _I32,
+        ),
+        "render_error_string": ([_I32], ctypes.c_char_p),
     },
     "wave_split": {
         "wave_split_launch": (

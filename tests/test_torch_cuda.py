@@ -1047,3 +1047,158 @@ def test_split_cost_on_gotoh_tile(cuda_device, m, n):
         [m], [n], want_moves=False,
     )
     assert int(got) == int(want) == int(direct.min())
+
+
+# -- a call's letters: tokenize_ragged and render_ragged ---------------------
+
+PACKED_LETTERS = ["ACGT", "ARNDCQEGHILKMFPSTWYV", "ΩЖ字A", "ACGTΩЖ字"]
+
+
+def _packed_call(rng, letters, shapes, with_render):
+    """``pack_call`` of pairs of the given (m, n), align_pairs' buckets."""
+    from globalign_tpu_torch.batch import bucket_length
+    from globalign_tpu_torch.ops import packed
+    from globalign_tpu_torch.utils.tokenize import Alphabet
+
+    pairs = [tuple("".join(rng.choice(list(letters), k)) for k in mn)
+             for mn in shapes]
+    buckets = {}
+    for a, b in pairs:
+        key = (bucket_length(max(len(a), 1)), bucket_length(max(len(b), 1)))
+        buckets.setdefault(key, ([], []))
+        buckets[key][0].append(a)
+        buckets[key][1].append(b)
+    spec = [(s1, s2, m, n) for (m, n), (s1, s2) in buckets.items()]
+    return pairs, spec, packed.pack_call(Alphabet.from_sequences(letters), spec,
+                                         with_render=with_render)
+
+
+@pytest.mark.parametrize("letters", PACKED_LETTERS)
+def test_tokenize_ragged_matches_plain(cuda_device, letters):
+    """Every bucket row, one launch and one upload, = ``tokenize_plain``
+    (tolerance 0): m and n of 1, rows at the 32-column bucket edges, ASCII
+    bytes and code points."""
+    from globalign_tpu_torch.ops import packed
+
+    rng = np.random.default_rng(len(letters))
+    shapes = [(1, 1), (1, 32), (32, 1), (33, 64), (31, 65), (200, 7), (96, 96)]
+    _, spec, call = _packed_call(rng, letters, shapes, False)
+    want = _packed_call(np.random.default_rng(len(letters)), letters, shapes, False)[2]
+    want.upload(torch.device("cpu"))
+    want.tokenize()
+    before = (packed.tokenize_ragged.launches, packed.upload.copies)
+    call.upload(cuda_device)
+    call.tokenize()
+    torch.cuda.synchronize()
+    assert (packed.tokenize_ragged.launches - before[0],
+            packed.upload.copies - before[1]) == (1, 1)
+    for k in range(len(spec)):
+        for got, ref in zip(call.bucket(k), want.bucket(k)):
+            assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("letters", ["ACGT", "ΩЖ字A"])
+@pytest.mark.parametrize("shapes", [
+    [(5, 9, 3), (1, 7, 6), (12, 12, 0), (3, 40, 20)],  # row-0 exits
+    [(1, 1, 0), (1, 0, 0), (0, 1, 0), (0, 1, 1)],  # tapes of one op
+    [(1, 33, 0), (33, 1, 0), (1, 1, 1), (2, 1, 0)],  # m or n of 1
+    [(0, 7, 0), (0, 7, 7), (9, 0, 0), (4, 4, 4)],  # all-gap lines
+    [(300, 290, 0), (64, 100, 37), (1000, 999, 2)],  # many warp chunks
+])
+def test_render_ragged_matches_plain(cuda_device, letters, shapes):
+    """A segment's lines, one launch, = ``render_plain`` (tolerance 0),
+    ends included; a second launch after a base continues the buffer."""
+    from globalign_tpu_torch.ops import linear_tb, packed
+
+    rng = np.random.default_rng(sum(m + n + e for m, n, e in shapes))
+    _, _, call = _packed_call(rng, letters, [(m, n) for m, n, _ in shapes], True)
+    tapes = []
+    for m, n, e in shapes:
+        diag = int(rng.integers(0, min(m, n - e) + 1))
+        ops = ([linear_tb.OP_DIAG] * diag + [linear_tb.OP_UP] * (m - diag)
+               + [linear_tb.OP_LEFT] * (n - e - diag))
+        tapes.append(np.array(rng.permutation(ops), np.uint8))
+    ops = np.zeros((len(tapes), max(len(t) for t in tapes) + 5), np.uint8)
+    for k, t in enumerate(tapes):
+        ops[k, : len(t)] = t
+    # pack_call orders a bucket's pairs together: the tapes follow its order
+    args = (torch.from_numpy(ops), torch.tensor([len(t) for t in tapes], dtype=torch.int32),
+            torch.tensor([e for *_, e in shapes], dtype=torch.int32))
+    order = _bucket_order([(m, n) for m, n, _ in shapes])
+    args = tuple(a[order].contiguous() for a in args)
+    call.upload(torch.device("cpu"))
+    want_lines = call.lines().fill_(0)
+    want = packed.render_ragged(*args, call.letters, call.render_desc, want_lines)
+    half = len(shapes) // 2
+    want_2 = packed.render_ragged(*(a[half:] for a in args), call.letters,
+                                  call.render_desc[half:], want_lines, want[half - 1 : half])
+    letters_cpu, desc_cpu = call.letters, call.render_desc
+    call.upload(cuda_device)
+    got_lines = call.lines().fill_(0)
+    before = packed.render_ragged.launches
+    got = packed.render_ragged(*(a.to(cuda_device) for a in args), call.letters,
+                               call.render_desc, got_lines)
+    got_2 = packed.render_ragged(*(a[half:].to(cuda_device) for a in args),
+                                 call.letters, call.render_desc[half:], got_lines,
+                                 got[half - 1 : half])
+    torch.cuda.synchronize()
+    assert packed.render_ragged.launches - before == 2
+    assert torch.equal(letters_cpu, call.letters.cpu())
+    assert torch.equal(desc_cpu, call.render_desc.cpu())
+    assert torch.equal(got.cpu(), want) and torch.equal(got_2.cpu(), want_2)
+    assert torch.equal(got_lines.cpu(), want_lines)
+
+
+def _bucket_order(shapes):
+    """The pack order of pairs of these (m, n): by bucket of first
+    appearance, then input order."""
+    from globalign_tpu_torch.batch import bucket_length
+
+    keys = {}
+    for k, (m, n) in enumerate(shapes):
+        keys.setdefault((bucket_length(max(m, 1)), bucket_length(max(n, 1))),
+                        []).append(k)
+    return [k for ks in keys.values() for k in ks]
+
+
+@pytest.mark.parametrize("with_traceback", [False, True])
+@pytest.mark.parametrize("name", ["dna", "unicode", "segments"])
+def test_align_pairs_one_upload_one_tokenize_one_fetch(cuda_device, tmp_path,
+                                                      monkeypatch, name,
+                                                      with_traceback):
+    """On the card a call makes one letters upload, one ``tokenize_ragged``
+    launch, one ``render_ragged`` launch a traceback segment and one
+    fetch; its results are byte-identical to ``device="cpu"`` (a non-ASCII
+    matrix; several segments under a lowered budget)."""
+    from globalign_tpu_torch import align_pairs
+    from globalign_tpu_torch import batch as batch_mod
+    from globalign_tpu_torch.ops import packed
+
+    rng = np.random.default_rng(19 + with_traceback)
+    kw, letters = {}, "ACGT"
+    if name == "unicode":
+        mtx = tmp_path / "unicode.mtx"
+        mtx.write_text("Ω Ж 字 A -\nΩ 4 -2 -3 -1 -3\nЖ -2 5 -1 -3 -3\n"
+                       "字 -3 -1 4 -2 -3\nA -1 -3 -2 5 -3\n- -3 -3 -3 -3 4\n",
+                       encoding="utf-8")
+        kw, letters = dict(scoring_mat_path=mtx), "ΩЖ字A"
+    pairs = [tuple("".join(rng.choice(list(letters), int(rng.integers(1, 200))))
+                   for _ in range(2)) for _ in range(40)]
+    pairs += [(letters[0], letters[1] * 50), (letters[2] * 30, letters[3])]
+    segments = 1
+    if name == "segments":
+        monkeypatch.setattr(batch_mod, "DEVICE_WALK_MOVES_BUDGET",
+                            fill_cuda.ragged_bytes(192, 192) * 3)
+    counters = (packed.upload, batch_mod._to_host)
+    kernels = (packed.tokenize_ragged, packed.render_ragged, linear_tb.walk_ragged)
+    before = [c.copies for c in counters] + [k.launches for k in kernels]
+    got = align_pairs(pairs, with_traceback=with_traceback, **kw)
+    after = [c.copies for c in counters] + [k.launches for k in kernels]
+    counts = [a - b for a, b in zip(after, before)]
+    if with_traceback:
+        segments = counts[4]
+        assert segments >= (3 if name == "segments" else 1)
+    assert counts == [1, 1, 1, segments if with_traceback else 0,
+                      segments if with_traceback else 0]
+    want = align_pairs(pairs, with_traceback=with_traceback, device="cpu", **kw)
+    assert got == want

@@ -579,10 +579,10 @@ def test_every_kernel_source_is_bound():
     stems = {src.stem for src in cuda_build.sources()}
     assert stems == set(cuda_build.SIGNATURES) == {
         "gotoh_fill", "gotoh_batch", "gotoh_batch_moves", "gotoh_tile",
-        "walk_block", "wave_split",
+        "walk_block", "wave_split", "tokenize", "render",
     }
     for stem in stems:
         text = (cuda_build.CSRC_DIR / f"{stem}.cu").read_text()
         for name in cuda_build.SIGNATURES[stem]:
             assert f" {name}(" in text, name
-    assert len({cuda_build.library_path(s) for s in cuda_build.sources()}) == 6
+    assert len({cuda_build.library_path(s) for s in cuda_build.sources()}) == 8
