@@ -20,6 +20,7 @@ from pathlib import Path
 from .config import DEFAULT_MAX_SEQ_LEN_PROD, validate_and_transform_args
 from .models.gotoh import GotohAligner
 from .results import AlignmentResults
+from .utils.spans import span
 
 
 def find_global_alignment(
@@ -61,36 +62,45 @@ def find_global_alignment(
 
     Returns:
         AlignmentResults (same 10 fields as the reference's).
-    """
-    good = validate_and_transform_args(
-        input_fasta=input_fasta,
-        output=output,
-        seq_1=seq_1,
-        seq_2=seq_2,
-        scoring_mat_name=scoring_mat_name,
-        scoring_mat_path=scoring_mat_path,
-        match_score=match_score,
-        mismatch_score=mismatch_score,
-        mismatch_cost=mismatch_cost,
-        gap_open_score=gap_open_score,
-        gap_open_cost=gap_open_cost,
-        gap_extension_score=gap_extension_score,
-        gap_extension_cost=gap_extension_cost,
-        max_seq_len_prod=max_seq_len_prod,
-    )
 
-    aligner = GotohAligner(good.scheme, device=device)
+    Under a running ``torch.profiler`` the request's host work shows as
+    ``globalign.<name>`` ranges (``utils.spans``), one after another:
+    validate (scheme inside it), aligner, then ``GotohAligner.align``'s
+    encode, fill or checkpoints and replays, fetch and traceback, and last
+    results.
+    """
+    with span("validate"):
+        good = validate_and_transform_args(
+            input_fasta=input_fasta,
+            output=output,
+            seq_1=seq_1,
+            seq_2=seq_2,
+            scoring_mat_name=scoring_mat_name,
+            scoring_mat_path=scoring_mat_path,
+            match_score=match_score,
+            mismatch_score=mismatch_score,
+            mismatch_cost=mismatch_cost,
+            gap_open_score=gap_open_score,
+            gap_open_cost=gap_open_cost,
+            gap_extension_score=gap_extension_score,
+            gap_extension_cost=gap_extension_cost,
+            max_seq_len_prod=max_seq_len_prod,
+        )
+
+    with span("aligner"):
+        aligner = GotohAligner(good.scheme, device=device)
     alignment = aligner.align(good.seq_1, good.seq_2)
 
-    return AlignmentResults(
-        seq_1_aligned=alignment.seq_1_aligned,
-        middle_part=alignment.middle_part,
-        seq_2_aligned=alignment.seq_2_aligned,
-        cost=alignment.cost,
-        score=alignment.score,
-        scoring_mat=good.scheme.scoring.to_nested_dict(),
-        costing_mat=good.scheme.costing.to_nested_dict(),
-        gap_open_score=good.scheme.gap_open_score,
-        gap_open_cost=good.scheme.gap_open_cost,
-        output=good.output,
-    )
+    with span("results"):
+        return AlignmentResults(
+            seq_1_aligned=alignment.seq_1_aligned,
+            middle_part=alignment.middle_part,
+            seq_2_aligned=alignment.seq_2_aligned,
+            cost=alignment.cost,
+            score=alignment.score,
+            scoring_mat=good.scheme.scoring.to_nested_dict(),
+            costing_mat=good.scheme.costing.to_nested_dict(),
+            gap_open_score=good.scheme.gap_open_score,
+            gap_open_cost=good.scheme.gap_open_cost,
+            output=good.output,
+        )

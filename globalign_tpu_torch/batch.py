@@ -68,8 +68,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -82,6 +80,7 @@ from .ops import fill_batch, fill_cuda, linear_tb
 from .ops import packed as packed_mod
 from .ops.transforms import final_cost_to_score
 from .parallel import mesh as mesh_mod
+from .utils.spans import span
 from .utils.tokenize import GAP, encode_padded
 
 DEFAULT_BUCKET_QUANTUM = 32
@@ -297,15 +296,8 @@ def align_pairs(
     """
     dev = resolve_device(device)
 
-    @contextmanager
     def _phase(name):
-        t0 = time.perf_counter()
-        with torch.profiler.record_function(f"globalign.{name}"):
-            yield
-        if phase_seconds is not None:
-            phase_seconds[name] = phase_seconds.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
+        return span(name, phase_seconds)
 
     with _phase("validate"):
         pairs = _validate_pairs(pairs)
@@ -447,7 +439,8 @@ def align_pairs(
                 filled = fill_cuda.batch_moves_ragged(
                     tok_as, tok_bs, cost_mat, gap_id, gap_open, m_trues, n_trues
                 )
-                ops, count, j_exit = linear_tb.walk_ragged(filled)
+                with span("fill.walk"):
+                    ops, count, j_exit = linear_tb.walk_ragged(filled)
             with _phase("render"):
                 lo, rendered = rendered, rendered + ops.shape[0]
                 line_end = packed_mod.render_ragged(

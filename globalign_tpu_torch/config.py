@@ -44,6 +44,7 @@ from .utils.matrices import (
     load_bundled_matrix,
     read_scoring_mat,
 )
+from .utils.spans import span
 from .utils.tokenize import GAP, Alphabet
 
 # TPU-era guard: ~2e12 cells is past any sane single-pair HBM/time budget;
@@ -385,17 +386,18 @@ def validate_and_transform_args(
     seq_1 = seq_1.upper()
     seq_2 = seq_2.upper()
 
-    scheme = resolve_scheme(
-        seq_1,
-        seq_2,
-        scoring_mat_name=scoring_mat_name,
-        scoring_mat_path=scoring_mat_path,
-        match_score=match_score,
-        mismatch_score=mismatch_score,
-        mismatch_cost=mismatch_cost,
-        gap_open_score=gap_open_score,
-        gap_open_cost=gap_open_cost,
-        gap_extension_score=gap_extension_score,
-        gap_extension_cost=gap_extension_cost,
-    )
+    with span("scheme"):
+        scheme = resolve_scheme(
+            seq_1,
+            seq_2,
+            scoring_mat_name=scoring_mat_name,
+            scoring_mat_path=scoring_mat_path,
+            match_score=match_score,
+            mismatch_score=mismatch_score,
+            mismatch_cost=mismatch_cost,
+            gap_open_score=gap_open_score,
+            gap_open_cost=gap_open_cost,
+            gap_extension_score=gap_extension_score,
+            gap_extension_cost=gap_extension_cost,
+        )
     return ValidatedArgs(seq_1=seq_1, seq_2=seq_2, scheme=scheme, output=output_validated)

@@ -39,6 +39,7 @@ from ..ops import fill_cuda, fill_rows, linear_tb
 from ..ops.fill_split import split_fill_cost
 from ..ops.traceback import Traceback
 from ..ops.transforms import final_cost_to_score
+from ..utils.spans import span
 
 # Above this many bytes of move codes, (m+1)*(n+1), align() switches to the
 # blocked linear-space traceback (64 MiB ~ 8k x 8k pairs), whose blocks of
@@ -136,14 +137,20 @@ class GotohAligner(nn.Module):
         )
 
     def _batch_fill(self, seq_1: str, seq_2: str, *, want_moves: bool):
+        return self._fill_tokens(
+            self._encode(seq_1), self._encode(seq_2), want_moves=want_moves
+        )
+
+    def _fill_tokens(self, tok_a, tok_b, *, want_moves: bool):
+        """One pair's fill from its tokens (``_encode``)."""
         return fill_cuda.batch_moves(
-            self._encode(seq_1)[None],
-            self._encode(seq_2)[None],
+            tok_a[None],
+            tok_b[None],
             self.cost_mat,
             self.gap_id,
             self.gap_open,
-            [len(seq_1)],
-            [len(seq_2)],
+            [tok_a.shape[0] - 1],
+            [tok_b.shape[0] - 1],
             want_moves=want_moves,
         )
 
@@ -168,12 +175,16 @@ class GotohAligner(nn.Module):
         """Full alignment with deterministic traceback: the full move matrix
         walked where it was filled (one fill launch, ``gotoh_tile`` or
         ``gotoh_fill`` as ``fill_tile.route`` says, and one ``walk_block``
-        launch on a card) up to the moves budget, blocked past it."""
+        launch on a card) up to the moves budget, blocked past it.  Its
+        spans (``utils.spans``): encode, then fill (the fill and the walk
+        queued) or ``align_blocked``'s, then fetch and traceback."""
         m, n = len(seq_1), len(seq_2)
+        with span("encode"):
+            tok_a, tok_b = self._encode(seq_1), self._encode(seq_2)
         if (m + 1) * (n + 1) > self.moves_budget_bytes:
             tb = linear_tb.align_blocked(
-                self._encode(seq_1),
-                self._encode(seq_2),
+                tok_a,
+                tok_b,
                 self.cost_mat,
                 self.gap_id,
                 self.gap_open,
@@ -182,10 +193,11 @@ class GotohAligner(nn.Module):
                 block_moves_bytes=self.moves_budget_bytes,
             )
         else:
-            final3, moves = self._batch_fill(seq_1, seq_2, want_moves=True)
-            j = torch.full((1,), n, dtype=torch.int32, device=self.device)
-            level = final3[0].argmin().to(torch.int32).reshape(1)
-            ops, count, j_exit, _ = linear_tb.walk_block(moves, [m], j, level)
+            with span("fill"):
+                final3, moves = self._fill_tokens(tok_a, tok_b, want_moves=True)
+                j = torch.full((1,), n, dtype=torch.int32, device=self.device)
+                level = final3[0].argmin().to(torch.int32).reshape(1)
+                ops, count, j_exit, _ = linear_tb.walk_block(moves, [m], j, level)
             ints, ops_host = linear_tb.fetch_walk(
                 [final3[0].min().reshape(1), count, j_exit], ops[0]
             )

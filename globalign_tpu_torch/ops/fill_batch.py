@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import fill_cuda
 
 WARP = 32
@@ -128,11 +129,18 @@ def batch_final3_ragged(
     (B_k, 3, N_k+1) rows m_true.
     """
     tok_a, tok_b = list(tok_a), list(tok_b)
-    device, lengths = fill_cuda._check_buckets(
-        tok_a, tok_b, cost_mat, gap_id, m_true, n_true
-    )
-    m_host = [m for m, _ in lengths]
-    n_host = [n for _, n in lengths]
+    with span("fill.batch"):
+        device, lengths = fill_cuda._check_buckets(
+            tok_a, tok_b, cost_mat, gap_id, m_true, n_true
+        )
+        m_host = [m for m, _ in lengths]
+        n_host = [n for _, n in lengths]
+        offsets = np.concatenate([[0], np.cumsum([ta.shape[0] for ta in tok_a])])
+        if device.type == "cuda":
+            final3, lasts, rest = _batch_part(
+                tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host,
+                offsets, last_rows,
+            )
     if device.type == "cpu":
         outs = [
             fill_cuda._plain(ta, tb, cost_mat, gap_id, gap_open, mt, nt, None,
@@ -144,20 +152,41 @@ def batch_final3_ragged(
         return torch.cat([final3 for final3, _, _ in outs])
     if device.type != "cuda":
         raise ValueError(f"no batch_final3 route for device {device}")
+    if not rest:
+        return lasts if last_rows else final3
 
+    with span("fill.wide"):
+        if final3 is None:  # one bucket on gotoh_fill: its own outputs
+            out = _gotoh_fill(tok_a[0], tok_b[0], cost_mat, gap_id, gap_open,
+                              m_host[0], n_host[0], last_rows)
+            return [out] if last_rows else out
+        for k in rest:
+            out = _gotoh_fill(tok_a[k], tok_b[k], cost_mat, gap_id, gap_open,
+                              m_host[k], n_host[k], last_rows)
+            if last_rows:
+                lasts[k] = out
+            else:
+                final3[int(offsets[k]) : int(offsets[k + 1])] = out
+    return lasts if last_rows else final3
+
+
+def _batch_part(tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host,
+                offsets, last_rows):
+    """The buckets ``plan`` gives ``gotoh_batch``, launched: (final3, lasts,
+    rest) with ``rest`` the buckets left to ``gotoh_fill`` and final3 (the
+    rows of every pair, bucket k's from ``offsets[k]``) None where one
+    bucket alone is left to it."""
+    device = cost_mat.device
     alphabet = cost_mat.shape[0]
-    sizes = [ta.shape[0] for ta in tok_a]
-    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    sizes = np.diff(offsets).tolist()
     routes = [plan(tb.shape[1] - 1, alphabet) for tb in tok_b]
     on_batch = [k for k, route in enumerate(routes) if route is not None]
     rest = [k for k, route in enumerate(routes) if route is None]
-    if len(tok_a) == 1 and rest:  # one bucket on gotoh_fill: its own outputs
-        out = _gotoh_fill(tok_a[0], tok_b[0], cost_mat, gap_id, gap_open,
-                          m_host[0], n_host[0], last_rows)
-        return [out] if last_rows else out
+    lasts = [None] * len(tok_a)
+    if len(tok_a) == 1 and rest:
+        return None, lasts, rest
 
     final3 = torch.empty((int(offsets[-1]), 3), dtype=torch.int32, device=device)
-    lasts = [None] * len(tok_a)
     if on_batch:
         lasts_b = (
             [torch.empty((sizes[k], 3, tok_b[k].shape[1]), dtype=torch.int32,
@@ -173,14 +202,7 @@ def batch_final3_ragged(
         if last_rows:
             for k, last in zip(on_batch, lasts_b):
                 lasts[k] = last
-    for k in rest:
-        out = _gotoh_fill(tok_a[k], tok_b[k], cost_mat, gap_id, gap_open,
-                          m_host[k], n_host[k], last_rows)
-        if last_rows:
-            lasts[k] = out
-        else:
-            final3[int(offsets[k]) : int(offsets[k + 1])] = out
-    return lasts if last_rows else final3
+    return final3, lasts, rest
 
 
 def _gotoh_fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host,

@@ -59,6 +59,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import fill_tile
 from .fill_rows import row_fill
 from .fill_scan import BIG
@@ -608,7 +609,29 @@ def batch_moves_ragged(
     same offsets and strides.
     """
     tok_a, tok_b = list(tok_a), list(tok_b)
-    device, lengths = _check_buckets(tok_a, tok_b, cost_mat, gap_id, m_true, n_true)
+    with span("fill.batch"):
+        device, lengths = _check_buckets(tok_a, tok_b, cost_mat, gap_id, m_true,
+                                         n_true)
+        layout, nbytes = _ragged_layout(tok_a, tok_b, lengths, offsets, nbytes)
+        if device.type == "cuda":
+            warp, classes = ragged_routes(layout[:, 2], layout[:, 3],
+                                          cost_mat.shape[0], _sms(device.index))
+            out = _launch_warp(warp, classes, layout, cost_mat, gap_id,
+                               gap_open, nbytes)
+    if device.type == "cpu":
+        return _plain_ragged(tok_a, tok_b, cost_mat, gap_id, gap_open, layout,
+                             nbytes)
+    if device.type != "cuda":
+        raise ValueError(f"no gotoh_fill route for device {device}")
+    if classes:
+        with span("fill.wide"):
+            _launch_classes(classes, out, cost_mat, gap_id, gap_open)
+    return out
+
+
+def _ragged_layout(tok_a, tok_b, lengths, offsets, nbytes):
+    """(P, 8) int64 host descriptors of a ragged moves fill's pairs, in
+    bucket order, and the bytes of its codes (``batch_moves_ragged``)."""
     m = np.concatenate([mt.numpy() for mt, _ in lengths]).astype(np.int64)
     n = np.concatenate([nt.numpy() for _, nt in lengths]).astype(np.int64)
     sizes = ragged_bytes(m, n)
@@ -637,25 +660,25 @@ def batch_moves_ragged(
     layout[:, 2], layout[:, 3] = m, n
     layout[:, 4], layout[:, 5] = offsets, ragged_stride(n)
     layout[:, 6] = np.arange(len(m))
-    if device.type == "cpu":
-        final3 = torch.empty((len(m), 3), dtype=torch.int32)
-        codes = torch.zeros(nbytes, dtype=torch.uint8)
-        rows = [(ta[b], tb[b]) for ta, tb in zip(tok_a, tok_b)
-                for b in range(ta.shape[0])]
-        for (ta, tb), (_, _, mk, nk, off, ld, row, _) in zip(rows, layout.tolist()):
-            res = row_fill(ta[: mk + 1], tb[: nk + 1], cost_mat, gap_id, gap_open,
-                           want_moves=True)
-            final3[row] = res.final3
-            codes[off : off + (mk + 1) * ld].view(mk + 1, ld)[1:, 1 : nk + 1] = (
-                res.moves[1:, 1:]
-            )
-        return RaggedMoves(final3, codes, torch.from_numpy(layout), layout)
-    if device.type != "cuda":
-        raise ValueError(f"no gotoh_fill route for device {device}")
-    return _launch_ragged(
-        *ragged_routes(m, n, cost_mat.shape[0], _sms(device.index)), layout,
-        cost_mat, gap_id, gap_open, nbytes,
-    )
+    return layout, nbytes
+
+
+def _plain_ragged(tok_a, tok_b, cost_mat, gap_id, gap_open, layout, nbytes
+                  ) -> RaggedMoves:
+    """The plain version of a ragged moves fill: the row scan pair by pair
+    into one buffer at ``layout``'s offsets and strides."""
+    final3 = torch.empty((len(layout), 3), dtype=torch.int32)
+    codes = torch.zeros(nbytes, dtype=torch.uint8)
+    rows = [(ta[b], tb[b]) for ta, tb in zip(tok_a, tok_b)
+            for b in range(ta.shape[0])]
+    for (ta, tb), (_, _, mk, nk, off, ld, row, _) in zip(rows, layout.tolist()):
+        res = row_fill(ta[: mk + 1], tb[: nk + 1], cost_mat, gap_id, gap_open,
+                       want_moves=True)
+        final3[row] = res.final3
+        codes[off : off + (mk + 1) * ld].view(mk + 1, ld)[1:, 1 : nk + 1] = (
+            res.moves[1:, 1:]
+        )
+    return RaggedMoves(final3, codes, torch.from_numpy(layout), layout)
 
 
 def _launch_ragged(warp, classes, layout, cost_mat, gap_id, gap_open,
@@ -664,26 +687,50 @@ def _launch_ragged(warp, classes, layout, cost_mat, gap_id, gap_open,
     ``classes`` as :func:`ragged_routes` gives them (every pair in one of
     them), over ``layout``, the host descriptors in pair order, into a
     buffer of ``nbytes`` bytes; descriptors in launch order come back."""
-    from ..utils import cuda_build
+    out = _launch_warp(warp, classes, layout, cost_mat, gap_id, gap_open,
+                       nbytes)
+    _launch_classes(classes, out, cost_mat, gap_id, gap_open)
+    return out
+
+
+def _launch_warp(warp, classes, layout, cost_mat, gap_id, gap_open,
+                 nbytes) -> RaggedMoves:
+    """:func:`_launch_ragged`'s descriptors and outputs on the card, and its
+    ``gotoh_batch_moves`` launches (``warp``); the ``gotoh_fill`` launches
+    (``classes``) are :func:`_launch_classes`'."""
     from . import fill_batch
 
-    lib = cuda_build.load()
     device = cost_mat.device
-    m, n = layout[:, 2], layout[:, 3]
     layout = np.ascontiguousarray(
         layout[np.concatenate([i for _, i in warp + classes])])
     desc = torch.from_numpy(layout).pin_memory().to(device, non_blocking=True)
-    final3 = torch.empty((len(m), 3), dtype=torch.int32, device=device)
+    final3 = torch.empty((len(layout), 3), dtype=torch.int32, device=device)
     codes = torch.empty(nbytes, dtype=torch.uint8, device=device)
     lo = 0
     for width, idx in warp:
         fill_batch.batch_moves_warp(desc, lo, len(idx), width, cost_mat,
                                     gap_id, gap_open, final3, codes)
         lo += len(idx)
+    return RaggedMoves(final3, codes, desc, layout)
+
+
+def _launch_classes(classes, out: RaggedMoves, cost_mat, gap_id, gap_open
+                    ) -> None:
+    """The ``gotoh_fill`` ragged launches of :func:`_launch_ragged`, one a
+    launch class, over the descriptors of ``out`` past its warp-routed
+    pairs."""
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    final3, codes, desc, layout = out
+    device = cost_mat.device
+    m, n = layout[:, 2], layout[:, 3]
+    lo = len(layout) - sum(len(idx) for _, idx in classes)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for lp, idx in classes:
-            m_max, n_max = int(m[idx].max()), int(n[idx].max())
+            rows = slice(lo, lo + len(idx))
+            m_max, n_max = int(m[rows].max()), int(n[rows].max())
             pass_edge = (  # (B, 2, M+1) int4: a pass's right edge for the next
                 torch.empty((len(idx), 2, m_max + 1, 4), dtype=torch.int32,
                             device=device)
@@ -704,7 +751,6 @@ def _launch_ragged(warp, classes, layout, cost_mat, gap_id, gap_open,
                     f"gotoh_fill ragged launch failed: CUDA error {err} ({msg})"
                 )
             lo += len(idx)
-    return RaggedMoves(final3, codes, desc, layout)
 
 
 batch_moves_ragged.launches = 0

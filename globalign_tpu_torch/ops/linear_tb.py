@@ -48,6 +48,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .fill_cuda import RaggedMoves, batch_moves
 from .fill_tile import checkpoint_rows
 from .fill_scan import default_boundary
@@ -311,11 +312,20 @@ def align_blocked(
             host and "assembled" at the end — the points a timer marks.
         mesh: optional ``parallel.Mesh``; every rank calls with the same
             arguments (module docstring).
+
+    Spans (``utils.spans``): checkpoints (the boundary and the checkpoint
+    pass queued), replays (every block's fill and walk queued), then
+    :func:`fetch_walk`'s fetch and :func:`render_walk`'s traceback.
     """
     mark = on_phase or (lambda _: None)
     m, n = len(seq_1), len(seq_2)
     go = int(gap_open)
-    row0, col0 = default_boundary(tok_a, tok_b, cost_mat, gap_id, go)
+    with span("checkpoints"):
+        row0, col0 = default_boundary(tok_a, tok_b, cost_mat, gap_id, go)
+        if m and n:
+            bounds = block_bounds(m, n, block_rows, block_moves_bytes)
+            rows = _checkpoints(tok_a, tok_b, cost_mat, gap_id, go, row0, col0,
+                                bounds, mesh)
     if m == 0 or n == 0:  # one boundary line: no fill, no codes to walk
         final3 = row0[:, n] if m == 0 else col0[:, m]
         cost = int(final3.min())
@@ -325,47 +335,28 @@ def align_blocked(
         )
         mark("assembled")
         return out
-
-    # Column-0 Iy seed at each block's top row: the global column-0 value,
-    # except the top block, whose rows add their icost to gap_open (the
-    # corner col0[2, 0] is 0).
-    c0_top = col0[2].clone()
-    c0_top[0] = go
-    bounds = block_bounds(m, n, block_rows, block_moves_bytes)
-    nblocks = len(bounds) - 1
-    rows = [row0[None]]  # (1, 3, n+1) checkpoint row at each bounds[b]
-    sharded = None
-    if mesh is not None and mesh.size > 1 and n >= mesh.size:
-        from ..parallel.seqpar import ShardedCheckpointFill
-
-        sharded = ShardedCheckpointFill(mesh, tok_b, cost_mat, gap_id, go)
-        state = sharded.pad_row0(row0)
-    if sharded is not None:
-        for b in range(nblocks):
-            i0, i1 = bounds[b], bounds[b + 1]
-            state = sharded.block_last_rows(
-                tok_a[i0 : i1 + 1], state, col0[:, i0 : i1 + 1]
-            )
-            rows.append(state[None, :, : n + 1].contiguous())
-    else:  # every block's last row from one fill
-        ck = checkpoint_rows(tok_a, tok_b, cost_mat, gap_id, go, bounds[1:])
-        rows += [ck[b][None] for b in range(nblocks)]
     mark("checkpoints")
-    final3 = rows[-1][0, :, n]
 
-    j = torch.full((1,), n, dtype=torch.int32, device=tok_a.device)
-    level = final3.argmin().to(torch.int32).reshape(1)
-    tapes = []  # (ops, count) per block, walk order (bottom block first)
-    for b in range(nblocks - 1, -1, -1):
-        i0, i1 = bounds[b], bounds[b + 1]
-        _, moves = batch_moves(
-            tok_a[None, i0 : i1 + 1], tok_b[None], cost_mat, gap_id, go,
-            [i1 - i0], [n], row0=rows[b], col0y_top=c0_top[i0 : i0 + 1],
-        )
-        mark("fill")
-        ops, count, j, level = walk_block(moves, [i1 - i0], j, level)
-        mark("walk")
-        tapes.append((ops[0], count))
+    with span("replays"):
+        # Column-0 Iy seed at each block's top row: the global column-0
+        # value, except the top block, whose rows add their icost to
+        # gap_open (the corner col0[2, 0] is 0).
+        c0_top = col0[2].clone()
+        c0_top[0] = go
+        final3 = rows[-1][0, :, n]
+        j = torch.full((1,), n, dtype=torch.int32, device=tok_a.device)
+        level = final3.argmin().to(torch.int32).reshape(1)
+        tapes = []  # (ops, count) per block, walk order (bottom block first)
+        for b in range(len(bounds) - 2, -1, -1):
+            i0, i1 = bounds[b], bounds[b + 1]
+            _, moves = batch_moves(
+                tok_a[None, i0 : i1 + 1], tok_b[None], cost_mat, gap_id, go,
+                [i1 - i0], [n], row0=rows[b], col0y_top=c0_top[i0 : i0 + 1],
+            )
+            mark("fill")
+            ops, count, j, level = walk_block(moves, [i1 - i0], j, level)
+            mark("walk")
+            tapes.append((ops[0], count))
 
     # One copy: the cost, the counts, the exit column and every tape.
     ints, ops_host = fetch_walk(
@@ -385,11 +376,35 @@ def align_blocked(
     return out
 
 
+def _checkpoints(tok_a, tok_b, cost_mat, gap_id, go, row0, col0, bounds, mesh):
+    """The checkpoint pass: (1, 3, n+1) rows at each of ``bounds``, row0
+    first (``align_blocked``)."""
+    n = tok_b.shape[0] - 1
+    nblocks = len(bounds) - 1
+    rows = [row0[None]]
+    if mesh is not None and mesh.size > 1 and n >= mesh.size:
+        from ..parallel.seqpar import ShardedCheckpointFill
+
+        sharded = ShardedCheckpointFill(mesh, tok_b, cost_mat, gap_id, go)
+        state = sharded.pad_row0(row0)
+        for b in range(nblocks):
+            i0, i1 = bounds[b], bounds[b + 1]
+            state = sharded.block_last_rows(
+                tok_a[i0 : i1 + 1], state, col0[:, i0 : i1 + 1]
+            )
+            rows.append(state[None, :, : n + 1].contiguous())
+    else:  # every block's last row from one fill
+        ck = checkpoint_rows(tok_a, tok_b, cost_mat, gap_id, go, bounds[1:])
+        rows += [ck[b][None] for b in range(nblocks)]
+    return rows
+
+
 def fetch_walk(ints, ops: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     """int32 tensors ``ints`` (flattened, in order) and the uint8 ``ops`` on
     the host, in one device-to-host copy (one sync)."""
-    head = torch.cat([x.reshape(-1) for x in ints])
-    buf = torch.cat([head.view(torch.uint8), ops.reshape(-1)]).cpu().numpy()
+    with span("fetch"):
+        head = torch.cat([x.reshape(-1) for x in ints])
+        buf = torch.cat([head.view(torch.uint8), ops.reshape(-1)]).cpu().numpy()
     split = 4 * head.numel()
     return buf[:split].view(np.int32), buf[split:]
 
@@ -400,11 +415,12 @@ def render_walk(ops_walk, j_exit: int, seq_1: str, seq_2: str
     (from (m, n) up to row 0), then the ``j_exit`` left moves along row 0
     (reference globaligner.py:542-561), rendered forward
     (:func:`render_ops`).  Both ``align`` routes end here."""
-    fwd = np.concatenate([
-        np.full(j_exit, OP_LEFT, np.uint8),
-        np.asarray(ops_walk, np.uint8)[::-1],
-    ])
-    return render_ops(fwd, seq_1, seq_2)
+    with span("traceback"):
+        fwd = np.concatenate([
+            np.full(j_exit, OP_LEFT, np.uint8),
+            np.asarray(ops_walk, np.uint8)[::-1],
+        ])
+        return render_ops(fwd, seq_1, seq_2)
 
 
 def render_many(

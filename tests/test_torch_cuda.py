@@ -1202,3 +1202,34 @@ def test_align_pairs_one_upload_one_tokenize_one_fetch(cuda_device, tmp_path,
                       segments if with_traceback else 0]
     want = align_pairs(pairs, with_traceback=with_traceback, device="cpu", **kw)
     assert got == want
+
+
+@pytest.mark.parametrize("with_traceback", [False, True])
+def test_align_pairs_fill_spans_on_the_card(cuda_device, with_traceback):
+    """A call holding a pair past 1024 columns opens ``globalign.fill.batch``
+    and ``globalign.fill.wide`` (and with traceback ``globalign.fill.walk``)
+    inside ``globalign.fill``, and ``phase_seconds`` gets none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from globalign_tpu_torch import align_pairs
+
+    rng = np.random.default_rng(23 + with_traceback)
+    pairs = [tuple("".join(rng.choice(list("ACGT"), int(rng.integers(20, 300))))
+                   for _ in range(2)) for _ in range(24)]
+    pairs.append(("".join(rng.choice(list("ACGT"), 400)),
+                  "".join(rng.choice(list("ACGT"), 1100))))
+    phases = {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = align_pairs(pairs, with_traceback=with_traceback,
+                          phase_seconds=phases)
+    ranges = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.name.startswith("globalign.fill")]
+    fills = [(s, e) for name, s, e in ranges if name == "globalign.fill"]
+    subs = {"globalign.fill.batch", "globalign.fill.wide"}
+    if with_traceback:
+        subs.add("globalign.fill.walk")
+    assert {name for name, _, _ in ranges} == subs | {"globalign.fill"}
+    for name, s, e in ranges:
+        assert any(lo <= s and e <= hi for lo, hi in fills), name
+    assert not any(key.startswith("fill.") for key in phases)
+    assert got == align_pairs(pairs, with_traceback=with_traceback, device="cpu")
