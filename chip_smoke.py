@@ -83,7 +83,10 @@ phase fails:
      and no ``gotoh_fill`` launch, and one ragged walk a segment (1 + 1 a
      chunk); a lowered moves budget (three or more segments and a blocked
      pair); a call with pairs on both sides of 1024 columns (both routes,
-     one walk); ``flush=False`` +
+     one walk); a cost-only BLOSUM62 call of the protein mix's lengths,
+     its pairs past 1024 columns in one ``gotoh_tile`` launch (the wide
+     route; its counters ``wide_launches`` and ``wide_pairs`` in every
+     launch design); ``flush=False`` +
      ``resolve()`` (render queued, nothing fetched before ``resolve()``);
      every unsharded call one letters upload, one ``tokenize_ragged``
      launch, one ``render_ragged`` launch a traceback segment and one
@@ -131,7 +134,9 @@ phase fails:
      (a pair one tile column wide) and its crossover sweep against
      ``gotoh_fill`` (B in {1, 2, 8} x 256² .. 8000², 3355 x 20 000 and
      20 000 x 512, codes and cost only), each beside the critical-path
-     model (tiles on the path x the tile time); the walk kernel beside the plain walk; ``align_pairs`` at
+     model (tiles on the path x the tile time); the wide sweep
+     (:func:`wide_sweep`: B = 1 .. 64 wide pairs, a bucket each, in one
+     ``gotoh_tile`` launch against a launch a bucket); the walk kernel beside the plain walk; ``align_pairs`` at
      64 x 1024², 64 x 4096² and the two chunks, both modes, split into
      device fill and walk and every host phase of ``phase_seconds``;
      ``tokenize_ragged`` and ``render_ragged`` on both chunks beside their
@@ -170,7 +175,9 @@ phase fails:
 The last two lines of standard output are JSON: the kernels' record, then
 ``{"ok": true, "device": {...}}``.  It uses no JAX and no network.
 
-``python3 chip_smoke.py --walk-ab SRC [SRC ...]`` instead times the walk
+``python3 chip_smoke.py --wide-sweep`` runs the wide sweep alone (one JSON
+line of its rows).  ``python3 chip_smoke.py --walk-ab SRC [SRC ...]``
+instead times the walk
 kernels beside other builds of ``walk_block.cu`` (``walk_ab``): an older
 checkout's (``git show <commit>:globalign_tpu_torch/csrc/walk_block.cu``
 into ``build/``) or an edited copy.
@@ -642,6 +649,9 @@ def main() -> int:
     # Copies counted beside the launches: an unsharded align_pairs call's
     # one letters upload and the batch path's one fetch.
     copies = {"letters_upload": packed.upload, "fetch": batch_mod._to_host}
+    # The batch cost fill's wide route: its gotoh_tile launches and the
+    # pairs they take.
+    wide_counts = ("wide_launches", "wide_pairs")
 
     # gotoh_fill launches on the main paths by (mode, B, M, N): those
     # between reset_counts() and the read_counts() that add_main() takes.
@@ -654,18 +664,22 @@ def main() -> int:
             fn.launches = 0
         for fn in copies.values():
             fn.copies = 0
+        for name in wide_counts:
+            setattr(fill_batch.batch_final3_ragged, name, 0)
         fill_tally.clear()
 
     def read_counts():
         tally_read.clear()
         tally_read.update(fill_tally)
         return {**{name: fn.launches for name, fn in counters.items()},
-                **{name: fn.copies for name, fn in copies.items()}}
+                **{name: fn.copies for name, fn in copies.items()},
+                **{name: getattr(fill_batch.batch_final3_ragged, name)
+                   for name in wide_counts}}
 
     def launches(**kw):
-        """A launch design: the given counts, 0 for every other wrapper
-        and copy."""
-        return dict(dict.fromkeys([*counters, *copies], 0), **kw)
+        """A launch design: the given counts, 0 for every other wrapper,
+        copy and wide-route count."""
+        return dict(dict.fromkeys([*counters, *copies, *wide_counts], 0), **kw)
 
     def design(*fills, **kw):
         """A launch design: ``launches(**kw)`` plus one launch a non-strip
@@ -683,7 +697,7 @@ def main() -> int:
         return [(1, i1 - i0, n, True, "batch_moves")
                 for i0, i1 in zip(bounds, bounds[1:])]
 
-    main_launches = dict.fromkeys([*counters, *copies], 0)
+    main_launches = dict.fromkeys([*counters, *copies, *wide_counts], 0)
 
     def add_main(counts):
         for name, k in counts.items():
@@ -793,7 +807,7 @@ def main() -> int:
         tile_err = max(tile_err, terr)
         log(f"phase 1: {name} {shapes}: final3 {got3.tolist()[:1]} "
             f"code mismatches {bad}, max abs err {err}; gotoh_tile "
-            f"(H, W) = {fill_tile.plan(len(shapes), max(args[5]), max(args[6]), True, sms)}"
+            f"(H, W) = {fill_tile.plan(shapes, True, sms)}"
             f" max abs err {terr}")
         if err != 0 or terr != 0:
             raise SystemExit(f"phase 1 failed: {name} {shapes}")
@@ -1323,17 +1337,23 @@ def main() -> int:
             want_last = fill_batch.batch_final3_ragged(*args, last_rows=True)
             classes = {fill_batch.width_class(n) for m in made for n in m[6]
                        if m[1].shape[1] - 1 <= fill_batch.MAX_COLUMNS}
-            wide = sum(m[1].shape[1] - 1 > fill_batch.MAX_COLUMNS for m in made)
+            wide = [(m[5], m[6]) for m in made
+                    if m[1].shape[1] - 1 > fill_batch.MAX_COLUMNS]
+            tiled = len(fill_tile.route_buckets(wide, sms))  # the wide route
+            untiled = len(wide) - tiled
             before = (fill_batch.batch_final3.launches,
                       fill_cuda.batch_moves.launches,
-                      fill_cuda.batch_last_rows.launches)
+                      fill_cuda.batch_last_rows.launches,
+                      fill_batch.batch_final3_ragged.wide_launches)
             got3 = fill_batch.batch_final3_ragged(*on_card)
             got_last = fill_batch.batch_final3_ragged(*on_card, last_rows=True)
             torch.cuda.synchronize()
             after = (fill_batch.batch_final3.launches,
                      fill_cuda.batch_moves.launches,
-                     fill_cuda.batch_last_rows.launches)
-            if [a - b for a, b in zip(after, before)] != [2 * len(classes), wide, wide]:
+                     fill_cuda.batch_last_rows.launches,
+                     fill_batch.batch_final3_ragged.wide_launches)
+            if [a - b for a, b in zip(after, before)] != [
+                    2 * len(classes), untiled, untiled, 2 * bool(tiled)]:
                 raise SystemExit(f"phase 1 failed: gotoh_batch launches for "
                                  f"{name} N={n_cols}: {before} -> {after}, "
                                  f"{len(classes)} width classes")
@@ -1343,8 +1363,9 @@ def main() -> int:
             log(f"phase 1: gotoh_batch ragged {name}, buckets of N={n_cols}, "
                 f"{args[1][1].shape[1] - 1} and {args[1][2].shape[1] - 1} "
                 f"({sum(len(m[5]) for m in made)} pairs, width classes "
-                f"{sorted(classes)}, {wide} bucket past the cap): final3 and "
-                f"last rows max abs err {err}")
+                f"{sorted(classes)}, {len(wide)} bucket past the cap, {tiled} "
+                f"on the wide route's gotoh_tile): final3 and last rows max "
+                f"abs err {err}")
     # One width class at a batch of 1 and of 2 x SMs (a lone warp on the
     # card, and two pairs an SM): one launch each, equal to the plain
     # version.
@@ -1974,6 +1995,47 @@ def main() -> int:
         f"columns (both routes): = single-pair path = device='cpu'; launches "
         f"{counts} ({nwarp} gotoh_batch_moves, {nfills} gotoh_fill ragged, "
         f"{nsegs} walk)")
+
+    # The wide route in a cost-only call: a BLOSUM62 call of the protein
+    # mix's lengths (log-normal, median 300, sigma 0.6, 30-4000), its pairs
+    # past 1024 columns all in one gotoh_tile launch (fill_tile.route_buckets)
+    # and no gotoh_fill launch; = the single-pair path's cost = device="cpu".
+    lengths = np.clip(np.round(300 * np.exp(0.6 * rng.standard_normal(256))),
+                      30, 4000).astype(int).tolist()
+    tail_call = []
+    for size in lengths + [1100, 2600, 3900]:
+        s1 = random_seq(rng, PROTEIN, size)
+        tail_call.append((s1, mutate(rng, s1, PROTEIN)))
+    blosum = resolve_scheme(PROTEIN, PROTEIN, scoring_mat_name="BLOSUM62")
+    tail_buckets = collections.defaultdict(lambda: ([], []))
+    for a, b in tail_call:
+        key = (bucket_length(len(a)), bucket_length(len(b)))
+        tail_buckets[key][0].append(len(a))
+        tail_buckets[key][1].append(len(b))
+    tail = [v for (_, nb), v in tail_buckets.items() if nb > fill_batch.MAX_COLUMNS]
+    if fill_tile.route_buckets(tail, sms) != list(range(len(tail))):
+        raise SystemExit("phase 2 failed: the wide route refuses the protein tail")
+    torch.cuda.synchronize()
+    reset_counts()
+    got = align_pairs(tail_call, scheme=blosum, with_traceback=False)
+    counts = read_counts()
+    add_main(counts)
+    narrow = [(a, b) for a, b in tail_call
+              if bucket_length(len(b)) <= fill_batch.MAX_COLUMNS]
+    tail_design = launches(batch_final3=cost_launches(narrow), gotoh_tile=1,
+                           wide_launches=1,
+                           wide_pairs=sum(len(m) for m, _ in tail),
+                           **packed_design)
+    blosum_aligner = GotohAligner(blosum, device="cuda")
+    single = [blosum_aligner.cost(a, b) for a, b in tail_call]
+    cpu = align_pairs(tail_call, scheme=blosum, with_traceback=False,
+                      device="cpu")
+    if [r.cost for r in got] != single or got != cpu or counts != tail_design:
+        raise SystemExit(f"phase 2 failed: the wide route: launches {counts}, "
+                         f"design {tail_design}")
+    log(f"phase 2: align_pairs cost-only over {len(tail_call)} protein pairs, "
+        f"{len(tail)} buckets past 1024 columns ({counts['wide_pairs']} pairs) "
+        f"in one gotoh_tile launch: = cost() = device='cpu'; launches {counts}")
 
     # flush=False: nothing fetched until resolve(), which equals flush=True.
     dna_pairs = chunks["dna"][0]
@@ -2641,13 +2703,13 @@ def main() -> int:
                 turns.setdefault((arm, moves), []).append(t)
         k_ms, c_ms, t_ms, tc_ms = (float(np.mean(turns[k])) for k in (
             ("fill", True), ("fill", False), ("tile", True), ("tile", False)))
-        shape = fill_tile.plan(1, size, len(s2), True, sms)
+        shape = fill_tile.plan([(size, len(s2))], True, sms)
         tile_fill[size] = dict(
             gotoh_tile_ms=t_ms, gotoh_tile_cost_only_ms=tc_ms,
             gotoh_fill_ms=k_ms, gotoh_fill_cost_only_ms=c_ms,
             shape=list(shape), shape_cost_only=list(
-                fill_tile.plan(1, size, len(s2), False, sms)),
-            path_tiles=fill_tile.model(1, size, len(s2), shape, True, sms).path_tiles,
+                fill_tile.plan([(size, len(s2))], False, sms)),
+            path_tiles=fill_tile.model([(size, len(s2))], shape, True, sms).path_tiles,
             turns={f"{a} {'codes' if mv else 'cost only'}": v
                    for (a, mv), v in turns.items()})
         log(f"phase 3: fill {size}x{size} on {card}: gotoh_tile {t_ms:.4f} ms "
@@ -2838,8 +2900,8 @@ def main() -> int:
                              "one launch != a launch a block")
         ck_new = float(np.mean(ck_turns["one gotoh_tile launch"]))
         ck_old = float(np.mean(ck_turns["gotoh_fill a block"]))
-        ck_shape = fill_tile.plan(1, size, len(s2), False, sms)
-        ck_model = fill_tile.model(1, size, len(s2), ck_shape, False, sms)
+        ck_shape = fill_tile.plan([(size, len(s2))], False, sms)
+        ck_model = fill_tile.model([(size, len(s2))], ck_shape, False, sms)
         # A replay fill (the second block, injected) on gotoh_fill and on
         # gotoh_tile at every (H, W).
         i0, i1 = bounds[1], bounds[2]
@@ -2864,10 +2926,10 @@ def main() -> int:
             checkpoint_path_tiles=ck_model.path_tiles, blocks=nblocks,
             replay_shape=[i1 - i0, len(s2)], replay_gotoh_fill_ms=rp_fill,
             replay_gotoh_tile_ms=rp_tile,
-            replay_route_shape=list(fill_tile.plan(1, i1 - i0, len(s2), True, sms)),
+            replay_route_shape=list(fill_tile.plan([(i1 - i0, len(s2))], True, sms)),
             replay_path_tiles={
                 f"H={sh[0]} W={sh[1]}": fill_tile.model(
-                    1, i1 - i0, len(s2), sh, True, sms).path_tiles
+                    [(i1 - i0, len(s2))], sh, True, sms).path_tiles
                 for sh in fill_tile.SHAPES},
         )
         log(f"phase 3: checkpoint pass {size}x{len(s2)} ({nblocks} blocks) on "
@@ -2898,12 +2960,12 @@ def main() -> int:
         with gotoh_fill_only(fill_tile):
             split_fill_ms = cuda_ms(
                 lambda: fill_split.split_fill_cost(*enc[:5]), 3)
-        split_shape = fill_tile.plan(2, size - size // 2, len(s2), False, sms)
+        split_shape = fill_tile.plan([(size - size // 2, len(s2))] * 2, False, sms)
         split_rec[size] = dict(
             ms=split_ms, gotoh_fill_ms=split_fill_ms, shape=list(split_shape),
             routed=fill_tile.route(2, size - size // 2, len(s2), False, sms),
-            path_tiles=fill_tile.model(2, size - size // 2, len(s2), split_shape,
-                                       False, sms).path_tiles)
+            path_tiles=fill_tile.model([(size - size // 2, len(s2))] * 2,
+                                       split_shape, False, sms).path_tiles)
         direct_ms = cuda_ms(
             lambda: fill_cuda.batch_moves(*direct_args, want_moves=False), 3
         )
@@ -2987,7 +3049,7 @@ def main() -> int:
 
     def path_model_ms(nb, m, n, shape, moves):
         """The critical path: its tiles x a tile's time (the column above)."""
-        tiles = fill_tile.model(nb, m, n, shape, moves, sms).path_tiles
+        tiles = fill_tile.model([(m, n)] * nb, shape, moves, sms).path_tiles
         key = f"H={shape[0]} W={shape[1]}{' codes' if moves else ''}"
         return tiles, tiles * tile_us[key] / 1e3
 
@@ -3009,7 +3071,7 @@ def main() -> int:
                 want_f3, want_mv = fill_cuda.batch_moves(*a, want_moves=moves)
             row = dict(batch=nb, m=m, n=n, codes=moves, gotoh_fill_ms=gf,
                        gotoh_tile_ms={}, path_model_ms={},
-                       plan=list(fill_tile.plan(nb, m, n, moves, sms)),
+                       plan=list(fill_tile.plan([(m, n)] * nb, moves, sms)),
                        route=fill_tile.route(nb, m, n, moves, sms))
             for shape in fill_tile.SHAPES:
                 key = f"H={shape[0]} W={shape[1]}"
@@ -3038,6 +3100,9 @@ def main() -> int:
             if min(r["gotoh_tile_ms"].values()) < r["gotoh_fill_ms"]]
     log(f"phase 3: tile sweep: gotoh_tile (its best shape) faster than "
         f"gotoh_fill at {wins}")
+    # The wide route's rule: a call's wide tail in one launch or a launch
+    # a bucket.
+    wide_rows = wide_sweep(card)
 
     # -- phase 3, batch serving -------------------------------------------
     # Each wrapper's launches are bracketed by CUDA events (device fill and
@@ -4258,6 +4323,7 @@ def main() -> int:
                                for k, (t, v) in tile_paths.items()},
             "tile_us": tile_us,
             "sweep": tile_sweep,
+            "wide_sweep": wide_rows,
             "route": {"max_batch": fill_tile.ROUTE_MAX_BATCH,
                       "min_side_codes": fill_tile.ROUTE_MIN_SIDE,
                       "min_side_cost_only": fill_tile.ROUTE_MIN_SIDE_COST,
@@ -4442,6 +4508,106 @@ def multi_card() -> int:
     return 0
 
 
+def wide_sweep(card: str, reps: int = 5) -> list[dict]:
+    """The wide route's rule on the card (``fill_tile.route_buckets``): B
+    wide BLOSUM62 pairs, each a bucket of its own as in a call's tail (B in
+    1 .. 64, sides drawn from 1056 .. S for S = 1536, 2560 and 4096; cost
+    only), and one bucket of B pairs of S^2 (S = 2048 and 4096, B = 16 to
+    132: the mesh path's shards, past the path-bound test), through
+    ``batch_final3_ragged`` with the route forced to one gotoh_tile launch
+    and set aside (each bucket on ``fill_cuda``'s route: gotoh_tile for
+    one or two pairs from 1024^2, gotoh_fill else), in turns: device time
+    (``device_ms``: the host's enqueue hidden) and the call's time on the
+    host clock to the card's end (median of ``reps``), beside the route's
+    choice and the launch's model (path and tiles, path-bound or not).
+    final3 equal both ways; one line a point, and the rows."""
+    import torch
+
+    from globalign_tpu_torch import resolve_scheme
+    from globalign_tpu_torch.ops import fill_batch, fill_tile
+
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scheme = resolve_scheme(PROTEIN, PROTEIN, scoring_mat_name="BLOSUM62")
+    cost = torch.from_numpy(np.ascontiguousarray(scheme.costing.values,
+                                                 np.int32)).to(dev)
+    letters = np.asarray(scheme.alphabet.encode(PROTEIN), np.int32)
+    rng = np.random.default_rng(SEED + 18)
+
+    def wall_ms(fn):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(out))
+
+    real = fill_tile.route_buckets
+    routes = {"one launch": lambda buckets, _: list(range(len(buckets))),
+              "per bucket": lambda *_: []}
+
+    def tokens(nb, k):
+        return torch.from_numpy(np.concatenate(
+            [np.zeros((nb, 1), np.int32),
+             rng.choice(letters, (nb, k)).astype(np.int32)], axis=1)).to(dev)
+
+    points = [(f"sides 1056..{top}", nb, top, False)
+              for top in (1536, 2560, 4096) for nb in (1, 2, 4, 8, 16, 32, 64)]
+    points += [(f"one bucket of {side}^2", nb, side, True)
+               for side, nbs in ((2048, (33, 66, 132)), (4096, (16, 32, 64)))
+               for nb in nbs]
+    rows = []
+    try:
+        for label, nb, top, one_bucket in points:
+            if one_bucket:
+                dims = [(top, top)] * nb
+                ta, tb = tokens(nb, top), tokens(nb, top)
+                args = ([ta], [tb], cost, scheme.alphabet.gap_id,
+                        scheme.gap_open_cost, [[top] * nb], [[top] * nb])
+                buckets = [([top] * nb, [top] * nb)]
+            else:
+                dims = [tuple(int(x) for x in rng.integers(1056, top + 1, 2))
+                        for _ in range(nb)]
+                tok = [(tokens(1, m), tokens(1, n)) for m, n in dims]
+                args = ([a for a, _ in tok], [b for _, b in tok], cost,
+                        scheme.alphabet.gap_id, scheme.gap_open_cost,
+                        [[m] for m, _ in dims], [[n] for _, n in dims])
+                buckets = [([m], [n]) for m, n in dims]
+            fill_tile.route_buckets = real
+            chosen = bool(real(buckets, sms))
+            shape = fill_tile.plan(dims, False, sms)
+            mdl = fill_tile.model(dims, shape, False, sms)
+            row = dict(batch=nb, pairs=label, route="one launch" if chosen
+                       else "per bucket", shape=list(shape),
+                       path_tiles=mdl.path_tiles, tiles=mdl.tiles,
+                       path_bound=mdl.tiles <= fill_tile.WARPS * sms
+                       * mdl.path_tiles, device_ms={}, wall_ms={})
+            finals = {}
+            for turn in (*routes, *list(routes)[::-1]):
+                fill_tile.route_buckets = routes[turn]
+                fn = functools.partial(fill_batch.batch_final3_ragged, *args)
+                row["device_ms"].setdefault(turn, []).append(device_ms(fn, reps))
+                row["wall_ms"].setdefault(turn, []).append(wall_ms(fn))
+                finals[turn] = fn()
+            if not torch.equal(*finals.values()):
+                raise SystemExit(f"wide sweep: the routes differ at B={nb}, "
+                                 f"{label}")
+            rows.append(row)
+            log(f"phase 3: wide sweep B={nb}, {label} on {card} "
+                f"(two turns each): one launch device "
+                f"{row['device_ms']['one launch']} ms, wall "
+                f"{row['wall_ms']['one launch']} ms; per bucket device "
+                f"{row['device_ms']['per bucket']} ms, wall "
+                f"{row['wall_ms']['per bucket']} ms; model path "
+                f"{mdl.path_tiles} tiles of {mdl.tiles} at {list(shape)}, "
+                f"path-bound {row['path_bound']}; route {row['route']}")
+    finally:
+        fill_tile.route_buckets = real
+    return rows
+
+
 def walk_ab(sources: list[str], reps: int = 10) -> int:
     """Time the package's walk kernels beside other builds of
     ``walk_block.cu`` (an older checkout's, or an edited copy: any source
@@ -4579,7 +4745,28 @@ def walk_ab(sources: list[str], reps: int = 10) -> int:
     return 0
 
 
+def wide_sweep_main() -> int:
+    """``--wide-sweep``: the card's line, then :func:`wide_sweep` alone and
+    its rows as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(card)
+    print(json.dumps({"wide_sweep": wide_sweep(f"({card})"), "card": card}),
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--walk-ab"]:
         sys.exit(walk_ab(sys.argv[2:]))
+    if sys.argv[1:] == ["--wide-sweep"]:
+        sys.exit(wide_sweep_main())
     sys.exit(multi_card() if sys.argv[1:] == ["--cards"] else main())

@@ -10,8 +10,9 @@ views of it.  Then:
 
   * cost-only: every bucket of the call in one
     ``ops.fill_batch.batch_final3_ragged`` call — one ``gotoh_batch``
-    launch (a warp per pair) per width class present, or, for a bucket
-    past its width cap, ``gotoh_fill``'s final3 mode a bucket: the
+    launch (a warp per pair) per width class present, and for the buckets
+    past its width cap one ``gotoh_tile`` launch over all their pairs
+    (``ops.fill_tile.route_buckets``; else a launch a bucket): the
     counterpart of the JAX package's fused cost chunk (``COST_CHUNK_JIT``,
     ``_chunk_costs_jit``);
   * traceback: the buckets of the call in segments, each closed where its

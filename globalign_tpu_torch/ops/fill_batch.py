@@ -23,14 +23,23 @@ Routes, by the tensors' device and the call's shape only:
     (``stacked_uniform_fill_last_rows``) and #7
     (``row_fill_last_rows_batch``);
   * the other CUDA buckets (wider than ``MAX_COLUMNS``, or a table that
-    does not fit in shared memory): ``gotoh_fill``'s final3 / last-row mode
-    (``fill_cuda.batch_moves(want_moves=False)`` /
-    ``fill_cuda.batch_last_rows``), one launch a bucket, a pair over
-    several SMs.
+    does not fit in shared memory), the wide route: where
+    ``fill_tile.route_buckets`` says so, one ``gotoh_tile`` launch over
+    all their pairs (``fill_tile.launch_ragged``: tiles of every pair by
+    ticket over the whole card, each pair's tokens read where they lie,
+    its final3 written to its row of the call's), so the launch takes
+    about its longest pair's path; the buckets it leaves (past 8 columns
+    a row, or too many tiles for one path-bound launch) one launch a
+    bucket by ``fill_cuda``'s route (``fill_cuda.batch_moves(want_moves=
+    False)`` / ``fill_cuda.batch_last_rows``: ``gotoh_fill``'s final3 /
+    last-row mode, or ``gotoh_tile`` for one or two large pairs).  Nothing
+    on this route waits for the card.
 
 No probe and no fallback: a CUDA tensor the chosen kernel cannot take
-raises.  ``batch_final3.launches`` counts ``gotoh_batch`` launches; the
-``gotoh_fill`` route counts on its own wrappers.
+raises.  ``batch_final3.launches`` counts ``gotoh_batch`` launches;
+``batch_final3_ragged.wide_launches`` the wide route's ``gotoh_tile``
+launches and ``.wide_pairs`` the pairs they take; the per-bucket routes
+count on their own wrappers.
 
 ``batch_moves_warp`` launches the moves sibling, ``csrc/gotoh_batch_moves.cu``
 (a warp a pair with its move codes), for ``fill_cuda.batch_moves_ragged``,
@@ -43,7 +52,7 @@ import numpy as np
 import torch
 
 from ..utils.spans import span
-from . import fill_cuda
+from . import fill_cuda, fill_tile
 
 WARP = 32
 WIDTHS = (4, 8, 16, 32)  # the kernel's instances: columns a lane (W)
@@ -126,7 +135,8 @@ def batch_final3_ragged(
 
     Returns (sum B_k, 3) final lanes in bucket order, pairs in their
     bucket's order — or, with ``last_rows``, the list of each bucket's
-    (B_k, 3, N_k+1) rows m_true.
+    (B_k, 3, N_k+1) rows m_true (views of one launch's rows where the wide
+    route takes the bucket).
     """
     tok_a, tok_b = list(tok_a), list(tok_b)
     with span("fill.batch"):
@@ -156,11 +166,29 @@ def batch_final3_ragged(
         return lasts if last_rows else final3
 
     with span("fill.wide"):
-        if final3 is None:  # one bucket on gotoh_fill: its own outputs
+        tiled = [rest[i] for i in fill_tile.route_buckets(
+            [(m_host[k].tolist(), n_host[k].tolist()) for k in rest],
+            fill_cuda._sms(device.index))]
+        if final3 is None and not tiled:  # one bucket on its own route
             out = _gotoh_fill(tok_a[0], tok_b[0], cost_mat, gap_id, gap_open,
                               m_host[0], n_host[0], last_rows)
             return [out] if last_rows else out
-        for k in rest:
+        if final3 is None:
+            final3 = torch.empty((int(offsets[-1]), 3), dtype=torch.int32,
+                                 device=device)
+        if tiled:
+            batch_final3_ragged.wide_launches += 1
+            batch_final3_ragged.wide_pairs += sum(tok_a[k].shape[0]
+                                                  for k in tiled)
+            out = fill_tile.launch_ragged(
+                [tok_a[k] for k in tiled], [tok_b[k] for k in tiled],
+                cost_mat, gap_id, gap_open, [m_host[k] for k in tiled],
+                [n_host[k] for k in tiled], final3,
+                [int(offsets[k]) for k in tiled], last_rows=last_rows,
+            )
+            for k, last in zip(tiled, out or ()):
+                lasts[k] = last
+        for k in [k for k in rest if k not in tiled]:
             out = _gotoh_fill(tok_a[k], tok_b[k], cost_mat, gap_id, gap_open,
                               m_host[k], n_host[k], last_rows)
             if last_rows:
@@ -207,7 +235,8 @@ def _batch_part(tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host,
 
 def _gotoh_fill(tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host,
                 last_rows):
-    """One bucket through ``gotoh_fill``'s final3 / last-row mode."""
+    """One bucket on ``fill_cuda``'s route: ``gotoh_fill``'s final3 /
+    last-row mode, or ``gotoh_tile`` for one or two large pairs."""
     if last_rows:
         return fill_cuda.batch_last_rows(
             tok_a, tok_b, cost_mat, gap_id, gap_open, m_host, n_host
@@ -369,4 +398,6 @@ def batch_final3_dual(
 
 
 batch_final3.launches = 0
+batch_final3_ragged.wide_launches = 0
+batch_final3_ragged.wide_pairs = 0
 batch_moves_warp.launches = 0

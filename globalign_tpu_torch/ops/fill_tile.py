@@ -12,15 +12,20 @@ of the pair (``rows``), each under the contract of
 checkpoint pass is that list (:func:`checkpoint_rows`).
 
 Here live:
-  * the tiling: :func:`tile_grid`, the ticket table :func:`tile_order` and
-    the launch's metadata (:func:`metadata`);
-  * :func:`plan`, the (H, W) of a launch, and :func:`route`, the rule by
+  * the tiling: :func:`tile_grid`, the ticket table :func:`tile_order`,
+    the launch's metadata (:func:`metadata`), its pair table (each pair's
+    token offsets and final3 row: :func:`ragged_pairs` for pairs of
+    several buckets) and the one buffer that carries all three to the
+    card (:func:`host_layout`);
+  * :func:`plan`, the (H, W) of a launch, :func:`route`, the rule by
     which ``fill_cuda`` sends a non-strip fill to this kernel instead of
-    ``gotoh_fill``;
-  * the launcher :func:`launch` (counter ``gotoh_tile.launches``) and the
-    public wrapper :func:`gotoh_tile`, whose plain version on CPU tensors
-    is the row scan (``fill_rows.row_fill``), pair by pair and block by
-    block between the requested rows;
+    ``gotoh_fill``, and :func:`route_buckets`, the rule by which the batch
+    cost fill gives the buckets past ``gotoh_batch`` to one launch;
+  * the launchers :func:`launch` and :func:`launch_ragged` (counter
+    ``gotoh_tile.launches``) and the public wrapper :func:`gotoh_tile`,
+    whose plain version on CPU tensors is the row scan
+    (``fill_rows.row_fill``), pair by pair and block by block between the
+    requested rows;
   * :func:`plain_tiled`, the executable spec of the kernel's schedule: it
     fills tile by tile in ticket order from nothing but what the kernel
     hands over, and checks that every tile reads its producers' writes.
@@ -43,6 +48,7 @@ WARPS = 4  # warps a block, one block an SM (the kernel's)
 SHAPES = ((128, 4), (64, 4), (64, 2), (32, 4))  # the kernel's (H, W) instances
 FLAG_STRIDE = 32  # int32 a flag: one 128-byte line each
 EDGE_INTS = 4  # an edge cell in the buffers: (M, Ix, Iy, unused) int32
+PAIR_WORDS = 4  # int64 a pair: seq_1 and seq_2 offsets, final3 row, unused
 
 # A tile's time on an NVIDIA H100 80GB HBM3 at 700 W, in microseconds, by
 # (H, W, with codes): a pair one tile column wide, whose 64 tiles run one
@@ -81,28 +87,26 @@ def tile_order(dims: tuple[tuple[int, int], ...], height: int,
     c*columns+1 .. (c+1)*columns of its pair; every tile that holds a
     cell of the pair is in the table, once.  Order: anti-diagonal b + c,
     then the pair, then b, so a tile's producers (b-1, c) and (b, c-1)
-    hold smaller tickets.  Built without a sort (each tile's ticket is
-    counted directly); the array is read-only (cached)."""
-    grids = [tile_grid(m, n, height, columns) if m > 0 and n > 0 else (0, 0)
-             for m, n in dims]
-    diags = max((tb + c - 1 for tb, c in grids), default=0)
-    count = np.zeros((max(diags, 0), len(dims)), np.int64)  # tiles (d, p)
-    d = np.arange(max(diags, 0))
-    for p, (tb, c) in enumerate(grids):
-        if tb:
-            count[:, p] = np.maximum(0, np.minimum(d, tb - 1)
-                                     - np.maximum(0, d - c + 1) + 1)
-    start = np.concatenate([[0], np.cumsum(count.ravel())])[:-1].reshape(
-        count.shape)  # the first ticket of pair p on diagonal d
-    out = np.zeros((int(count.sum()), 4), np.int32)
-    for p, (tb, c) in enumerate(grids):
-        if not tb:
-            continue
-        b, cc = np.meshgrid(np.arange(tb), np.arange(c), indexing="ij")
-        b, cc = b.ravel(), cc.ravel()
-        dd = b + cc
-        ticket = start[dd, p] + b - np.maximum(0, dd - c + 1)
-        out[ticket, 0], out[ticket, 1], out[ticket, 2] = p, b, cc
+    hold smaller tickets.  Built without a sort or a loop over the pairs
+    (each tile's ticket is counted directly); the array is read-only
+    (cached)."""
+    grids = np.array([tile_grid(m, n, height, columns) if m > 0 and n > 0
+                      else (0, 0) for m, n in dims], np.int64).reshape(-1, 2)
+    tb, c = grids[:, 0], grids[:, 1]
+    diags = int(max((tb + c - 1).max(initial=0), 0))
+    d = np.arange(diags)[:, None]
+    count = np.maximum(0, np.minimum(d, tb - 1) - np.maximum(0, d - c + 1) + 1)
+    count[:, tb == 0] = 0  # tiles (d, p)
+    start = (np.cumsum(count.ravel()) - count.ravel()).reshape(count.shape)
+    sizes = tb * c  # the first ticket of pair p on diagonal d: start[d, p]
+    p = np.repeat(np.arange(len(dims)), sizes)
+    k = np.arange(int(sizes.sum())) - np.repeat(np.cumsum(sizes) - sizes, sizes)
+    cp = c[p]
+    b, cc = k // np.maximum(cp, 1), k % np.maximum(cp, 1)
+    dd = b + cc
+    ticket = start[dd, p] + b - np.maximum(0, dd - cp + 1)
+    out = np.zeros((len(k), 4), np.int32)
+    out[ticket, 0], out[ticket, 1], out[ticket, 2] = p, b, cc
     out.flags.writeable = False
     return out
 
@@ -133,25 +137,26 @@ class TileModel(NamedTuple):
     us: float
 
 
-def model(batch: int, m: int, n: int, shape, want_moves: bool,
-          sms: int) -> TileModel:
-    """The time of a launch of ``batch`` pairs of m x n at tile shape
-    ``shape``: its critical path (ceil(m/H) + ceil(n/32W) - 1 tiles) or
-    its tiles spread over the card's warps, whichever is longer, at
-    ``TILE_US``."""
+def model(dims, shape, want_moves: bool, sms: int) -> TileModel:
+    """The time of a launch over pairs of shapes ``dims`` ((m, n) each) at
+    tile shape ``shape``: its critical path, its longest pair's
+    (ceil(m/H) + ceil(n/32W) - 1 tiles), or the tiles of all its pairs
+    spread over the card's warps, whichever is longer, at ``TILE_US``."""
     height, width = shape
-    tb, c = tile_grid(max(1, m), max(1, n), height, WARP * width)
-    tiles = batch * tb * c
+    grids = [tile_grid(max(1, m), max(1, n), height, WARP * width)
+             for m, n in dims]
+    path = max(tb + c - 1 for tb, c in grids)
+    tiles = sum(tb * c for tb, c in grids)
     us = TILE_US[(height, width, bool(want_moves))] * max(
-        tb + c - 1, tiles / (WARPS * sms))
-    return TileModel(height, width, tb + c - 1, tiles, us)
+        path, tiles / (WARPS * sms))
+    return TileModel(height, width, path, tiles, us)
 
 
-def plan(batch: int, m: int, n: int, want_moves: bool, sms: int) -> tuple[int, int]:
-    """The (H, W) of a launch of ``batch`` pairs of up to m x n on a card
-    of ``sms`` SMs: the shape of ``SHAPES`` with the least :func:`model`
+def plan(dims, want_moves: bool, sms: int) -> tuple[int, int]:
+    """The (H, W) of a launch over pairs of shapes ``dims`` on a card of
+    ``sms`` SMs: the shape of ``SHAPES`` with the least :func:`model`
     time (short tiles for short, wide blocks)."""
-    return min(SHAPES, key=lambda s: model(batch, m, n, s, want_moves, sms).us)[:2]
+    return min(SHAPES, key=lambda s: model(dims, s, want_moves, sms).us)[:2]
 
 
 def route(batch: int, m: int, n: int, want_moves: bool, sms: int) -> bool:
@@ -166,11 +171,38 @@ def route(batch: int, m: int, n: int, want_moves: bool, sms: int) -> bool:
     wide fill's tiles form a long path along the columns (ceil(n / 32 W)
     tiles) where gotoh_fill's is about m rows: at 600 x 20 000 gotoh_fill
     won, and past 8 columns a row it keeps them.  Batches keep gotoh_fill,
-    and so do pairs below those shapes."""
+    and so do pairs below those shapes; the batch cost fill's wide pairs
+    have a rule of their own (:func:`route_buckets`)."""
     del sms  # the sweeps found one rule on the H100
     side = ROUTE_MIN_SIDE if want_moves else ROUTE_MIN_SIDE_COST
     return (batch <= ROUTE_MAX_BATCH and min(m, n) >= side
             and n <= ROUTE_MAX_ASPECT * m)
+
+
+def route_buckets(buckets, sms: int) -> list[int]:
+    """The cost-only buckets that one launch fills together: ``buckets``
+    lists (m_true, n_true) a bucket (the ones ``gotoh_batch`` leaves,
+    ``fill_batch.batch_final3_ragged``'s rest); returns the indices of
+    those the launch takes, or [] where each keeps its own route
+    (``fill_cuda``'s, by :func:`route`).
+
+    A bucket within :func:`route`'s aspect rule (its n <= 8 m) joins: past
+    it gotoh_fill won.  The joined pairs go to one launch when
+    :func:`model` finds it path-bound at :func:`plan`'s shape, its tiles
+    no more than the card's warps times its longest pair's path, so that
+    it takes about its longest pair's time and not the sum of its pairs'.
+    A short pair there rides under the longest pair's path, so no least
+    side applies; a launch of one pair keeps :func:`route`'s.  Past the
+    test (a mesh shard of 64 x 4096^2: 131 072 tiles against 528 warps x
+    95) each bucket keeps its own route.  ``chip_smoke.py`` Phase 3's wide
+    sweep times both routes."""
+    joined = [k for k, (m, n) in enumerate(buckets)
+              if max(n) <= ROUTE_MAX_ASPECT * max(m)]
+    dims = [d for k in joined for d in zip(*buckets[k])]
+    if len(dims) <= 1:
+        return joined if dims and route(1, *dims[0], False, sms) else []
+    tiles = model(dims, plan(dims, False, sms), False, sms)
+    return joined if tiles.tiles <= WARPS * sms * tiles.path_tiles else []
 
 
 def _rows_of(rows, m_true) -> list[list[int]] | None:
@@ -188,43 +220,79 @@ def _rows_of(rows, m_true) -> list[list[int]] | None:
     return rows
 
 
-@functools.lru_cache(maxsize=8)
-def _device_order(dims, height, columns, device) -> torch.Tensor:
-    return torch.from_numpy(tile_order(dims, height, columns).copy()).to(device)
+def ragged_pairs(tok_a, tok_b, first_rows) -> tuple[int, np.ndarray]:
+    """The pair table of a launch over the pairs of several buckets:
+    ``tok_a`` / ``tok_b`` list (B_k, M_k+1) / (B_k, N_k+1) contiguous int32
+    token tensors on one device, any storage; pair r of bucket k's final3
+    goes to row ``first_rows[k] + r``.  Returns (base, pairs): the lowest
+    data address among the tokens, and (sum B_k, PAIR_WORDS) int64 rows
+    (seq_1 offset, seq_2 offset, final3 row, 0), the offsets in int32
+    words from base, buckets in order and pairs in their bucket's."""
+    base = min(t.data_ptr() for t in (*tok_a, *tok_b))
+    sizes = np.array([ta.shape[0] for ta in tok_a], np.int64)
+    r = np.arange(int(sizes.sum())) - np.repeat(np.cumsum(sizes) - sizes, sizes)
+
+    def per_pair(values):
+        return np.repeat(np.asarray(values, np.int64), sizes)
+
+    pairs = np.zeros((len(r), PAIR_WORDS), np.int64)
+    for col, tok in enumerate((tok_a, tok_b)):
+        pairs[:, col] = (per_pair([(t.data_ptr() - base) // 4 for t in tok])
+                         + r * per_pair([t.shape[1] for t in tok]))
+    pairs[:, 2] = per_pair(first_rows) + r
+    return base, pairs
 
 
-def launch(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
-           want_moves: bool, rows=None, row0=None, col0y_top=None,
-           shape=None):
-    """One launch of the kernel on checked inputs (``fill_cuda._check``'s):
-    ``(final3 (B, 3), moves (B, M+1, N+1) or None, rows (B, K, 3, N+1) or
-    None)`` on the tokens' CUDA device.  ``m_true`` / ``n_true`` host-side
-    int32 tensors, ``rows`` checked lists (:func:`_rows_of`), ``shape`` the
-    (H, W) (default :func:`plan`'s).  ``gotoh_tile.launches`` counts the
-    launches."""
+def host_layout(order: np.ndarray, pairs: np.ndarray, meta: np.ndarray,
+                out: np.ndarray | None = None) -> np.ndarray:
+    """A launch's tables as one int32 buffer, for one copy to the card:
+    the ticket table (:func:`tile_order`, 16-byte rows), then the pair
+    table (int64, so 16-byte aligned), then the metadata (:func:`metadata`).
+    Written into ``out`` (pinned memory on the way to a card) if given."""
+    sizes = np.cumsum([0, order.size, 2 * pairs.size, meta.size])
+    if out is None:
+        out = np.empty(sizes[-1], np.int32)
+    out[sizes[0] : sizes[1]] = order.reshape(-1)
+    out[sizes[1] : sizes[2]] = np.ascontiguousarray(pairs, np.int64).reshape(
+        -1).view(np.int32)
+    out[sizes[2] : sizes[3]] = meta
+    return out
+
+
+def _run(tok_a: int, tok_b: int, cost_mat, gap_id, gap_open, dims, pairs,
+         final3, grid, *, want_moves: bool, rows=None, row0=None,
+         col0y_top=None, shape=None):
+    """One launch over the pairs ``dims`` ((m, n) each): pair p's tokens at
+    ``pairs[p]``'s offsets from the addresses ``tok_a`` / ``tok_b``, its
+    final3 into row ``pairs[p, 2]`` of ``final3``, on ``cost_mat``'s card;
+    ``grid`` (M, N) the rows and columns of the outputs and edge buffers
+    (no pair's m or n past them).  ``rows`` checked lists
+    (:func:`_rows_of`), ``shape`` the (H, W) (default :func:`plan`'s).
+    The tables go in one non-blocking copy from pinned memory, so nothing
+    here waits for the card.  Returns ``(moves (B, M+1, N+1) or None, rows
+    (B, K, 3, N+1) or None)``; ``gotoh_tile.launches`` counts the launch."""
     from ..utils import cuda_build
     from .fill_cuda import _sms
 
     lib = cuda_build.load()
-    device = tok_a.device
-    batch, m1 = tok_a.shape
-    n1 = tok_b.shape[1]
-    m_list, n_list = m_true.tolist(), n_true.tolist()
+    device = cost_mat.device
+    batch = len(dims)
+    m1, n1 = grid[0] + 1, grid[1] + 1
     if shape is None:
-        shape = plan(batch, max(m_list), max(n_list), want_moves,
-                     _sms(device.index))
+        shape = plan(dims, want_moves, _sms(device.index))
     height, width = shape
     if (height, width) not in SHAPES:
         raise ValueError(f"no gotoh_tile instance of shape {shape}")
     columns = WARP * width
-    dims = tuple(zip(m_list, n_list))
     tile_rows, tile_cols = tile_grid(m1 - 1, n1 - 1, height, columns)
-    meta = torch.from_numpy(metadata(dims, rows, height, tile_rows))
+    order = tile_order(tuple(dims), height, columns)
+    meta = metadata(dims, rows, height, tile_rows)
     k = len(rows[0]) if rows else 0
+    host = torch.empty(order.size + 2 * pairs.size + meta.size,
+                       dtype=torch.int32, pin_memory=True)
+    host_layout(order, pairs, meta, out=host.numpy())
     with torch.cuda.device(device):
-        order = _device_order(dims, height, columns, device)
-        meta = meta.pin_memory().to(device, non_blocking=True)
-        final3 = torch.empty((batch, 3), dtype=torch.int32, device=device)
+        tables = host.to(device, non_blocking=True)
         moves = (torch.empty((batch, m1, n1), dtype=torch.uint8, device=device)
                  if want_moves else None)
         rows_out = (torch.empty((batch, k, 3, n1), dtype=torch.int32,
@@ -239,11 +307,12 @@ def launch(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
         def ptr(x):
             return None if x is None else x.data_ptr()
 
+        at = tables.data_ptr()
         stream = torch.cuda.current_stream(device).cuda_stream
         gotoh_tile.launches += 1
         err = lib.gotoh_tile_launch(
-            tok_a.data_ptr(), tok_b.data_ptr(), cost_mat.data_ptr(), ptr(row0),
-            ptr(col0y_top), meta.data_ptr(), order.data_ptr(),
+            tok_a, tok_b, cost_mat.data_ptr(), ptr(row0), ptr(col0y_top),
+            at + 4 * (order.size + 2 * pairs.size), at, at + 4 * order.size,
             final3.data_ptr(), ptr(moves), ptr(rows_out), rowbuf.data_ptr(),
             colbuf.data_ptr(), flags.data_ptr(), batch, m1 - 1, n1 - 1,
             cost_mat.shape[0], int(gap_id), int(gap_open), k, len(order),
@@ -252,7 +321,59 @@ def launch(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
     if err != 0:
         msg = lib.gotoh_tile_error_string(err).decode()
         raise RuntimeError(f"gotoh_tile launch failed: CUDA error {err} ({msg})")
+    return moves, rows_out
+
+
+def launch(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
+           want_moves: bool, rows=None, row0=None, col0y_top=None,
+           shape=None):
+    """One launch of the kernel on checked inputs (``fill_cuda._check``'s):
+    ``(final3 (B, 3), moves (B, M+1, N+1) or None, rows (B, K, 3, N+1) or
+    None)`` on the tokens' CUDA device.  ``m_true`` / ``n_true`` host-side
+    int32 tensors, ``rows`` checked lists (:func:`_rows_of`), ``shape`` the
+    (H, W) (default :func:`plan`'s).  ``gotoh_tile.launches`` counts the
+    launches."""
+    batch, m1 = tok_a.shape
+    n1 = tok_b.shape[1]
+    p = np.arange(batch, dtype=np.int64)
+    pairs = np.zeros((batch, PAIR_WORDS), np.int64)
+    pairs[:, 0], pairs[:, 1], pairs[:, 2] = p * m1, p * n1, p
+    final3 = torch.empty((batch, 3), dtype=torch.int32, device=tok_a.device)
+    moves, rows_out = _run(
+        tok_a.data_ptr(), tok_b.data_ptr(), cost_mat, gap_id, gap_open,
+        list(zip(m_true.tolist(), n_true.tolist())), pairs, final3,
+        (m1 - 1, n1 - 1), want_moves=want_moves, rows=rows, row0=row0,
+        col0y_top=col0y_top, shape=shape,
+    )
     return final3, moves, rows_out
+
+
+def launch_ragged(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
+                  final3, first_rows, *, last_rows: bool = False):
+    """One cost-only launch over every pair of several buckets (the wide
+    route of ``fill_batch.batch_final3_ragged``): ``tok_a`` / ``tok_b``
+    list (B_k, M_k+1) / (B_k, N_k+1) checked int32 token tensors on one
+    card, each pair read at its own offsets (:func:`ragged_pairs`), so the
+    buckets may be views of one arena at their own padded widths;
+    ``m_true`` / ``n_true`` their host-side lengths.  Pair r of bucket k's
+    final3 goes to row ``first_rows[k] + r`` of ``final3``.  With
+    ``last_rows``, each pair's row m_true too: returns each bucket's
+    (B_k, 3, N_k+1) rows (views of the launch's rows), else None."""
+    base, pairs = ragged_pairs(tok_a, tok_b, first_rows)
+    dims = [d for mt, nt in zip(m_true, n_true)
+            for d in zip(mt.tolist(), nt.tolist())]
+    grid = (max(t.shape[1] for t in tok_a) - 1,
+            max(t.shape[1] for t in tok_b) - 1)
+    _, rows_out = _run(base, base, cost_mat, gap_id, gap_open, dims, pairs,
+                       final3, grid, want_moves=False,
+                       rows=[[m] for m, _ in dims] if last_rows else None)
+    if not last_rows:
+        return None
+    lasts, lo = [], 0
+    for tb in tok_b:
+        lasts.append(rows_out[lo : lo + tb.shape[0], 0, :, : tb.shape[1]])
+        lo += tb.shape[0]
+    return lasts
 
 
 def _plain_rows(tok_a, tok_b, cost_mat, gap_id, gap_open, m, n, rows, row0,
@@ -357,11 +478,14 @@ def checkpoint_rows(tok_a: torch.Tensor, tok_b: torch.Tensor,
 
 def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
                 height: int, columns: int, rows=None, want_moves: bool = True,
-                row0=None, col0y_top=None):
+                row0=None, col0y_top=None, offsets=None):
     """The kernel's schedule, executed on the host: ``(final3 (B, 3),
     moves (B, M+1, N+1) or None, rows (B, K, 3, N+1) or None)`` as numpy
     arrays, for numpy inputs shaped as :func:`gotoh_tile`'s (``rows``
-    lists a pair).
+    lists a pair).  With ``offsets`` ((B, 2): the first two columns of a
+    pair table, :func:`ragged_pairs`), ``tok_a`` and ``tok_b`` are flat
+    buffers and pair p reads its m + 1 and n + 1 tokens from those
+    offsets, as the kernel does; M and N are then the largest m and n.
 
     What the kernel does, in its order: the writes no tile makes (the code
     bytes of row 0, column 0 and the padding; row 0 and the pairs with m
@@ -381,9 +505,22 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
     tok_b = np.asarray(tok_b, np.int64)
     cost = np.asarray(cost_mat, np.int64)
     gap, go = int(gap_id), int(gap_open)
-    batch, m1 = tok_a.shape
-    n1 = tok_b.shape[1]
     dims = tuple((int(m), int(n)) for m, n in zip(m_true, n_true))
+    batch = len(dims)
+    if offsets is None:
+        m1, n1 = tok_a.shape[1], tok_b.shape[1]
+        offsets = [(p * m1, p * n1) for p in range(batch)]
+        tok_a, tok_b = tok_a.reshape(-1), tok_b.reshape(-1)
+    else:
+        m1 = max(m for m, _ in dims) + 1
+        n1 = max(n for _, n in dims) + 1
+    # Each pair's tokens, no more than it holds: a read past them raises.
+    seq_a = [tok_a[int(oa) : int(oa) + m + 1] for (oa, _), (m, _) in
+             zip(offsets, dims)]
+    seq_b = [tok_b[int(ob) : int(ob) + n + 1] for (_, ob), (_, n) in
+             zip(offsets, dims)]
+    for sa, sb, (m, n) in zip(seq_a, seq_b, dims):
+        assert len(sa) == m + 1 and len(sb) == n + 1, "tokens past the buffer"
     k_rows = len(rows[0]) if rows else 0
     final3 = np.zeros((batch, 3), np.int64)
     moves = np.full((batch, m1, n1), 255, np.uint8) if want_moves else None
@@ -408,7 +545,7 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
         if m == 0 or wants_row0:
             d = 0
             for j in range(n + 1):
-                d += int(cost[gap, tok_b[p, j]]) if j else 0
+                d += int(cost[gap, seq_b[p][j]]) if j else 0
                 v = row0_at(p, j, d)
                 if wants_row0:
                     rows_out[p, 0, :, j] = v
@@ -417,7 +554,7 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
         if n == 0 and m > 0:
             y = seed
             for i in range(1, m + 1):
-                y += int(cost[tok_a[p, i], gap])
+                y += int(cost[seq_a[p][i], gap])
                 if i == m:
                     final3[p] = (BIG, BIG, y)
                 if rows and i in rows[p]:
@@ -449,7 +586,7 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
                       row0_at(p, 0, 0))
             edge = [corner]
             for i in range(r0 + 1, r0 + hh + 1):
-                y += int(cost[tok_a[p, i], gap])
+                y += int(cost[seq_a[p][i], gap])
                 edge.append((BIG, BIG, y))
         else:
             edge = [take(colbuf[p][b][k], t, (b, c - 1)) for k in range(hh + 1)]
@@ -461,12 +598,12 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
             x = go if c == 0 else edge[0][1]  # go + D[c0]
             top = []
             for j in range(c0 + 1, c0 + ncols + 1):
-                x += int(cost[gap, tok_b[p, j]])
+                x += int(cost[gap, seq_b[p][j]])
                 top.append(row0_at(p, j, x - go))
         right = [top[-1]]  # the corner of the tile to the right
         for rr in range(hh):
             i = r0 + 1 + rr
-            a = tok_a[p, i]
+            a = seq_a[p][i]
             ic = int(cost[a, gap])
             l_m, l_xu, l_y = edge[rr + 1]
             d_m, d_x, d_y = edge[rr]
@@ -476,9 +613,9 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
             for q in range(ncols):
                 j = c0 + 1 + q
                 mp, xp, yp = top[q]
-                d = int(cost[gap, tok_b[p, j]])
+                d = int(cost[gap, seq_b[p][j]])
                 best = min(d_m, d_x, d_y)
-                mc = min(best + int(cost[a, tok_b[p, j]]), BIG)
+                mc = min(best + int(cost[a, seq_b[p][j]]), BIG)
                 vy = min(min(mp, xp) + go, yp)
                 yc = min(vy + ic, BIG)
                 xu = min(xu + d, min(h_m, h_y) + go + d)

@@ -95,9 +95,9 @@ SIGNATURES = {
     },
     "gotoh_tile": {
         "gotoh_tile_launch": (
-            # tok_a tok_b cost row0 col0y_top meta order final3 moves
-            # rows_out rowbuf colbuf flags
-            [_PTR] * 13
+            # tok_a tok_b cost row0 col0y_top meta order pairs final3
+            # moves rows_out rowbuf colbuf flags
+            [_PTR] * 14
             + [_I32] * 10  # B M N A gap go K tiles H W
             + [_PTR],  # stream
             _I32,

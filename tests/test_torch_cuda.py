@@ -21,6 +21,8 @@ from globalign_tpu_torch.ops import fill_cuda, fill_split, fill_tile, linear_tb
 
 pytestmark = pytest.mark.cuda
 
+TABLE_LETTERS = "".join(chr(0x4E00 + k) for k in range(399))  # a 640 KB table
+
 
 @pytest.fixture
 def cuda_device():
@@ -407,25 +409,33 @@ def test_gotoh_batch_matches_plain(cuda_device, letters, n_cols, scheme_kw):
     assert torch.equal(fill_batch.batch_final3(*one).cpu(), want3[: len(shapes)])
 
 
-@pytest.mark.parametrize("letters,shapes", [
-    ("ACGT", [(30, 4200), (3, 4097)]),  # wider than the cap
-    ("ACGT", [(30, 1025), (3, 1000)]),  # one column past it
-    ("".join(chr(0x4E00 + k) for k in range(399)), [(40, 60), (5, 9)]),  # table
+@pytest.mark.parametrize("letters,shapes,tiled", [
+    ("ACGT", [(30, 4200), (3, 4097)], False),  # wider than the cap
+    ("ACGT", [(30, 1025), (3, 1000)], False),  # one column past it
+    (TABLE_LETTERS, [(40, 400), (5, 9)], False),  # table, 10 columns a row
+    (TABLE_LETTERS, [(40, 60), (5, 9)], True),  # table, the wide route
 ])
-def test_batch_final3_past_the_plan_runs_gotoh_fill(cuda_device, letters, shapes):
+def test_batch_final3_past_the_plan_runs_gotoh_fill(cuda_device, letters, shapes,
+                                                    tiled):
     """Buckets wider than gotoh_batch's 1024-column cap, or with a table
     too large for its shared memory, run gotoh_fill's final3 / last-row
-    mode."""
+    mode past 8 columns a row, and within it the wide route's one
+    gotoh_tile launch (``fill_tile.route_buckets``)."""
     from globalign_tpu_torch.ops import fill_batch
 
     args = _case(np.random.default_rng(15), letters, shapes)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert bool(fill_tile.route_buckets([(args[5], args[6])], sms)) == tiled
     before = (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches,
-              fill_cuda.batch_last_rows.launches)
+              fill_cuda.batch_last_rows.launches, fill_tile.gotoh_tile.launches,
+              fill_batch.batch_final3_ragged.wide_launches)
     got3 = fill_batch.batch_final3(*_on(cuda_device, args))
     got_last = fill_batch.batch_final3(*_on(cuda_device, args), last_rows=True)
     assert (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches,
-            fill_cuda.batch_last_rows.launches) == (
-        before[0], before[1] + 1, before[2] + 1
+            fill_cuda.batch_last_rows.launches, fill_tile.gotoh_tile.launches,
+            fill_batch.batch_final3_ragged.wide_launches) == (
+        before[0], before[1] + (not tiled), before[2] + (not tiled),
+        before[3] + 2 * tiled, before[4] + 2 * tiled,
     )
     assert torch.equal(got3.cpu(), fill_batch.batch_final3(*args))
     assert torch.equal(got_last.cpu(), fill_batch.batch_final3(*args, last_rows=True))
@@ -450,6 +460,81 @@ def test_batch_final3_routing_on_either_side_of_the_cap(cuda_device, batch):
     got = fill_batch.batch_final3_ragged(*on_card)
     assert (fill_batch.batch_final3.launches - before[0],
             fill_cuda.batch_moves.launches - before[1]) == (1, 1)
+    assert torch.equal(got.cpu(), fill_batch.batch_final3_ragged(*args))
+
+
+def _wide_tail_pairs(rng, letters):
+    """A cost-only call with a wide tail: 60 pairs under 1024 columns and
+    pairs past them in buckets of their own (one under 1024 rows, one of
+    two pairs), within 8 columns a row."""
+    def seq(k):
+        return "".join(rng.choice(list(letters), k))
+
+    pairs = [(seq(int(rng.integers(30, 600))), seq(int(rng.integers(30, 600))))
+             for _ in range(60)]
+    for m, n in ((1100, 1150), (2500, 2400), (900, 1300), (1700, 3100),
+                 (1210, 1200), (1211, 1205), (4000, 3800)):
+        pairs.insert(int(rng.integers(0, len(pairs))), (seq(m), seq(n)))
+    return pairs
+
+
+@pytest.mark.parametrize("letters,kw", [
+    ("ACGT", {}), ("ARNDCQEGHILKMFPSTWYV", dict(scoring_mat_name="BLOSUM62")),
+])
+def test_align_pairs_cost_wide_tail_is_one_gotoh_tile_launch(cuda_device,
+                                                             letters, kw,
+                                                             monkeypatch):
+    """A cost-only call's pairs past 1024 columns: one gotoh_tile launch
+    over all of them (the counters say so) and no gotoh_fill launch; final3,
+    costs and scores equal the per-bucket route's and the plain version's."""
+    from globalign_tpu_torch import align_pairs
+    from globalign_tpu_torch.batch import bucket_length
+    from globalign_tpu_torch.ops import fill_batch
+
+    pairs = _wide_tail_pairs(np.random.default_rng(31), letters)
+    wide = [(bucket_length(len(a)), bucket_length(len(b))) for a, b in pairs
+            if bucket_length(len(b)) > fill_batch.MAX_COLUMNS]
+    counters = lambda: (fill_tile.gotoh_tile.launches,  # noqa: E731
+                        fill_cuda.batch_moves.launches,
+                        fill_batch.batch_final3_ragged.wide_launches,
+                        fill_batch.batch_final3_ragged.wide_pairs)
+    before = counters()
+    got = align_pairs(pairs, with_traceback=False, **kw)
+    assert [a - b for a, b in zip(counters(), before)] == [1, 0, 1, len(wide)]
+    with monkeypatch.context() as patch:  # each bucket on its own route
+        patch.setattr(fill_tile, "route_buckets", lambda *a: [])
+        before = counters()
+        per_bucket = align_pairs(pairs, with_traceback=False, **kw)
+        delta = [a - b for a, b in zip(counters(), before)]
+    assert delta[0] + delta[1] == len(set(wide)) > 1 and delta[2:] == [0, 0]
+    assert got == per_bucket == align_pairs(pairs, with_traceback=False,
+                                            device="cpu", **kw)
+
+
+def test_wide_route_makes_no_synchronising_call(cuda_device):
+    """The cost fill over a call's buckets, wide ones included, queues its
+    launches without a synchronising call (sync debug mode "error"), and
+    its final3 equals the plain version's."""
+    from globalign_tpu_torch.ops import fill_batch
+
+    rng = np.random.default_rng(32)
+    buckets = [_case(rng, "ACGT", shapes) for shapes in (
+        [(300, 200), (120, 250)], [(1100, 1150)], [(2500, 2400), (2490, 2390)],
+        [(900, 1300)])]
+    args = ([b[0] for b in buckets], [b[1] for b in buckets], *buckets[0][2:5],
+            [b[5] for b in buckets], [b[6] for b in buckets])
+    on_card = ([t.to(cuda_device) for t in args[0]],
+               [t.to(cuda_device) for t in args[1]], args[2].to(cuda_device),
+               *args[3:])
+    fill_batch.batch_final3_ragged(*on_card)  # the build, the card's SMs
+    torch.cuda.synchronize()
+    before = fill_batch.batch_final3_ragged.wide_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fill_batch.batch_final3_ragged(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fill_batch.batch_final3_ragged.wide_launches == before + 1
     assert torch.equal(got.cpu(), fill_batch.batch_final3_ragged(*args))
 
 

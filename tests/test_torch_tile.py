@@ -155,6 +155,171 @@ def test_plain_tiled_takes_pairs_of_several_shapes(tile):
         assert (rows[:, 0] == want_last.numpy()).all()
 
 
+# A call's ragged set, as the batch cost fill's wide route takes it: buckets
+# at their own padded widths in one arena, mixed aspects, short sides, m or
+# n of 0.
+RAGGED = [
+    [(37, 41), (40, 33), (29, 40)],
+    [(9, 70), (0, 65)],  # short and wide, an empty seq_1
+    [(66, 12), (61, 0)],  # tall and narrow, an empty seq_2
+    [(1, 1)],
+]
+
+
+def _ragged_call(rng, scheme, letters, buckets, quantum=8):
+    """``buckets`` packed and tokenized as ``align_pairs`` does it (on the
+    CPU): the call, each bucket's (B, M+1) / (B, N+1) views of its arena,
+    and each bucket's (m_true, n_true)."""
+    from globalign_tpu_torch.ops import packed
+
+    spec = []
+    for shapes in buckets:
+        seqs = [("".join(rng.choice(list(letters), m)),
+                 "".join(rng.choice(list(letters), n))) for m, n in shapes]
+        pad_m = -(-max(max(m for m, _ in shapes), 1) // quantum) * quantum
+        pad_n = -(-max(max(n for _, n in shapes), 1) // quantum) * quantum
+        spec.append(([a for a, _ in seqs], [b for _, b in seqs], pad_m, pad_n))
+    call = packed.pack_call(scheme.alphabet, spec, with_render=False)
+    call.upload(torch.device("cpu"))
+    call.tokenize()
+    views = [call.bucket(k) for k in range(len(buckets))]
+    lengths = [([m for m, _ in shapes], [n for _, n in shapes])
+               for shapes in buckets]
+    return call, views, lengths
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("name", ["dna", "blosum62"])
+def test_plain_tiled_reads_a_ragged_arena(name, tile):
+    """One schedule over a call's ragged set, each pair's tokens read at its
+    own offsets in the arena (``ragged_pairs``), cost only with the last
+    row (the wide route's launch): final3 and row m equal the row scan
+    pair by pair, and no pair reads a token past its own."""
+    height, columns = tile
+    letters, scheme, cost = _scheme(name)
+    gid, go = scheme.alphabet.gap_id, scheme.gap_open_cost
+    call, views, lengths = _ragged_call(np.random.default_rng(sum(tile)), scheme,
+                                        letters, RAGGED)
+    _, pairs = fill_tile.ragged_pairs([a for a, _ in views],
+                                      [b for _, b in views], [0] * len(views))
+    mt = [m for ms, _ in lengths for m in ms]
+    nt = [n for _, ns in lengths for n in ns]
+    arena = call.arena.numpy()
+    f3, moves, rows = fill_tile.plain_tiled(
+        arena, arena, cost, gid, go, mt, nt, height=height, columns=columns,
+        rows=[[m] for m in mt], want_moves=False, offsets=pairs[:, :2])
+    assert moves is None
+    p = 0
+    for (ta, tb), (ms, ns) in zip(views, lengths):
+        want3, _, want_last = fill_cuda._plain(
+            ta, tb, torch.from_numpy(cost), gid, go, torch.tensor(ms),
+            torch.tensor(ns), None, None, False, True)
+        for b, n in enumerate(ns):
+            assert (f3[p] == want3[b].numpy()).all(), (p, ms[b], n)
+            assert (rows[p, 0, :, : n + 1] == want_last[b, :, : n + 1].numpy()).all()
+            assert (rows[p, 0, :, n + 1 :] == BIG).all()
+            p += 1
+
+
+def test_wide_route_host_layout():
+    """The wide route's tables on the host: each pair's token offsets are
+    its rows in the arena (slot + r (width)), its final3 row its row of the
+    call's final3, and the one buffer holds the ticket table, the pair
+    table (16-byte aligned) and the metadata, in that order."""
+    letters, scheme, _ = _scheme("blosum62")
+    call, views, lengths = _ragged_call(np.random.default_rng(2), scheme,
+                                        letters, RAGGED)
+    first_rows = [5, 0, 40, 9]  # each bucket's first row in the call's final3
+    base, pairs = fill_tile.ragged_pairs([a for a, _ in views],
+                                         [b for _, b in views], first_rows)
+    assert base == call.arena.data_ptr()  # bucket 0's seq_1s come first
+    assert pairs.dtype == np.int64 and pairs.shape == (8, fill_tile.PAIR_WORDS)
+    p = 0
+    for k, (slot_a, slot_b, batch, m1, n1) in enumerate(call.slots):
+        for r in range(batch):
+            assert pairs[p].tolist() == [slot_a + r * m1, slot_b + r * n1,
+                                         first_rows[k] + r, 0]
+            p += 1
+    dims = tuple((m, n) for ms, ns in lengths for m, n in zip(ms, ns))
+    order = fill_tile.tile_order(dims, 8, 16)
+    meta = fill_tile.metadata(dims, [[m] for m, _ in dims], 8,
+                              fill_tile.tile_grid(max(m for m, _ in dims),
+                                                  max(n for _, n in dims), 8,
+                                                  16)[0])
+    buf = fill_tile.host_layout(order, pairs, meta)
+    assert buf.dtype == np.int32 and buf.size == order.size + 2 * pairs.size + meta.size
+    assert (buf[: order.size] == order.reshape(-1)).all()
+    at = order.size  # int32 words: 16-byte rows, so the int64 table is aligned
+    assert at % 4 == 0
+    assert (buf[at : at + 2 * pairs.size].view(np.int64) == pairs.reshape(-1)).all()
+    assert (buf[at + 2 * pairs.size :] == meta).all()
+
+
+@pytest.mark.parametrize("dims", [
+    [(8000, 8000)],
+    [(4000, 3900), (1100, 1210), (300, 2000), (0, 5), (17, 0)],
+    [(4096, 4096)] * 64,
+])
+def test_model_and_plan_take_a_list_of_dims(dims):
+    """A launch over pairs of several shapes: its path the longest pair's,
+    its tiles the sum of every pair's, at every (H, W); the plan the shape
+    of least modelled time."""
+    sms = 132
+    for height, width in fill_tile.SHAPES:
+        grids = [fill_tile.tile_grid(max(1, m), max(1, n), height, 32 * width)
+                 for m, n in dims]
+        got = fill_tile.model(dims, (height, width), False, sms)
+        assert got.path_tiles == max(tb + c - 1 for tb, c in grids)
+        assert got.tiles == sum(tb * c for tb, c in grids)
+        assert got.us == fill_tile.TILE_US[(height, width, False)] * max(
+            got.path_tiles, got.tiles / (fill_tile.WARPS * sms))
+    shape = fill_tile.plan(dims, False, sms)
+    assert fill_tile.model(dims, shape, False, sms).us == min(
+        fill_tile.model(dims, s, False, sms).us for s in fill_tile.SHAPES)
+
+
+def _protein_tail(seed, pairs=1024):
+    """The buckets past ``gotoh_batch``'s 1024 columns of a call of the
+    protein mix (lengths log-normal, median 300, sigma 0.6, 30-4000; seq_2
+    within 5% of seq_1), as ``align_pairs`` buckets them."""
+    from globalign_tpu_torch.batch import bucket_length
+
+    rng = np.random.default_rng(seed)
+    m = np.clip(np.round(300 * np.exp(0.6 * rng.standard_normal(pairs))), 30, 4000)
+    n = np.clip(np.round(m * rng.uniform(0.95, 1.05, pairs)), 30, 4000)
+    buckets = {}
+    for a, b in zip(m.astype(int).tolist(), n.astype(int).tolist()):
+        buckets.setdefault((bucket_length(a), bucket_length(b)), []).append((a, b))
+    return [([a for a, _ in v], [b for _, b in v])
+            for (_, nb), v in sorted(buckets.items()) if nb > 1024]
+
+
+@pytest.mark.parametrize("case", [
+    "protein_tail", "mesh_shard", "aspect", "one_short_pair", "short_and_long",
+])
+def test_route_buckets(case):
+    """The wide route's rule: a call of the protein mix gives its whole
+    tail past 1024 columns to one launch; a mesh shard of 64 x 4096^2 (not
+    path-bound) keeps its own route, as does a bucket past 8 columns a row
+    and a lone pair under route's 1024^2; inside a launch of several pairs
+    a short side rides along."""
+    sms = 132
+    if case == "protein_tail":
+        for seed in (1, 2, 3):
+            tail = _protein_tail(seed)
+            assert 8 <= sum(len(m) for m, _ in tail) <= 40
+            assert fill_tile.route_buckets(tail, sms) == list(range(len(tail)))
+        return
+    buckets, want = {
+        "mesh_shard": ([([4096] * 64, [4096] * 64)], []),
+        "aspect": ([([100], [1100]), ([1200], [1300]), ([900, 880], [1050, 1040])],
+                   [1, 2]),
+        "one_short_pair": ([([600], [1100])], []),
+        "short_and_long": ([([600], [1100]), ([1300], [1400])], [0, 1]),
+    }[case]
+    assert fill_tile.route_buckets(buckets, sms) == want
+
+
 @pytest.mark.parametrize("height,columns", [(4, 8), (128, 128), (32, 128), (64, 64)])
 def test_tile_order_puts_producers_first_and_covers_every_cell_once(height, columns):
     dims = ((0, 5), (3 * height + 1, 2 * columns - 1), (height, 1),
@@ -209,15 +374,15 @@ def test_route_and_plan_at_the_sweep_shapes():
                                (2, 300, 20_000, True), (2, 256, 256, False),
                                (1, 1023, 4096, False), (1, 600, 20_000, True)):
         assert not fill_tile.route(batch, m, n, moves, sms), (batch, m, n)
-    assert fill_tile.plan(1, 8000, 8000, True, sms) == (64, 4)
-    assert fill_tile.plan(1, 3355, 20_000, True, sms) == (32, 4)
-    assert fill_tile.plan(1, 20_000, 512, True, sms) == (64, 2)
-    assert fill_tile.plan(1, 20_000, 512, False, sms) == (128, 4)
-    for args in ((1, 8000, 8000, True, sms), (2, 10_000, 20_000, False, sms)):
-        shape = fill_tile.plan(*args)
-        best = min(fill_tile.model(*args[:3], s, *args[3:]).us
+    assert fill_tile.plan([(8000, 8000)], True, sms) == (64, 4)
+    assert fill_tile.plan([(3355, 20_000)], True, sms) == (32, 4)
+    assert fill_tile.plan([(20_000, 512)], True, sms) == (64, 2)
+    assert fill_tile.plan([(20_000, 512)], False, sms) == (128, 4)
+    for dims, moves in (([(8000, 8000)], True), ([(10_000, 20_000)] * 2, False)):
+        shape = fill_tile.plan(dims, moves, sms)
+        best = min(fill_tile.model(dims, s, moves, sms).us
                    for s in fill_tile.SHAPES)
-        assert fill_tile.model(*args[:3], shape, *args[3:]).us == best
+        assert fill_tile.model(dims, shape, moves, sms).us == best
 
 
 def test_cpu_fills_never_launch():
