@@ -294,6 +294,10 @@ def align_pairs(
     ``flush=False`` returns a :class:`PendingAlignments` whose ``resolve()``
     runs the fetch and the rest; nothing synchronises with the device
     before it (pairs past the moves budget excepted).
+
+    ``align_pairs.segments`` counts the traceback segments that unsharded
+    calls dispatch, each one ``fill`` phase (a ragged fill and its walk)
+    and one ``render``.
     """
     dev = resolve_device(device)
 
@@ -435,6 +439,7 @@ def align_pairs(
         line_end = None  # where the last rendered pair's lines end
         rendered = 0  # traceback pairs rendered: the next render descriptor
         for segment in segments:
+            align_pairs.segments += 1
             with _phase("fill"):
                 groups, tok_as, tok_bs, m_trues, n_trues = runs(segment)
                 filled = fill_cuda.batch_moves_ragged(
@@ -502,6 +507,9 @@ def align_pairs(
     if flush:
         return _flush()
     return PendingAlignments(_flush)
+
+
+align_pairs.segments = 0
 
 
 def _segments(lengths, budget: int) -> list[list[tuple[int, int, int]]]:

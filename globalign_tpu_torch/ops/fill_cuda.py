@@ -604,9 +604,12 @@ def batch_moves_ragged(
     descriptors: one ``gotoh_batch_moves`` launch a width class
     (``fill_batch.batch_moves_warp.launches`` counts them), then one
     ``gotoh_fill`` ragged launch a launch class
-    (``batch_moves_ragged.launches`` counts them).  On CPU tensors the
-    plain version, the row scan pair by pair into the same buffer at the
-    same offsets and strides.
+    (``batch_moves_ragged.launches`` counts them; ``.wide_launches``
+    counts those launches again and ``.wide_pairs`` the pairs they take).
+    On CPU tensors the plain version, the row scan pair by pair into the
+    same buffer at the same offsets and strides; ``.wide_pairs`` then
+    counts the pairs it fills that ``gotoh_batch_moves`` would not take
+    (``fill_batch.plan``), and no launch is counted.
     """
     tok_a, tok_b = list(tok_a), list(tok_b)
     with span("fill.batch"):
@@ -619,12 +622,19 @@ def batch_moves_ragged(
             out = _launch_warp(warp, classes, layout, cost_mat, gap_id,
                                gap_open, nbytes)
     if device.type == "cpu":
+        from . import fill_batch
+
+        _ragged_counts.wide_pairs += sum(
+            not fill_batch.plan(cols, cost_mat.shape[0])
+            for cols in layout[:, 3].tolist())
         return _plain_ragged(tok_a, tok_b, cost_mat, gap_id, gap_open, layout,
                              nbytes)
     if device.type != "cuda":
         raise ValueError(f"no gotoh_fill route for device {device}")
     if classes:
         with span("fill.wide"):
+            _ragged_counts.wide_launches += len(classes)
+            _ragged_counts.wide_pairs += sum(len(idx) for _, idx in classes)
             _launch_classes(classes, out, cost_mat, gap_id, gap_open)
     return out
 
@@ -754,3 +764,8 @@ def _launch_classes(classes, out: RaggedMoves, cost_mat, gap_id, gap_open
 
 
 batch_moves_ragged.launches = 0
+batch_moves_ragged.wide_launches = 0
+batch_moves_ragged.wide_pairs = 0
+# The wide counters are reached through this name, which a wrapper put in
+# ``batch_moves_ragged``'s place (a test's call count, a timer) leaves alone.
+_ragged_counts = batch_moves_ragged

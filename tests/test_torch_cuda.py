@@ -729,6 +729,37 @@ def test_batch_moves_ragged_mixes_both_routes(cuda_device):
         assert torch.equal(g.cpu(), w)
 
 
+def test_align_pairs_genomes_match_the_reference(cuda_device):
+    """Three pairs of 29 903 nt from the genome cell's traffic
+    (``benchmark/traffic/sars2_genomes_tb.json``) under its scheme, BLAST+'s
+    blastn, in one traceback call: a segment each (two pairs' codes pass the
+    card's moves budget), a ``gotoh_fill`` ragged launch and a wide pair
+    each, and costs, scores and the three lines equal to the benchmark's
+    plain reference on the card."""
+    import json
+    from pathlib import Path
+
+    from benchmark.harness import traffic
+    from benchmark.reference import gotoh, scheme
+    from globalign_tpu_torch import align_pairs, batch
+
+    bench = Path(__file__).resolve().parents[1] / "benchmark"
+    mix = json.loads((bench / "traffic" / "sars2_genomes_tb.json").read_text())
+    kw = json.loads((bench / "configs" / "sars2_blastn.json").read_text())["scheme"]
+    (pairs,) = traffic.generate({**mix, "pool_calls": 1, "pairs_per_call": 3},
+                                "ACGT", 2 ** 31 + 19)
+    counters = lambda: (batch.align_pairs.segments,  # noqa: E731
+                        fill_cuda.batch_moves_ragged.wide_launches,
+                        fill_cuda.batch_moves_ragged.wide_pairs)
+    before = counters()
+    got = align_pairs(pairs, **kw)
+    assert [a - b for a, b in zip(counters(), before)] == [3, 3, 3]
+    want = gotoh.align(pairs, scheme.resolve(kw, "ACGT"), traceback=True,
+                       device=cuda_device, budget_bytes=8 << 30)
+    assert [(r.cost, r.score, r.seq_1_aligned, r.middle_part, r.seq_2_aligned)
+            for r in got] == want
+
+
 @pytest.mark.parametrize("letters, scheme_kw", [
     ("ACGT", {}),
     ("ACDEFGHIKLMNPQRSTVWY", {"scoring_mat_name": "BLOSUM62"}),
