@@ -1811,12 +1811,13 @@ def main() -> int:
                    for (mm, nn), k in keys.items())
         return len(keys), subs
 
-    def segments_of(pairs, budget):
-        """align_pairs' traceback segments under ``budget``, by its rule:
-        buckets in order of first appearance, each one's pairs in input
-        order, a segment closed where its codes (fill_cuda.ragged_bytes a
-        pair) would pass the budget; a bucket whose padded pair passes it
-        goes blocked and joins none.  The (m, n) of each segment's pairs."""
+    def segments_of(pairs, budget, capacity):
+        """align_pairs' traceback segments, by its rule: buckets in order
+        of first appearance, each one's pairs in input order, a segment
+        closed where its codes (fill_cuda.ragged_bytes a pair) would pass
+        ``capacity`` (the segment capacity); a bucket whose padded pair
+        passes ``budget`` (the moves budget) goes blocked and joins none.
+        The (m, n) of each segment's pairs."""
         size = fill_cuda.ragged_bytes
         keys = {}
         for a, b in pairs:
@@ -1827,19 +1828,23 @@ def main() -> int:
             if size(mm, nn) > budget:
                 continue
             for m, n in shapes:
-                if used + size(m, n) > budget:
+                if used + size(m, n) > capacity:
                     segs.append([])
                     used = 0
                 segs[-1].append((m, n))
                 used += size(m, n)
         return [seg for seg in segs if seg]
 
-    def traceback_launches(pairs, budget, alphabet):
+    # The card's moves budget (blocked) and segment capacity (segments).
+    here = torch.device("cuda", torch.cuda.current_device())
+    tb_bounds = (batch_mod._moves_budget(here), batch_mod._segment_budget(here))
+
+    def traceback_launches(pairs, alphabet, budget, capacity):
         """(gotoh_batch_moves launches, gotoh_fill ragged launches, ragged
         walks) of a traceback align_pairs call: a launch a width class and
         a launch a launch class of each segment (fill_cuda.ragged_routes),
         a walk a segment."""
-        segs = segments_of(pairs, budget)
+        segs = segments_of(pairs, budget, capacity)
         routes = [fill_cuda.ragged_routes(*zip(*seg), alphabet, sms)
                   for seg in segs]
         return (sum(len(w) for w, _ in routes), sum(len(c) for _, c in routes),
@@ -1882,7 +1887,7 @@ def main() -> int:
         aligner = GotohAligner(scheme, device="cuda")
         nbuckets = bucket_counts(pairs)[0]
         nwarp, nfills, nwalks = traceback_launches(
-            pairs, batch_mod.DEVICE_WALK_MOVES_BUDGET, len(scheme.costing.values))
+            pairs, len(scheme.costing.values), *tb_bounds)
         if (nfills, nwalks) != (0, 1) or nwarp != len(
                 {fill_batch.width_class(len(b)) for _, b in pairs}):
             raise SystemExit(f"phase 2 failed: the {name} chunk is "
@@ -1935,15 +1940,17 @@ def main() -> int:
                 f"one letters upload, one tokenize, one fetch a call; a "
                 f"launch a bucket made {nbuckets})")
 
-    # A lowered budget: the 300-nt pairs split into three or more segments
-    # and the 1200 x 1100 pair goes blocked; equal to the default budget's
-    # result and to the CPU.
+    # A lowered moves budget and segment capacity: the 300-nt pairs split
+    # into three or more segments and the 1200 x 1100 pair goes blocked;
+    # equal to the default bounds' result and to the CPU.
     mixed = serving_chunk(rng, DNA, 12, 290, 300)
     s1 = random_seq(rng, DNA, 1200)
     mixed.insert(5, (s1, mutate(rng, s1, DNA)[:1100]))
     want = align_pairs(mixed)
     real_budget = batch_mod.DEVICE_WALK_MOVES_BUDGET
+    real_capacity = batch_mod._segment_budget
     batch_mod.DEVICE_WALK_MOVES_BUDGET = budget = 400_000
+    batch_mod._segment_budget = lambda device: budget
     try:
         torch.cuda.synchronize()
         reset_counts()
@@ -1951,8 +1958,9 @@ def main() -> int:
         counts = read_counts()
     finally:
         batch_mod.DEVICE_WALK_MOVES_BUDGET = real_budget
+        batch_mod._segment_budget = real_capacity
     add_main(counts)
-    nwarp, nfills, nsegs = traceback_launches(mixed, budget, 5)
+    nwarp, nfills, nsegs = traceback_launches(mixed, 5, budget, budget)
     mixed_design = design(  # the blocked pair: its checkpoint pass and replay
         *blocked_fills(1200, 1100), batch_moves_warp=nwarp,
         batch_moves_ragged=nfills, walk_ragged=nsegs, gotoh_tile=1,
@@ -1979,8 +1987,7 @@ def main() -> int:
     got = align_pairs(wide_call)
     counts = read_counts()
     add_main(counts)
-    nwarp, nfills, nsegs = traceback_launches(
-        wide_call, batch_mod.DEVICE_WALK_MOVES_BUDGET, 5)
+    nwarp, nfills, nsegs = traceback_launches(wide_call, 5, *tb_bounds)
     wide_design = launches(batch_moves_warp=nwarp, batch_moves_ragged=nfills,
                            walk_ragged=nsegs, render_ragged=nsegs,
                            **packed_design)

@@ -17,7 +17,10 @@ views of it.  Then:
     ``_chunk_costs_jit``);
   * traceback: the buckets of the call in segments, each closed where its
     codes (``fill_cuda.ragged_bytes``: (m+1) rows of n+1 bytes rounded up
-    to 16 a pair) would pass the moves budget: per segment one ragged moves
+    to 16 a pair) would pass the segment capacity (``_segment_budget``: on
+    the card a quarter of its memory, never less than the moves budget; on
+    the CPU the moves budget), so a call's wide pairs share one launch and
+    the card's SMs: per segment one ragged moves
     fill (``fill_cuda.batch_moves_ragged``: one ``gotoh_batch_moves``
     launch a width class for the pairs of at most 1024 columns, one
     ``gotoh_fill`` launch a launch class for the rest), one ragged walk
@@ -67,6 +70,7 @@ Not ported, by design:
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass
@@ -97,7 +101,9 @@ DEFAULT_BATCH_MOVES_BUDGET = int(
 
 # The same bound on the card, where the codes never leave device memory
 # (only the rendered lines cross to the host): every traceback bucket is
-# walked and rendered on the device.
+# walked and rendered on the device.  It decides the blocked route and the
+# mesh path's sub-batches there; an unsharded call's segments may hold more
+# (``_segment_budget``).
 DEVICE_WALK_MOVES_BUDGET = 1536 * 1024 * 1024
 
 
@@ -162,6 +168,26 @@ def _moves_budget(device: torch.device) -> int:
     if device.type == "cuda":
         return DEVICE_WALK_MOVES_BUDGET
     return DEFAULT_BATCH_MOVES_BUDGET
+
+
+@functools.cache
+def _card_memory(index: int) -> int:
+    """Total bytes of card ``index``'s memory (a query is too slow for every
+    call).  Total, not free: a call's segments depend on its pairs and the
+    card alone, never on what the allocator holds at the time."""
+    return torch.cuda.get_device_properties(index).total_memory
+
+
+def _segment_budget(device: torch.device) -> int:
+    """Bytes of codes one unsharded traceback segment may hold on
+    ``device``: on a card a quarter of its memory, so the runner's one-deep
+    pipeline (the next call queued before this one resolves) keeps two
+    calls' segments within half of it, and never less than the moves
+    budget; on the CPU the moves budget."""
+    budget = _moves_budget(device)
+    if device.type == "cuda":
+        return max(budget, _card_memory(device.index) // 4)
+    return budget
 
 
 def _encode_bucket(alphabet, seqs: list[str], padded_len: int) -> np.ndarray:
@@ -354,7 +380,7 @@ def align_pairs(
         lengths = [([len(pairs[i][0]) for i in indices],
                     [len(pairs[i][1]) for i in indices])
                    for _, indices in batched]
-        segments = (_segments(lengths, budget)
+        segments = (_segments(lengths, _segment_budget(dev))
                     if with_traceback and mesh is None else [])
 
     packed = lines = None

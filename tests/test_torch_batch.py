@@ -280,6 +280,64 @@ def test_the_card_budget_governs_device_walked_buckets(monkeypatch):
     assert batch_mod.DEVICE_WALK_MOVES_BUDGET == jax_batch.DEVICE_WALK_MOVES_BUDGET
 
 
+@pytest.mark.parametrize("card_bytes, want_segments", [
+    (80 << 30, 1),  # an 80 GB card: a quarter, ~21 GB, holds 16 genomes
+    (4 << 30, 16),  # a quarter under 1536 MiB: the moves budget, a genome each
+])
+def test_a_segment_holds_a_quarter_of_the_card(monkeypatch, card_bytes,
+                                               want_segments):
+    """On the card an unsharded traceback segment may hold a quarter of its
+    total memory, never less than DEVICE_WALK_MOVES_BUDGET: 16 pairs of
+    29 903 x ~29 903 (896 MB of codes each) are one segment on an 80 GB
+    card and 16 on a small one, and none of them goes blocked."""
+    monkeypatch.setattr(batch_mod, "_card_memory", lambda index: card_bytes)
+    card = torch.device("cuda", 0)
+    capacity = batch_mod._segment_budget(card)
+    assert capacity == max(batch_mod.DEVICE_WALK_MOVES_BUDGET, card_bytes // 4)
+    assert batch_mod._moves_budget(card) == batch_mod.DEVICE_WALK_MOVES_BUDGET
+    rng = np.random.default_rng(29903)
+    m_true = [29903] * 16
+    n_true = (29903 + rng.integers(-12, 13, 16)).tolist()
+    key = (bucket_length(29903), bucket_length(max(n_true)))
+    assert fill_cuda.ragged_bytes(*key) <= batch_mod._moves_budget(card)
+    segments = batch_mod._segments([(m_true, n_true)], capacity)
+    assert len(segments) == want_segments
+    assert [run for seg in segments for run in seg] == (
+        [(0, 0, 16)] if want_segments == 1 else [(0, k, k + 1) for k in range(16)]
+    )
+
+
+def test_the_cpu_segment_capacity_is_the_moves_budget():
+    """Off the card the segment capacity is DEFAULT_BATCH_MOVES_BUDGET, the
+    bound of the host memory the codes take there."""
+    assert batch_mod._segment_budget(torch.device("cpu")) == (
+        batch_mod.DEFAULT_BATCH_MOVES_BUDGET
+    )
+
+
+def test_blocked_pairs_keep_the_moves_budget_under_a_larger_segment(monkeypatch):
+    """The two bounds apart: a bucket whose padded pair passes the moves
+    budget goes blocked however large the segment capacity, and the other
+    pairs, whose codes together pass the moves budget, fill in one segment;
+    the results equal the JAX package's."""
+    rng = np.random.default_rng(5)
+    short = _ragged_pairs(rng, "ACGT", 6, lo=20, hi=30)
+    long = _ragged_pairs(rng, "ACGT", 2, lo=70, hi=80)
+    pairs = short[:3] + long[:1] + short[3:] + long[1:]
+    want = jax_align_pairs(pairs, with_traceback=True)
+    budget = fill_cuda.ragged_bytes(40, 40)  # over a 32 x 32 pair, under 96 x 96
+    assert sum(fill_cuda.ragged_bytes(len(a), len(b)) for a, b in short) > budget
+    monkeypatch.setattr(batch_mod, "DEFAULT_BATCH_MOVES_BUDGET", budget)
+    monkeypatch.setattr(batch_mod, "_segment_budget", lambda device: 1 << 40)
+    blocked = _count_calls(monkeypatch, linear_tb, "align_blocked")
+    fills = _count_calls(monkeypatch, fill_cuda, "batch_moves_ragged")
+    walks = _count_calls(monkeypatch, linear_tb, "walk_ragged")
+    got = align_pairs(pairs, with_traceback=True, device="cpu")
+    assert _fields(got) == _fields(want)
+    assert len(blocked) == 2 and len(walks) == 1
+    assert [sum(t.shape[0] for t in f[0]) for f in fills] == [6]
+
+
 @pytest.mark.parametrize("with_traceback", [False, True])
 def test_one_fill_per_bucket(monkeypatch, with_traceback):
     """Cost-only: one ragged fill a call, over every bucket; traceback: one

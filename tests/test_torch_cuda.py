@@ -732,10 +732,11 @@ def test_batch_moves_ragged_mixes_both_routes(cuda_device):
 def test_align_pairs_genomes_match_the_reference(cuda_device):
     """Three pairs of 29 903 nt from the genome cell's traffic
     (``benchmark/traffic/sars2_genomes_tb.json``) under its scheme, BLAST+'s
-    blastn, in one traceback call: a segment each (two pairs' codes pass the
-    card's moves budget), a ``gotoh_fill`` ragged launch and a wide pair
-    each, and costs, scores and the three lines equal to the benchmark's
-    plain reference on the card."""
+    blastn, in one traceback call: one segment (their 2.7 GB of codes pass
+    the moves budget but not the segment capacity, a quarter of the card),
+    one ``gotoh_fill`` ragged launch over the three wide pairs, and costs,
+    scores and the three lines equal to the benchmark's plain reference on
+    the card."""
     import json
     from pathlib import Path
 
@@ -753,7 +754,7 @@ def test_align_pairs_genomes_match_the_reference(cuda_device):
                         fill_cuda.batch_moves_ragged.wide_pairs)
     before = counters()
     got = align_pairs(pairs, **kw)
-    assert [a - b for a, b in zip(counters(), before)] == [3, 3, 3]
+    assert [a - b for a, b in zip(counters(), before)] == [1, 1, 3]
     want = gotoh.align(pairs, scheme.resolve(kw, "ACGT"), traceback=True,
                        device=cuda_device, budget_bytes=8 << 30)
     assert [(r.cost, r.score, r.seq_1_aligned, r.middle_part, r.seq_2_aligned)
@@ -1303,8 +1304,8 @@ def test_align_pairs_one_upload_one_tokenize_one_fetch(cuda_device, tmp_path,
     pairs += [(letters[0], letters[1] * 50), (letters[2] * 30, letters[3])]
     segments = 1
     if name == "segments":
-        monkeypatch.setattr(batch_mod, "DEVICE_WALK_MOVES_BUDGET",
-                            fill_cuda.ragged_bytes(192, 192) * 3)
+        monkeypatch.setattr(batch_mod, "_segment_budget", lambda device: (
+            fill_cuda.ragged_bytes(192, 192) * 3))
     counters = (packed.upload, batch_mod._to_host)
     kernels = (packed.tokenize_ragged, packed.render_ragged, linear_tb.walk_ragged)
     before = [c.copies for c in counters] + [k.launches for k in kernels]
