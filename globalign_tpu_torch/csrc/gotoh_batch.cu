@@ -55,7 +55,8 @@
 //     Padding columns are never computed.
 //   * Blocks of `warps` warps (2: fill_batch.WARPS), so the registers
 //     and not the table set the warps an SM.  On sm_90a (ptxas -v,
-//     chip_smoke.py phase 0), final3 / last rows: W = 32 226 / 242
+//     tests/test_torch_cuda.py::test_ptxas_reports_no_spills), final3 /
+//     last rows: W = 32 226 / 242
 //     registers, 8 warps an SM; W = 16 152 / 141, 12 / 14; W = 8 84 / 96,
 //     22 / 20; W = 4 54 / 64, 36 / 32; no spills.
 //
@@ -85,7 +86,7 @@ constexpr int MAX_WARPS = 4;
 constexpr int DESC = 8;  // int64 words a pair descriptor
 constexpr unsigned FULL = 0xffffffffu;
 
-// min(a + b, c) and min(a, b, c): the DPX forms of csrc/probes/peaks.cu.
+// min(a + b, c) and min(a, b, c): sm_90's DPX forms.
 __device__ __forceinline__ int addmin(int a, int b, int c) {
   return __viaddmin_s32(a, b, c);
 }

@@ -59,7 +59,8 @@
 //   * A ragged launch a width class.  The wrapper (ops/fill_cuda.py,
 //     batch_moves_ragged) gives one launch the pairs of one W, longest
 //     (m * n) first; blocks of `warps` warps (2, ops/fill_batch.WARPS).
-//   Registers and spills: chip_smoke.py phase 0 (ptxas -v).
+//   Registers and spills: ptxas -v, held to no spill by
+//   tests/test_torch_cuda.py::test_ptxas_reports_no_spills.
 //
 // What bounds it on this card.  Int32 issue: the cost form's ~10 operations
 // a cell, plus the code tests (four DPX min-with-predicate, two compares)
@@ -82,7 +83,7 @@ constexpr int DESC = 8;     // int64 words a pair descriptor
 constexpr int ALIGN = 16;   // bytes: code offsets, row strides, the buffer
 constexpr unsigned FULL = 0xffffffffu;
 
-// min(a + b, c): the DPX form of csrc/probes/peaks.cu.
+// min(a + b, c): sm_90's DPX form.
 __device__ __forceinline__ int addmin(int a, int b, int c) {
   return __viaddmin_s32(a, b, c);
 }

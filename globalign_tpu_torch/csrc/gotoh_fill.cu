@@ -62,11 +62,10 @@
 // The arithmetic is the row scan's (globalign_tpu/ops/fill_rows.py:133-289)
 // in int32 with BIG = 1 << 30: the clamps min(., BIG) at :175, :177, :193,
 // the code tests of :212-231 on unclamped sums with tie order M > Ix > Iy,
-// and the boundary of fill_scan.py:90-104, written with the DPX forms that
-// csrc/probes/peaks.cu holds against the row scan.  The row scan's Ix
-// prefix minimum is carried as its serial form X[j] = min(X[j-1] + d_j,
-// H[j-1] + d_j) with X[0] = BIG — the same integers, so codes match bit for
-// bit; X crosses every strip edge unclamped.
+// and the boundary of fill_scan.py:90-104, written with sm_90's DPX forms.
+// The row scan's Ix prefix minimum is carried as its serial form X[j] =
+// min(X[j-1] + d_j, H[j-1] + d_j) with X[0] = BIG — the same integers, so
+// codes match bit for bit; X crosses every strip edge unclamped.
 //
 // What bounds it on this card.  Each row of a strip is a serial chain (the
 // Ix carry), so a pair is a skewed wavefront whose speed is the SM issue
@@ -102,11 +101,12 @@
 // The host (ops/fill_cuda.py:plan) picks W, warps and P from B, N and the
 // SM count so that B * P blocks fill the card where the width allows; the
 // launcher refuses a cluster the card cannot schedule.
-// What bounds it now (H100 80GB HBM3 at 700 W, chip_smoke.py): an 8000^2
+// What bounds it now (H100 80GB HBM3 at 700 W, measured by the timing
+// script that lived at chip_smoke.py until commit b226048): an 8000^2
 // cost-only fill runs at ~0.9 cells a clock on each of its 8 SMs, an
-// eighth of the probe's cell rate.  A pair is held to the 8 SMs of one
-// portable cluster, 2 warps a scheduler, and each wave pays its shuffles,
-// lookups and hand-off tests for only W cells a lane.
+// eighth of that script's probe cell rate.  A pair is held to the 8 SMs of
+// one portable cluster, 2 warps a scheduler, and each wave pays its
+// shuffles, lookups and hand-off tests for only W cells a lane.
 //
 // Launch conventions: the kernel runs on the caller's stream, allocates
 // nothing (the caller passes every output and the pass buffer), and the
@@ -251,7 +251,7 @@ __device__ __forceinline__ void flush_row(uint8_t* dst, const uint8_t* src,
   if (lane < cols - done) dst[done + lane] = src[done + lane];
 }
 
-// min(a + b, c) and min(a, b, c): the DPX forms of csrc/probes/peaks.cu.
+// min(a + b, c) and min(a, b, c): sm_90's DPX forms.
 __device__ __forceinline__ int addmin(int a, int b, int c) {
   return __viaddmin_s32(a, b, c);
 }

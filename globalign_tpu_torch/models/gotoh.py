@@ -56,7 +56,7 @@ DEFAULT_MOVES_BUDGET_BYTES = int(
 # gathers, a 2-pair launch and the join, and saves m/2 waves.  On an H100
 # (m 24..8192 x n 64..20 000) it lost below 1024 rows at every width, and
 # from 1024 rows lost at most 0.25 ms (narrow pairs) while winning up to 2x
-# (see PERF.md, the split grid).
+# (a grid measured by ``chip_smoke.py``, which commit b226048 holds).
 SPLIT_MIN_ROWS = 1024
 
 

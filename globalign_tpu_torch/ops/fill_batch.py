@@ -80,9 +80,10 @@ def plan(n_cols: int, alphabet: int) -> int | None:
 
     The batch size plays no part: on an H100 ``gotoh_batch`` beats
     ``gotoh_fill`` final3 at every B from 1 to 1024 pairs of 256^2 and
-    1024^2, a lone warp a pair included (``chip_smoke.py`` Phase 3's
-    crossover sweep; PERF.md section 6), so no launch of at most
-    ``MAX_COLUMNS`` columns is small enough for ``gotoh_fill``."""
+    1024^2, a lone warp a pair included (the crossover sweep of PERF.md
+    section 6, run by ``chip_smoke.py`` at commit b226048), so no launch
+    of at most ``MAX_COLUMNS`` columns is small enough for
+    ``gotoh_fill``."""
     if n_cols > MAX_COLUMNS or alphabet > MAX_ALPHABET:
         return None
     if 4 * alphabet * alphabet > SMEM_OPTIN:

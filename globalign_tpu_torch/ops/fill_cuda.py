@@ -555,8 +555,8 @@ def ragged_routes(m_true, n_true, alphabet: int, sms: int):
     size plays no part, as for the cost fills (``fill_batch.plan``): on an
     H100 ``gotoh_batch_moves`` is 4x faster at 1024 pairs of 1024^2 and at
     every B of 256^2, and ~10% slower at 1 to 33 pairs of 1024^2, where a
-    lone warp a pair runs and the call's device time is ~1 ms
-    (``chip_smoke.py`` Phase 3's moves crossover; PERF.md section 6)."""
+    lone warp a pair runs and the call's device time is ~1 ms (the moves
+    crossover of PERF.md section 6, run by ``chip_smoke.py`` of b226048)."""
     from . import fill_batch
 
     m = np.asarray(m_true, np.int64)
@@ -691,23 +691,14 @@ def _plain_ragged(tok_a, tok_b, cost_mat, gap_id, gap_open, layout, nbytes
     return RaggedMoves(final3, codes, torch.from_numpy(layout), layout)
 
 
-def _launch_ragged(warp, classes, layout, cost_mat, gap_id, gap_open,
-                   nbytes) -> RaggedMoves:
-    """The launches of a ragged moves fill on the card: ``warp`` and
-    ``classes`` as :func:`ragged_routes` gives them (every pair in one of
-    them), over ``layout``, the host descriptors in pair order, into a
-    buffer of ``nbytes`` bytes; descriptors in launch order come back."""
-    out = _launch_warp(warp, classes, layout, cost_mat, gap_id, gap_open,
-                       nbytes)
-    _launch_classes(classes, out, cost_mat, gap_id, gap_open)
-    return out
-
-
 def _launch_warp(warp, classes, layout, cost_mat, gap_id, gap_open,
                  nbytes) -> RaggedMoves:
-    """:func:`_launch_ragged`'s descriptors and outputs on the card, and its
-    ``gotoh_batch_moves`` launches (``warp``); the ``gotoh_fill`` launches
-    (``classes``) are :func:`_launch_classes`'."""
+    """A ragged moves fill's descriptors and outputs on the card, and its
+    ``gotoh_batch_moves`` launches: ``warp`` and ``classes`` as
+    :func:`ragged_routes` gives them (every pair in one of them), over
+    ``layout``, the host descriptors in pair order, into a buffer of
+    ``nbytes`` bytes; descriptors in launch order come back.  The
+    ``gotoh_fill`` launches (``classes``) are :func:`_launch_classes`'."""
     from . import fill_batch
 
     device = cost_mat.device
@@ -726,9 +717,9 @@ def _launch_warp(warp, classes, layout, cost_mat, gap_id, gap_open,
 
 def _launch_classes(classes, out: RaggedMoves, cost_mat, gap_id, gap_open
                     ) -> None:
-    """The ``gotoh_fill`` ragged launches of :func:`_launch_ragged`, one a
-    launch class, over the descriptors of ``out`` past its warp-routed
-    pairs."""
+    """A ragged moves fill's ``gotoh_fill`` launches, one a launch class,
+    over the descriptors of ``out`` (:func:`_launch_warp`'s) past its
+    warp-routed pairs."""
     from ..utils import cuda_build
 
     lib = cuda_build.load()

@@ -52,8 +52,9 @@ PAIR_WORDS = 4  # int64 a pair: seq_1 and seq_2 offsets, final3 row, unused
 
 # A tile's time on an NVIDIA H100 80GB HBM3 at 700 W, in microseconds, by
 # (H, W, with codes): a pair one tile column wide, whose 64 tiles run one
-# after another, hand-offs included (chip_smoke.py Phase 3, "gotoh_tile
-# one tile column"; PERF.md section 6).  plan() models a launch from them.
+# after another, hand-offs included (PERF.md section 6, measured by the
+# timing script that lived at chip_smoke.py until commit b226048, "gotoh_tile
+# one tile column").  plan() models a launch from them.
 TILE_US = {
     (128, 4, False): 24.73, (128, 4, True): 54.63,
     (64, 4, False): 15.79, (64, 4, True): 31.67,
@@ -164,7 +165,7 @@ def route(batch: int, m: int, n: int, want_moves: bool, sms: int) -> bool:
     to m x n to ``gotoh_tile`` (else ``gotoh_fill``): the single-pair paths'
     fills (align's, the blocked replays, cost()'s 2-pair split) from 256^2
     with codes and 1024^2 cost only, unless short and wide.  In the
-    crossover sweeps of ``chip_smoke.py`` Phase 3 (PERF.md section 6)
+    crossover sweeps of PERF.md section 6 (``chip_smoke.py`` of b226048)
     gotoh_tile was faster at B = 1 and 2 from 256^2 with codes and from
     1024^2 cost only (at 256^2 cost only it won one run and lost the
     other), up to 8000^2, at 3355 x 20 000 and at 20 000 x 512.  A short,
@@ -194,8 +195,8 @@ def route_buckets(buckets, sms: int) -> list[int]:
     A short pair there rides under the longest pair's path, so no least
     side applies; a launch of one pair keeps :func:`route`'s.  Past the
     test (a mesh shard of 64 x 4096^2: 131 072 tiles against 528 warps x
-    95) each bucket keeps its own route.  ``chip_smoke.py`` Phase 3's wide
-    sweep times both routes."""
+    95) each bucket keeps its own route.  The wide sweep of PERF.md section
+    6 (``chip_smoke.py`` at commit b226048) timed both routes."""
     joined = [k for k, (m, n) in enumerate(buckets)
               if max(n) <= ROUTE_MAX_ASPECT * max(m)]
     dims = [d for k in joined for d in zip(*buckets[k])]

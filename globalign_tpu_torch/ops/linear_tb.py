@@ -43,8 +43,6 @@ traceback ``align_pairs`` call's buckets together.
 
 from __future__ import annotations
 
-from typing import Callable
-
 import numpy as np
 import torch
 
@@ -293,7 +291,6 @@ def align_blocked(
     *,
     block_rows: int | None = None,
     block_moves_bytes: int = DEFAULT_BLOCK_MOVES_BYTES,
-    on_phase: Callable[[str], None] | None = None,
     mesh=None,
 ) -> Traceback:
     """Full alignment with O(n * (m/K + K)) memory (module docstring).
@@ -306,10 +303,6 @@ def align_blocked(
         seq_1 / seq_2: the strings (for emitting the aligned text).
         block_rows / block_moves_bytes: the checkpoint interval K, or the
             bytes of codes one block may hold (``block_bounds``).
-        on_phase: optional hook, called with "checkpoints" after the
-            checkpoint pass is queued, "fill" / "walk" after each replay
-            block's fill / walk is queued, "fetch" once the tapes are on the
-            host and "assembled" at the end — the points a timer marks.
         mesh: optional ``parallel.Mesh``; every rank calls with the same
             arguments (module docstring).
 
@@ -317,7 +310,6 @@ def align_blocked(
     pass queued), replays (every block's fill and walk queued), then
     :func:`fetch_walk`'s fetch and :func:`render_walk`'s traceback.
     """
-    mark = on_phase or (lambda _: None)
     m, n = len(seq_1), len(seq_2)
     go = int(gap_open)
     with span("checkpoints"):
@@ -329,13 +321,9 @@ def align_blocked(
     if m == 0 or n == 0:  # one boundary line: no fill, no codes to walk
         final3 = row0[:, n] if m == 0 else col0[:, m]
         cost = int(final3.min())
-        mark("fetch")
-        out = Traceback(
+        return Traceback(
             *render_walk(np.full(m, OP_UP, np.uint8), n, seq_1, seq_2), cost
         )
-        mark("assembled")
-        return out
-    mark("checkpoints")
 
     with span("replays"):
         # Column-0 Iy seed at each block's top row: the global column-0
@@ -353,9 +341,7 @@ def align_blocked(
                 tok_a[None, i0 : i1 + 1], tok_b[None], cost_mat, gap_id, go,
                 [i1 - i0], [n], row0=rows[b], col0y_top=c0_top[i0 : i0 + 1],
             )
-            mark("fill")
             ops, count, j, level = walk_block(moves, [i1 - i0], j, level)
-            mark("walk")
             tapes.append((ops[0], count))
 
     # One copy: the cost, the counts, the exit column and every tape.
@@ -368,12 +354,9 @@ def align_blocked(
     for (ops, _), c in zip(tapes, counts):
         tapes_np.append(ops_host[start : start + c])
         start += ops.shape[0]
-    mark("fetch")
-    out = Traceback(
+    return Traceback(
         *render_walk(np.concatenate(tapes_np), j_exit, seq_1, seq_2), cost
     )
-    mark("assembled")
-    return out
 
 
 def _checkpoints(tok_a, tok_b, cost_mat, gap_id, go, row0, col0, bounds, mesh):

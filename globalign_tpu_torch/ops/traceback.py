@@ -19,7 +19,7 @@ port's ``align`` does not call it: it walks the codes where they were
 filled (``ops.linear_tb.walk_block``, the walk kernel on a card) and
 fetches only the op tape.  This host walk is the copy of the JAX package's
 (pinned to it by ``tests/test_torch_host.py``) and the independent oracle
-that ``chip_smoke.py`` holds the card's walk against.
+that ``tests/test_torch_cuda.py`` holds the card's walk against.
 """
 
 from __future__ import annotations

@@ -165,11 +165,11 @@ def library_path(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build(srcs: list[Path] | None = None) -> list[Path]:
-    """Compile every source (default: ``sources()``) whose library is
-    missing, one ``nvcc`` each, all running at once; returns the libraries
-    in the order of the sources."""
-    srcs = sources() if srcs is None else list(srcs)
+def build() -> list[Path]:
+    """Compile every source (``sources()``) whose library is missing, one
+    ``nvcc`` each, all running at once; returns the libraries in the order
+    of the sources."""
+    srcs = sources()
     paths = [library_path(src) for src in srcs]
     if all(p.exists() for p in paths):
         return paths

@@ -152,24 +152,6 @@ def test_align_pairs_cost_only():
         assert c.seq_1_aligned is c.middle_part is c.seq_2_aligned is None
 
 
-def test_time_serving_chunk_is_seeded_and_related():
-    """The timing script's chunk: the same pairs from the same seed, each
-    length in range, and seq_2 a relative of its own seq_1 (lower costs
-    than against another pair's seq_1)."""
-    from globalign_tpu_torch.time_serving import dna_chunk
-
-    pairs = dna_chunk(5, count=12, lo=40, hi=60)
-    assert pairs == dna_chunk(5, count=12, lo=40, hi=60)
-    assert pairs != dna_chunk(6, count=12, lo=40, hi=60)
-    for a, b in pairs:
-        assert 40 <= len(a) <= 60 and 40 <= len(b) <= 60
-        assert set(a + b) <= set("ACGT")
-    own = align_pairs(pairs, with_traceback=False, device="cpu")
-    swapped = [(a, pairs[i - 1][1]) for i, (a, _) in enumerate(pairs)]
-    other = align_pairs(swapped, with_traceback=False, device="cpu")
-    assert sum(r.cost for r in own) < sum(r.cost for r in other)
-
-
 def test_align_pairs_custom_scheme():
     batched = align_pairs(
         [("TT", "TA"), ("GGAGGACGTT", "GAG")],

@@ -12,16 +12,53 @@ Tolerance 0: final3, last rows, move codes, op tapes and costs are
 integers, and alignments are strings.
 """
 
+import collections
+import functools
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from globalign_tpu_torch import GotohAligner, find_global_alignment, resolve_scheme
-from globalign_tpu_torch.ops import fill_cuda, fill_split, fill_tile, linear_tb
+from globalign_tpu_torch import (
+    GotohAligner,
+    align_pairs,
+    final_cost_to_score,
+    find_global_alignment,
+    resolve_scheme,
+    validate_and_transform_args,
+)
+from globalign_tpu_torch import batch as batch_mod
+from globalign_tpu_torch.batch import bucket_length
+from globalign_tpu_torch.models.gotoh import DEFAULT_MOVES_BUDGET_BYTES, SPLIT_MIN_ROWS
+from globalign_tpu_torch.ops import (
+    fill_batch,
+    fill_cuda,
+    fill_split,
+    fill_tile,
+    fill_wave,
+    linear_tb,
+    packed,
+)
 
 pytestmark = pytest.mark.cuda
 
+REPO = Path(__file__).resolve().parents[1]
+
 TABLE_LETTERS = "".join(chr(0x4E00 + k) for k in range(399))  # a 640 KB table
+PROTEIN = "ARNDCQEGHILKMFPSTWYV"
+BLOSUM = dict(scoring_mat_name="BLOSUM62")
+ODD = dict(match_score=3, mismatch_score=-2, gap_open_score=-5,
+           gap_extension_score=-1)  # an odd max score: dcost != icost
+# 59 letters that upper-casing keeps, plus the gap: a 60-token alphabet
+WIDE = "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789!#$%&()*+,./:;<=>?@[]^_"
+WIDE_KW = dict(gap_open_cost=3)
 
 
 @pytest.fixture
@@ -40,17 +77,21 @@ def _case(rng, letters, shapes, **scheme_kw):
     scheme = resolve_scheme(
         "".join(letters), "".join(letters), **scheme_kw
     )
-    ta = np.zeros((len(pairs), max(m for m, _ in shapes) + 1), np.int32)
-    tb = np.zeros((len(pairs), max(n for _, n in shapes) + 1), np.int32)
-    for b, (s1, s2) in enumerate(pairs):
-        ta[b, 1 : len(s1) + 1] = scheme.alphabet.encode(s1)
-        tb[b, 1 : len(s2) + 1] = scheme.alphabet.encode(s2)
+    return _args(scheme, pairs)
+
+
+def _args(scheme, pairs):
+    """The fill arguments of ``pairs`` under ``scheme``: tokens (1-origin,
+    padded), the cost table, the gap token and cost, and the lengths."""
+    ta = np.zeros((len(pairs), max(len(a) for a, _ in pairs) + 1), np.int32)
+    tb = np.zeros((len(pairs), max(len(b) for _, b in pairs) + 1), np.int32)
+    for k, (s1, s2) in enumerate(pairs):
+        ta[k, 1 : len(s1) + 1] = scheme.alphabet.encode(s1)
+        tb[k, 1 : len(s2) + 1] = scheme.alphabet.encode(s2)
     cost = np.ascontiguousarray(scheme.costing.values, dtype=np.int32)
-    return (
-        torch.from_numpy(ta), torch.from_numpy(tb), torch.from_numpy(cost),
-        scheme.alphabet.gap_id, scheme.gap_open_cost,
-        [m for m, _ in shapes], [n for _, n in shapes],
-    )
+    return (torch.from_numpy(ta), torch.from_numpy(tb), torch.from_numpy(cost),
+            scheme.alphabet.gap_id, scheme.gap_open_cost,
+            [len(a) for a, _ in pairs], [len(b) for _, b in pairs])
 
 
 def _on(dev, args):
@@ -133,11 +174,17 @@ def test_main_path_runs_the_kernel(cuda_device):
 # than 32 columns, one column, m_true 0 and 1, and ragged batches whose
 # pairs get different band counts.
 PLAN_SHAPES = [
-    [(40, 100)], [(40, 256)], [(90, 8000)],
-    [(30, 127)], [(30, 129)], [(30, 1023)], [(30, 1025)],
-    [(20, 2047)], [(20, 2049)], [(20, 8191)], [(20, 8193)],
-    [(4, 32_767)], [(4, 32_769)], [(2, 65_535)], [(2, 65_537)],
-    [(1, 1)], [(0, 1)], [(1, 0)], [(0, 31)], [(1, 31)], [(33, 31)],
+    [(40, 100)], [(40, 256)], [(90, 8000)], [(300, 8000)],
+    [(30, 127)], [(30, 128)], [(30, 129)],
+    [(30, 1023)], [(30, 1024)], [(30, 1025)],
+    [(20, 2047)], [(20, 2048)], [(20, 2049)],
+    [(20, 8191)], [(20, 8192)], [(20, 8193)],
+    [(5, 32_767)], [(5, 32_768)], [(5, 32_769)],
+    [(3, 65_535)], [(3, 65_536)], [(3, 65_537)],
+    [(1, 1)], [(0, 1)], [(1, 0)], [(0, 0)], [(7, 5)],
+    [(0, 31)], [(1, 31)], [(33, 31)],
+    [(300, 8000), (0, 300), (1, 33), (64, 1)],
+    [(100, 4096), (100, 1), (7, 2049), (0, 0), (50, 700)],
     [(90, 8000), (0, 300), (1, 33), (64, 1)],
     [(50, 4096), (50, 1), (7, 2049), (0, 0), (30, 700)],
 ]
@@ -248,11 +295,15 @@ def test_last_rows_boundary_shapes_match_plain(cuda_device, shapes):
 
 def _synthetic_codes(rng, levels, k, n):
     """(1, k+1, n+1) codes whose every cell sends level l to ``levels[l]``
-    (a level of -1: random)."""
+    (a level of -1: random; -2: random, but level l itself 70% of the
+    time, 80% for M)."""
     lv = rng.integers(0, 3, (k + 1, n + 1, 3))
     for lvl, to in enumerate(levels):
         if to >= 0:
             lv[..., lvl] = to
+        elif to == -2:
+            stay = rng.random((k + 1, n + 1)) < (0.8 if lvl == 0 else 0.7)
+            lv[..., lvl] = np.where(stay, lvl, lv[..., lvl])
     return torch.from_numpy(
         (lv[..., 0] | lv[..., 1] << 2 | lv[..., 2] << 4).astype(np.uint8)[None])
 
@@ -268,6 +319,7 @@ WALK_CASES = {
     "left_to_column_0_inside_a_tile": ([(300, 700)], (1, 1, 1), ([150], [700])),
     "diagonal_through_tile_corners": ([(300, 700)], (0, 0, 0), ([101], [261])),
     "random_codes": ([(300, 700)], (-1, -1, -1), ([300], [700])),
+    "biased_random_codes": ([(300, 1000)], (-2, -2, -2), ([300], [1000])),
     "3x40000": ([(3, 40_000)], None, ([3], [40_000])),
     "40000x3": ([(40_000, 3)], None, ([40_000], [3])),
     "m_or_n_0_and_1": ([(0, 5), (5, 0), (1, 1), (1, 9), (9, 1)], None,
@@ -381,8 +433,6 @@ def test_gotoh_batch_matches_plain(cuda_device, letters, n_cols, scheme_kw):
     zero and partial widths) beside buckets of other width classes; final3
     and the last rows at every column, kernel == plain, one launch a width
     class present."""
-    from globalign_tpu_torch.ops import fill_batch
-
     rows = 40 if n_cols > 512 else 150
     shapes = [(rows, n_cols), (0, n_cols), (1, n_cols), (rows, n_cols // 2),
               (rows, 0), (rows // 3, max(1, n_cols - 5))]
@@ -421,8 +471,6 @@ def test_batch_final3_past_the_plan_runs_gotoh_fill(cuda_device, letters, shapes
     too large for its shared memory, run gotoh_fill's final3 / last-row
     mode past 8 columns a row, and within it the wide route's one
     gotoh_tile launch (``fill_tile.route_buckets``)."""
-    from globalign_tpu_torch.ops import fill_batch
-
     args = _case(np.random.default_rng(15), letters, shapes)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert bool(fill_tile.route_buckets([(args[5], args[6])], sms)) == tiled
@@ -446,8 +494,6 @@ def test_batch_final3_routing_on_either_side_of_the_cap(cuda_device, batch):
     """One ragged call over a bucket of 1024 columns and one of 1025: one
     gotoh_batch launch for the first, one gotoh_fill final3 launch for the
     second, at any batch size; final3 == plain."""
-    from globalign_tpu_torch.ops import fill_batch
-
     rng = np.random.default_rng(batch)
     narrow = _case(rng, "ACGT", [(20, 1024)] * batch)
     wide = _case(rng, "ACGT", [(20, 1025)] * batch)
@@ -487,10 +533,6 @@ def test_align_pairs_cost_wide_tail_is_one_gotoh_tile_launch(cuda_device,
     """A cost-only call's pairs past 1024 columns: one gotoh_tile launch
     over all of them (the counters say so) and no gotoh_fill launch; final3,
     costs and scores equal the per-bucket route's and the plain version's."""
-    from globalign_tpu_torch import align_pairs
-    from globalign_tpu_torch.batch import bucket_length
-    from globalign_tpu_torch.ops import fill_batch
-
     pairs = _wide_tail_pairs(np.random.default_rng(31), letters)
     wide = [(bucket_length(len(a)), bucket_length(len(b))) for a, b in pairs
             if bucket_length(len(b)) > fill_batch.MAX_COLUMNS]
@@ -515,8 +557,6 @@ def test_wide_route_makes_no_synchronising_call(cuda_device):
     """The cost fill over a call's buckets, wide ones included, queues its
     launches without a synchronising call (sync debug mode "error"), and
     its final3 equals the plain version's."""
-    from globalign_tpu_torch.ops import fill_batch
-
     rng = np.random.default_rng(32)
     buckets = [_case(rng, "ACGT", shapes) for shapes in (
         [(300, 200), (120, 250)], [(1100, 1150)], [(2500, 2400), (2490, 2390)],
@@ -548,10 +588,6 @@ def test_align_pairs_on_the_card_matches_cpu(cuda_device, letters, kw,
     gotoh_batch launch a width class; traceback, one gotoh_batch_moves
     launch a width class and one ragged walk) == ``device="cpu"``, pair by
     pair; flush=False too."""
-    from globalign_tpu_torch import align_pairs
-    from globalign_tpu_torch.batch import bucket_length
-    from globalign_tpu_torch.ops import fill_batch
-
     rng = np.random.default_rng(16 + with_traceback)
     pairs = [
         tuple("".join(rng.choice(list(letters), int(rng.integers(1, 200))))
@@ -592,8 +628,6 @@ def test_ragged_fill_and_walk_match_plain(cuda_device, letters, kw, placed):
     gaps out of pair order; final3, every pair's codes, tapes, counts and
     exit columns equal, one launch a width class or launch class and one
     walk launch."""
-    from globalign_tpu_torch.ops import fill_batch
-
     rng = np.random.default_rng(61 + placed)
     shapes = [[(40, 33_000), (3, 5000)], [(1, 1), (0, 7), (9, 0)],
               [(200, 300), (1, 290), (250, 1)], [(64, 2100)]]
@@ -645,7 +679,7 @@ UNICODE_MTX = (  # a matrix over three non-ASCII letters and A
 WARP_SHAPES = [  # every width class and its edges, m or n of 0 and 1
     (37, 1), (1, 31), (40, 32), (33, 33), (0, 5), (5, 0), (0, 0), (1, 1),
     (90, 127), (2, 128), (129, 129), (60, 255), (256, 256), (17, 257),
-    (11, 511), (300, 512), (9, 513), (45, 1023), (700, 1024), (1, 1024),
+    (11, 511), (300, 512), (9, 513), (45, 1023), (1024, 1024), (1, 1024),
     (1024, 1),
 ]
 
@@ -658,8 +692,6 @@ def test_batch_moves_warp_matches_plain(cuda_device, tmp_path, alphabet):
     pair's rows (column 0, the bytes past n, row 0); one launch a width
     class and no gotoh_fill launch; the walk over its codes equal to the
     plain walk."""
-    from globalign_tpu_torch.ops import fill_batch
-
     if alphabet == "unicode":
         mtx = tmp_path / "unicode.mtx"
         mtx.write_text(UNICODE_MTX, encoding="utf-8")
@@ -699,8 +731,6 @@ def test_batch_moves_ragged_mixes_both_routes(cuda_device):
     launch a width class and a gotoh_fill ragged launch a launch class into
     one buffer, equal to the plain version byte for byte, walked by one
     walk_ragged launch."""
-    from globalign_tpu_torch.ops import fill_batch
-
     rng = np.random.default_rng(83)
     buckets = [_case(rng, "ACGT", sh) for sh in (
         [(30, 1025), (5, 100)], [(40, 2000), (20, 900), (64, 1024)])]
@@ -761,24 +791,6 @@ def test_align_pairs_genomes_match_the_reference(cuda_device):
             for r in got] == want
 
 
-@pytest.mark.parametrize("letters, scheme_kw", [
-    ("ACGT", {}),
-    ("ACDEFGHIKLMNPQRSTVWY", {"scoring_mat_name": "BLOSUM62"}),
-    ("ACGT", {"match_score": 3, "mismatch_score": -4, "gap_open_score": -7,
-              "gap_extension_score": -3}),
-])
-def test_cell_probe_matches_the_row_scan(cuda_device, letters, scheme_kw):
-    """The bound's cell probe (DPX form, in registers) computes the fill."""
-    from globalign_tpu_torch.utils import peaks
-
-    scheme = resolve_scheme(letters, letters, **scheme_kw)
-    cost = torch.from_numpy(
-        np.ascontiguousarray(scheme.costing.values, dtype=np.int32)
-    )
-    peaks.check(cuda_device, cost, scheme.alphabet.gap_id,
-                scheme.gap_open_cost, seed=7, pairs=32, rows=40)
-
-
 def _strip_case(rng, letters, rb, width, **scheme_kw):
     """A block of ``rb`` rows under a real checkpoint row, cut into a left
     strip of 37 columns (at the matrix edge) and a strip of ``width``
@@ -813,13 +825,11 @@ def _strip_case(rng, letters, rb, width, **scheme_kw):
     return left_args, right_args
 
 
-@pytest.mark.parametrize("rb,width", [(1, 1), (5, 0), (3, 31), (17, 1024),
-                                      (64, 13_000), (256, 50_000)])
+@pytest.mark.parametrize("rb,width", [(1, 1), (5, 0), (3, 31), (1, 1024),
+                                      (17, 1024), (64, 13_000), (3, 16_000),
+                                      (256, 16_000), (256, 50_000)])
 @pytest.mark.parametrize("letters,scheme_kw", [
-    ("ACGT", {}),
-    ("ACDEFGHIKLMNPQRSTVWY", {"scoring_mat_name": "BLOSUM62"}),
-    ("ACGT", {"match_score": 3, "mismatch_score": -2, "gap_open_score": -5,
-              "gap_extension_score": -1}),
+    ("ACGT", {}), (PROTEIN, BLOSUM), ("ACGT", ODD), (WIDE, WIDE_KW),
 ])
 def test_strip_mode_matches_plain(cuda_device, rb, width, letters, scheme_kw):
     """``gotoh_fill``'s strip mode (TPU kernel #10) == its plain version:
@@ -865,7 +875,6 @@ def world_of_one(cuda_device):
 
 @pytest.mark.parametrize("with_traceback", [False, True])
 def test_world_of_one_align_pairs_equals_no_mesh(world_of_one, with_traceback):
-    from globalign_tpu_torch import align_pairs
 
     assert world_of_one.backend == "nccl"
     rng = np.random.default_rng(23)
@@ -894,10 +903,17 @@ def test_world_of_one_pair_cost_launches_the_strip_mode(world_of_one):
 # -- the wave kernel (TPU kernel #9) and the dual-set batch fill (#11) ------
 
 
+WAVE_SCHEMES = [
+    {},  # the default DNA scheme: the JAX bench's wave arm (bench.py:244-251)
+    ODD,  # dcost != icost
+    # the JAX bench's other uniform schemes
+    dict(mismatch_cost=1, gap_open_cost=7, gap_extension_cost=1),
+    dict(mismatch_cost=9, gap_open_cost=2, gap_extension_cost=6),
+]
+
+
 def _wave_case(rng, m, n, pad=(0, 0), **scheme_kw):
     """Seeded DNA tokens (padded past m / n) and the scheme's uniform costs."""
-    from globalign_tpu_torch.ops import fill_wave
-
     scheme = resolve_scheme("ACGT", "ACGT", **scheme_kw)
     cm = np.asarray(scheme.costing.values, np.int32)
     prm = fill_wave.uniform_scheme_params(cm, scheme.alphabet.gap_id)
@@ -918,19 +934,13 @@ def _wave_case(rng, m, n, pad=(0, 0), **scheme_kw):
     (257, 383, (1, 0)), (385, 255, (0, 3)),
     # lopsided: one tile column, one tile row, and many of each
     (3000, 129, (0, 0)), (127, 2049, (0, 4)), (2100, 900, (0, 0)),
-    (13_000, 40, (3, 0)),
+    (13_000, 40, (3, 0)), (127, 3000, (0, 0)), (640, 640, (0, 0)),
 ])
-@pytest.mark.parametrize("scheme_kw", [
-    {},  # the default DNA scheme: the JAX bench's wave arm (bench.py:244-251)
-    dict(match_score=3, mismatch_score=-2, gap_open_score=-5,
-         gap_extension_score=-1),  # dcost != icost
-])
+@pytest.mark.parametrize("scheme_kw", WAVE_SCHEMES[:2])
 def test_wave_kernel_matches_plain(cuda_device, m, n, pad, scheme_kw):
     """All four captured waves at every row, and the cost: kernel == plain,
     m + n <= 1 included, one launch a call; the cost also equals the
     direct fill."""
-    from globalign_tpu_torch.ops import fill_wave
-
     args, (cm, scheme) = _wave_case(np.random.default_rng(m * 7 + n), m, n, pad,
                                     **scheme_kw)
     on_card = (args[0].to(cuda_device), args[1].to(cuda_device), *args[2:])
@@ -941,7 +951,7 @@ def test_wave_kernel_matches_plain(cuda_device, m, n, pad, scheme_kw):
     torch.cuda.synchronize()
     assert fill_wave.wave_frontiers.launches == before + 2
     assert torch.equal(got.cpu(), want)
-    assert int(cost) == int(fill_wave.wave_split_fill_cost(*args))
+    assert int(cost) == int(fill_wave.join_frontiers(want, args[6], m, n))
     direct, _ = fill_cuda.batch_moves(
         args[0][None], args[1][None], cm, scheme.alphabet.gap_id,
         scheme.gap_open_cost, [m], [n], want_moves=False,
@@ -949,8 +959,37 @@ def test_wave_kernel_matches_plain(cuda_device, m, n, pad, scheme_kw):
     assert int(cost) == int(direct.min())
 
 
+@pytest.mark.parametrize("m,n,pad,scheme", [
+    (m, n, pad, k) for k in (0, 1)
+    for m, n, pad in ((4096, 4096, (0, 0)), (12_345, 3000, (7, 7)))
+] + [
+    (m, n, pad, k) for k in (2, 3)
+    for m, n, pad in ((0, 0, (0, 0)), (0, 1, (2, 0)), (1, 0, (0, 3)),
+                      (1, 1, (0, 0)), (2, 70, (5, 1)), (70, 2, (0, 0)),
+                      (1023, 1025, (0, 0)), (127, 129, (0, 0)),
+                      (255, 257, (0, 0)), (385, 255, (0, 3)),
+                      (640, 640, (0, 0)), (4096, 4096, (0, 0)),
+                      (12_345, 3000, (7, 7)))
+])
+def test_wave_kernel_matches_plain_at_long_sizes_and_more_schemes(
+        cuda_device, m, n, pad, scheme):
+    """The long pairs' sizes, and the JAX bench's other uniform schemes from
+    m + n <= 1 over the plan's tile edges to 12 345 x 3000: all four captured
+    waves at every row and the cost, kernel == plain, one launch a call."""
+    args, _ = _wave_case(np.random.default_rng(m + n), m, n, pad,
+                         **WAVE_SCHEMES[scheme])
+    on_card = (args[0].to(cuda_device), args[1].to(cuda_device), *args[2:])
+    want = fill_wave.wave_frontiers(*args)
+    before = fill_wave.wave_frontiers.launches
+    got = fill_wave.wave_frontiers(*on_card)
+    cost = fill_wave.wave_split_fill_cost(*on_card)
+    torch.cuda.synchronize()
+    assert fill_wave.wave_frontiers.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert int(cost) == int(fill_wave.join_frontiers(want, args[6], m, n))
+
+
 def test_wave_kernel_rejects_mixed_devices(cuda_device):
-    from globalign_tpu_torch.ops import fill_wave
 
     args, _ = _wave_case(np.random.default_rng(3), 5, 7)
     before = fill_wave.wave_frontiers.launches
@@ -980,8 +1019,6 @@ def test_batch_final3_dual_matches_plain(cuda_device, batch, n_cols, letters,
     """Both sets in one call (a gotoh_batch launch a width class, or one
     gotoh_fill launch), on either side of gotoh_batch's 1024-column cap,
     equal to the plain version and to two single-set calls."""
-    from globalign_tpu_torch.ops import fill_batch
-
     args = _dual_case(np.random.default_rng(batch + n_cols), letters, batch,
                       n_cols, **scheme_kw)
     want = fill_batch.batch_final3_dual(*args)
@@ -1003,7 +1040,6 @@ def test_batch_final3_dual_matches_plain(cuda_device, batch, n_cols, letters,
 
 
 def test_batch_final3_dual_rejects_mixed_devices(cuda_device):
-    from globalign_tpu_torch.ops import fill_batch
 
     args = _dual_case(np.random.default_rng(4), "ACGT", 3, 50)
     with pytest.raises(ValueError, match="is on"):
@@ -1012,8 +1048,6 @@ def test_batch_final3_dual_rejects_mixed_devices(cuda_device):
 
 
 # -- gotoh_tile: one pair's fill over the whole card -------------------------
-
-PROTEIN = "ARNDCQEGHILKMFPSTWYV"
 
 
 def _tile_shapes(height, width):
@@ -1050,8 +1084,8 @@ def _assert_tile_equals_plain(dev, args, shape, rows=None, **inj):
 
 @pytest.mark.parametrize("shape", fill_tile.SHAPES)
 @pytest.mark.parametrize("letters,scheme_kw", [
-    ("ACGT", {}), (PROTEIN, dict(scoring_mat_name="BLOSUM62")),
-    ("ACGT", dict(gap_open_cost=0)),
+    ("ACGT", {}), (PROTEIN, BLOSUM), ("ACGT", dict(gap_open_cost=0)),
+    (WIDE, WIDE_KW),
 ])
 def test_gotoh_tile_matches_plain_at_its_tile_edges(cuda_device, shape,
                                                     letters, scheme_kw):
@@ -1145,8 +1179,6 @@ def test_blocked_checkpoint_pass_is_one_launch(cuda_device):
 def test_split_cost_on_gotoh_tile(cuda_device, m, n):
     """cost() from SPLIT_MIN_ROWS rows: the 2-pair last-rows fill where
     fill_tile.route sends it, equal to the plain split and the direct fill."""
-    from globalign_tpu_torch.models.gotoh import SPLIT_MIN_ROWS
-
     rng = np.random.default_rng(m + n)
     ta, tb, cost, gid, go, _, _ = _case(rng, "ACGT", [(m, n)])
     assert m >= SPLIT_MIN_ROWS
@@ -1173,8 +1205,6 @@ PACKED_LETTERS = ["ACGT", "ARNDCQEGHILKMFPSTWYV", "ΩЖ字A", "ACGTΩЖ字"]
 
 def _packed_call(rng, letters, shapes, with_render):
     """``pack_call`` of pairs of the given (m, n), align_pairs' buckets."""
-    from globalign_tpu_torch.batch import bucket_length
-    from globalign_tpu_torch.ops import packed
     from globalign_tpu_torch.utils.tokenize import Alphabet
 
     pairs = [tuple("".join(rng.choice(list(letters), k)) for k in mn)
@@ -1195,8 +1225,6 @@ def test_tokenize_ragged_matches_plain(cuda_device, letters):
     """Every bucket row, one launch and one upload, = ``tokenize_plain``
     (tolerance 0): m and n of 1, rows at the 32-column bucket edges, ASCII
     bytes and code points."""
-    from globalign_tpu_torch.ops import packed
-
     rng = np.random.default_rng(len(letters))
     shapes = [(1, 1), (1, 32), (32, 1), (33, 64), (31, 65), (200, 7), (96, 96)]
     _, spec, call = _packed_call(rng, letters, shapes, False)
@@ -1225,8 +1253,6 @@ def test_tokenize_ragged_matches_plain(cuda_device, letters):
 def test_render_ragged_matches_plain(cuda_device, letters, shapes):
     """A segment's lines, one launch, = ``render_plain`` (tolerance 0),
     ends included; a second launch after a base continues the buffer."""
-    from globalign_tpu_torch.ops import linear_tb, packed
-
     rng = np.random.default_rng(sum(m + n + e for m, n, e in shapes))
     _, _, call = _packed_call(rng, letters, [(m, n) for m, n, _ in shapes], True)
     tapes = []
@@ -1269,8 +1295,6 @@ def test_render_ragged_matches_plain(cuda_device, letters, shapes):
 def _bucket_order(shapes):
     """The pack order of pairs of these (m, n): by bucket of first
     appearance, then input order."""
-    from globalign_tpu_torch.batch import bucket_length
-
     keys = {}
     for k, (m, n) in enumerate(shapes):
         keys.setdefault((bucket_length(max(m, 1)), bucket_length(max(n, 1))),
@@ -1287,10 +1311,6 @@ def test_align_pairs_one_upload_one_tokenize_one_fetch(cuda_device, tmp_path,
     launch, one ``render_ragged`` launch a traceback segment and one
     fetch; its results are byte-identical to ``device="cpu"`` (a non-ASCII
     matrix; several segments under a lowered budget)."""
-    from globalign_tpu_torch import align_pairs
-    from globalign_tpu_torch import batch as batch_mod
-    from globalign_tpu_torch.ops import packed
-
     rng = np.random.default_rng(19 + with_traceback)
     kw, letters = {}, "ACGT"
     if name == "unicode":
@@ -1328,7 +1348,6 @@ def test_align_pairs_fill_spans_on_the_card(cuda_device, with_traceback):
     inside ``globalign.fill``, and ``phase_seconds`` gets none of them."""
     from torch.profiler import ProfilerActivity, profile
 
-    from globalign_tpu_torch import align_pairs
 
     rng = np.random.default_rng(23 + with_traceback)
     pairs = [tuple("".join(rng.choice(list("ACGT"), int(rng.integers(20, 300))))
@@ -1350,3 +1369,1517 @@ def test_align_pairs_fill_spans_on_the_card(cuda_device, with_traceback):
         assert any(lo <= s and e <= hi for lo, hi in fills), name
     assert not any(key.startswith("fill.") for key in phases)
     assert got == align_pairs(pairs, with_traceback=with_traceback, device="cpu")
+
+
+# -- the kernels at the main paths' sizes ------------------------------------
+#
+# The tests above hold each kernel against its plain version at its edges;
+# these add the sizes its callers reach (pairs to 8000^2, replay blocks of
+# 20 000 columns, the blocked pairs' checkpoint rows, buffers past byte
+# 2^31), the same schemes, tolerance 0.  ``ptxas -v`` of every source
+# guards against spills, which cost a kernel its speed and no test its
+# result.
+
+# The gotoh_fill instances that spill, and the most bytes (spill stores and
+# loads) each may: W = 32 cost-only, the table in shared memory or not;
+# W = 16 with codes, the table in shared memory; W = 16 ragged, the table in
+# global memory.  The genome cell's instance (W = 16 ragged, the table in
+# shared memory) does not spill.
+GOTOH_FILL_SPILLS = {"Li32ELb0ELb0ELb0E": 212, "Li32ELb0ELb1ELb0E": 220,
+                     "Li16ELb1ELb1ELb0E": 24, "Li16ELb1ELb0ELb1E": 56}
+PTXAS_INSTANCES = {  # the template instances of each source
+    "gotoh_batch": 2 * len(fill_batch.WIDTHS),  # W x last rows or not
+    "gotoh_batch_moves": len(fill_batch.WIDTHS),
+    "gotoh_fill": 20,  # W 4/8/16 x codes x table x ragged (codes), W 32 x table
+    "gotoh_tile": 4 * len(fill_tile.SHAPES),  # (H, W) x codes x table
+    "render": 2,  # bytes, code points
+    "tokenize": 2,
+    "walk_block": 2,  # a block, ragged
+    "wave_split": 1,
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _ptxas_jobs(request, tmp_path_factory):
+    """``ptxas -v`` of every source for sm_90a, started with the module
+    where a card, ``nvcc`` and a selected ptxas test are present, so that
+    it compiles beside the kernels' build: the processes by source."""
+    from globalign_tpu_torch.utils import cuda_build
+
+    jobs = {}
+    if torch.cuda.is_available() and any(
+            "ptxas" in item.name for item in request.session.items):
+        try:
+            nvcc = cuda_build._nvcc()
+        except RuntimeError:
+            nvcc = None
+        out = tmp_path_factory.mktemp("ptxas")
+        # The build's own flags, less those of a shared library.
+        flags = [f for f in cuda_build.NVCC_FLAGS
+                 if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        jobs = {
+            stem: subprocess.Popen(
+                [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o",
+                 str(out / f"{stem}.cubin"),
+                 str(cuda_build.CSRC_DIR / f"{stem}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for stem in PTXAS_INSTANCES
+        } if nvcc else {}
+    yield jobs
+    for proc in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.fixture(scope="module")
+def ptxas_reports(_ptxas_jobs):
+    """By source, (template arguments, registers, spill bytes) an
+    instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    if not _ptxas_jobs:
+        pytest.skip("nvcc was not found")
+    reports = {}
+    for stem, proc in _ptxas_jobs.items():
+        text, _ = proc.communicate(timeout=900)
+        assert proc.returncode == 0, text
+        reports[stem] = [
+            (re.search(r"kernel(?:I(\w+?)EEv)?", block).group(1),
+             int(re.search(r"Used (\d+) registers", block).group(1)),
+             sum(int(x) for x in re.search(
+                 r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                 block).groups()))
+            for block in text.split("Compiling entry function")[1:]
+        ]
+    return reports
+
+
+@pytest.mark.parametrize("stem", sorted(PTXAS_INSTANCES))
+def test_ptxas_reports_no_spills(ptxas_reports, stem):
+    """Every instance of every kernel compiles for sm_90a, without a spill
+    but gotoh_fill's known ones (no more bytes than they spill today)."""
+    report = ptxas_reports[stem]
+    assert len(report) == PTXAS_INSTANCES[stem], report
+    known = GOTOH_FILL_SPILLS if stem == "gotoh_fill" else {}
+    assert not [row for row in report if row[2] > known.get(row[0], 0)], report
+
+
+def _seq(rng, letters, k):
+    return "".join(rng.choice(list(letters), k))
+
+
+def _relative(rng, seq, letters, identity=0.85):
+    """A relative of ``seq`` as long as it: substitutions and short indels."""
+    out = []
+    p_sub, p_indel = (1 - identity) * 0.6, (1 - identity) * 0.2
+    for ch in seq:
+        r = rng.random()
+        if r < p_sub:
+            out.append(rng.choice([c for c in letters if c != ch]))
+        elif r < p_sub + p_indel:
+            continue
+        elif r < p_sub + 2 * p_indel:
+            out.append(ch + _seq(rng, letters, int(rng.integers(1, 4))))
+        else:
+            out.append(ch)
+    out = "".join(out)[: len(seq)]
+    return out + _seq(rng, letters, len(seq) - len(out))
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _no_tile(patch):
+    """Every non-strip fill on gotoh_fill from here (``fill_tile.route``
+    says no), to hold gotoh_fill where the route takes gotoh_tile."""
+    patch.setattr(fill_tile, "route", lambda *args: False)
+
+
+@pytest.mark.parametrize("letters,kw,shapes", [
+    ("ACGT", {}, [(1, 500)]), ("ACGT", {}, [(500, 1)]),
+    ("ACGT", {}, [(37, 129)]), ("ACGT", {}, [(1000, 1000)]),
+    (PROTEIN, BLOSUM, [(700, 900)]), ("ACGT", ODD, [(300, 417)]),
+    (WIDE, WIDE_KW, [(256, 300)]), ("ACGT", {}, [(50, 70), (64, 3), (9, 128)]),
+    ("ACGT", {}, [(4096, 4096)]), ("ACGT", {}, [(8000, 8000)]),
+])
+def test_both_fills_match_plain_at_main_path_sizes(cuda_device, monkeypatch,
+                                                   letters, kw, shapes):
+    """gotoh_fill (the route set aside) and gotoh_tile at its plan's shape,
+    with codes and cost only: final3 and every code == the row scan."""
+    args = _case(np.random.default_rng(sum(m + n for m, n in shapes)),
+                 letters, shapes, **kw)
+    want3, want_mv = fill_cuda.batch_moves(*args)
+    with monkeypatch.context() as patch:
+        _no_tile(patch)
+        got3, got_mv = fill_cuda.batch_moves(*_on(cuda_device, args))
+        cost3, none = fill_cuda.batch_moves(*_on(cuda_device, args),
+                                            want_moves=False)
+    assert none is None
+    t3, t_mv, _ = fill_tile.gotoh_tile(*_on(cuda_device, args))
+    t3c, _, _ = fill_tile.gotoh_tile(*_on(cuda_device, args), want_moves=False)
+    for got in (got3, cost3, t3, t3c):
+        assert torch.equal(got.cpu(), want3)
+    assert torch.equal(got_mv.cpu(), want_mv) and torch.equal(t_mv.cpu(), want_mv)
+
+
+@pytest.mark.parametrize("letters,kw,shapes,cuts", [
+    ("ACGT", {}, [(4096, 4096)], [2048]),
+    # the main path's widths: a short block below row 1000 of a 10 000-,
+    # a 20 000- and a 9000-column pair, a ragged batch of 12 500-20 000
+    ("ACGT", {}, [(1300, 10_000)], [1000]),
+    ("ACGT", {}, [(1300, 20_000)], [1000]),
+    (PROTEIN, BLOSUM, [(1300, 9000)], [1000]),
+    ("ACGT", {}, [(300, 20_000), (1256, 19_000), (70, 12_500)], [44, 1000, 6]),
+    ("ACGT", {}, [(1000, 1000)], [999]),  # a one-row block
+    ("ACGT", {}, [(1, 500)], [0]),
+    (PROTEIN, BLOSUM, [(700, 900)], [301]),
+    ("ACGT", ODD, [(300, 417)], [150]),
+    (WIDE, WIDE_KW, [(256, 300)], [100]),
+    ("ACGT", {}, [(50, 70), (64, 3), (9, 128)], [20, 63, 0]),
+    # replay blocks of 3355 rows (the 20 000^2 blocked align's)
+    ("ACGT", {}, [(4355, 10_000)], [1000]),
+    ("ACGT", {}, [(4355, 20_000)], [1000]),
+])
+def test_injected_fills_on_both_kernels_at_main_path_sizes(
+        cuda_device, monkeypatch, letters, kw, shapes, cuts):
+    """Blocks seeded from the real row at each cut, on gotoh_fill (the
+    route set aside) and on gotoh_tile: final3, codes and the last row ==
+    the row scan; the whole pair's last row on both == the block's; and
+    the walk over a single block's codes, from its corner and from inside
+    it, == the plain walk."""
+    rng = np.random.default_rng(sum(n for _, n in shapes) + cuts[0])
+    args = _case(rng, letters, shapes, **kw)
+    blk, top, c0 = _checkpointed(args, cuts)
+    inj = dict(row0=top, col0y_top=c0)
+    dev_inj = {k: v.to(cuda_device) for k, v in inj.items()}
+    rows = [[r] for r in blk[5]]
+    want3, want_mv, want_rows = fill_tile.gotoh_tile(*blk, rows=rows, **inj)
+    want_last = want_rows[:, 0]
+    with monkeypatch.context() as patch:
+        _no_tile(patch)
+        got3, got_mv = fill_cuda.batch_moves(*_on(cuda_device, blk), **dev_inj)
+        got_last = fill_cuda.batch_last_rows(*_on(cuda_device, blk), **dev_inj)
+        got_whole = fill_cuda.batch_last_rows(*_on(cuda_device, args))
+    t3, t_mv, t_rows = fill_tile.gotoh_tile(*_on(cuda_device, blk), rows=rows,
+                                            **dev_inj)
+    _, _, t_whole = fill_tile.gotoh_tile(*_on(cuda_device, args),
+                                         want_moves=False,
+                                         rows=[[m] for m in args[5]])
+    for got, want in ((got3, want3), (got_mv, want_mv), (got_last, want_last),
+                      (got_whole, want_last), (t3, want3), (t_mv, want_mv),
+                      (t_rows, want_rows), (t_whole[:, 0], want_last)):
+        assert torch.equal(got.cpu(), want)
+    if len(shapes) == 1 and shapes[0][1] >= 4096:
+        k_rows, n_cols = blk[5][0], shapes[0][1]
+        level = got3.argmin(-1).to(torch.int32)
+        for i_entry, j_entry in (([k_rows], [n_cols]), ([k_rows // 3], [17])):
+            j_dev = torch.tensor(j_entry, dtype=torch.int32, device=cuda_device)
+            want = linear_tb.walk_block(got_mv.cpu(), i_entry, j_dev.cpu(),
+                                        level.cpu())
+            got = linear_tb.walk_block(got_mv, i_entry, j_dev, level)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
+def test_checkpoint_rows_of_a_blocked_pair_at_every_tile_shape(cuda_device):
+    """The blocked align's checkpoint rows of a 20 000^2 DNA pair, one
+    launch at every (H, W), == the row scan block by block."""
+    rng = np.random.default_rng(20_000)
+    s1 = _seq(rng, "ACGT", 20_000)
+    args = _args(resolve_scheme("ACGT", "ACGT"), [(s1, _relative(rng, s1, "ACGT"))])
+    rows = linear_tb.block_bounds(
+        args[5][0], args[6][0], block_moves_bytes=DEFAULT_MOVES_BUDGET_BYTES)[1:]
+    want = fill_tile.checkpoint_rows(args[0][0], args[1][0], *args[2:5], rows)
+    for shape in fill_tile.SHAPES:
+        before = fill_tile.gotoh_tile.launches
+        _, _, got = fill_tile.gotoh_tile(*_on(cuda_device, args),
+                                         want_moves=False, rows=[rows],
+                                         shape=shape)
+        assert fill_tile.gotoh_tile.launches == before + 1
+        assert torch.equal(got[0].cpu(), want), shape
+
+
+def _ragged_args(buckets):
+    """``batch_moves_ragged``'s arguments from ``_case`` buckets."""
+    return ([b[0] for b in buckets], [b[1] for b in buckets], *buckets[0][2:5],
+            [b[5] for b in buckets], [b[6] for b in buckets])
+
+
+def _ragged_on(dev, args):
+    return ([t.to(dev) for t in args[0]], [t.to(dev) for t in args[1]],
+            args[2].to(dev), *args[3:])
+
+
+def _assert_ragged_equal(got, want):
+    """final3 and every byte of each pair's rows equal."""
+    assert torch.equal(got.final3.cpu(), want.final3)
+    for row in want.layout.tolist():
+        lo, hi = row[4], row[4] + (row[2] + 1) * row[5]
+        assert torch.equal(got.codes[lo:hi].cpu(), want.codes[lo:hi]), row[2:4]
+
+
+@pytest.mark.parametrize("letters,kw,shapes", [
+    ("ACGT", {}, [[(40, 33_000), (3, 5000)], [(1, 1), (0, 7), (9, 0), (1, 300)],
+                  [(200, 300), (300, 1), (250, 290)], [(64, 2100), (1000, 1000)]]),
+    (PROTEIN, BLOSUM, [[(700, 900), (1, 1)], [(30, 4096), (90, 33)]]),
+    (WIDE, WIDE_KW, [[(256, 300), (1, 2)], [(5, 1030)]]),
+])
+def test_ragged_fill_and_walk_at_main_path_sizes(cuda_device, letters, kw,
+                                                 shapes):
+    """A call mixing both routes (gotoh_batch_moves up to 1024 columns, a
+    gotoh_fill ragged launch a launch class past them) and its one walk,
+    under DNA, BLOSUM62 and the 60-letter alphabet: final3, codes, tapes,
+    counts and exit columns == the plain versions."""
+    rng = np.random.default_rng(len(shapes) + len(letters))
+    args = _ragged_args([_case(rng, letters, sh, **kw) for sh in shapes])
+    want = fill_cuda.batch_moves_ragged(*args)
+    warp, classes = fill_cuda.ragged_routes(
+        [m for ms in args[5] for m in ms], [n for ns in args[6] for n in ns],
+        args[2].shape[0], _sms(cuda_device))
+    counters = (fill_batch.batch_moves_warp, fill_cuda.batch_moves_ragged,
+                linear_tb.walk_ragged)
+    before = [fn.launches for fn in counters]
+    got = fill_cuda.batch_moves_ragged(*_ragged_on(cuda_device, args))
+    got_walk = linear_tb.walk_ragged(got)
+    torch.cuda.synchronize()
+    assert warp and classes
+    assert [fn.launches - k for fn, k in zip(counters, before)] == [
+        len(warp), len(classes), 1]
+    _assert_ragged_equal(got, want)
+    for g, w in zip(got_walk, linear_tb.walk_ragged(want)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("codes", ["filled", "random"])
+def test_walk_ragged_at_its_tile_edges(cuda_device, codes):
+    """walk_ragged over pairs packed tight: 3 x 40 000, 40 000 x 3, m or n of
+    0 and 1, and n + 1 at every residue mod 16, over their fill's codes
+    (the fill == the plain version) or random codes in their place: tapes,
+    counts and exit columns == the plain walk over the same codes."""
+    rng = np.random.default_rng(11)
+    shapes = ([(3, 40_000), (40_000, 3), (0, 5), (5, 0), (1, 1), (0, 0), (1, 0),
+               (0, 1), (1, 7), (7, 1)] + [(45, 15 + k) for k in range(16)])
+    args = _ragged_args([_case(rng, "ACGT", [sh]) for sh in shapes])
+    got = fill_cuda.batch_moves_ragged(*_ragged_on(cuda_device, args))
+    if codes == "filled":
+        _assert_ragged_equal(got, fill_cuda.batch_moves_ragged(*args))
+    else:
+        lv = rng.integers(0, 3, (got.codes.numel(), 3))
+        noise = (lv[:, 0] | lv[:, 1] << 2 | lv[:, 2] << 4).astype(np.uint8)
+        got = got._replace(codes=torch.from_numpy(noise).to(cuda_device))
+    host = fill_cuda.RaggedMoves(got.final3.cpu(), got.codes.cpu(),
+                                 got.desc.cpu(), got.layout)
+    before = linear_tb.walk_ragged.launches
+    walk = linear_tb.walk_ragged(got)
+    torch.cuda.synchronize()
+    assert linear_tb.walk_ragged.launches == before + 1
+    for g, w in zip(walk, linear_tb.walk_ragged(host)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("letters,kw,m,n", [
+    ("ACGT", {}, 2, 0), ("ACGT", {}, 1, 300), ("ACGT", {}, 2000, 1999),
+    (PROTEIN, BLOSUM, 701, 900), ("ACGT", {}, 300, 10_000),
+    ("ACGT", {}, 3, 20_000), (PROTEIN, BLOSUM, 301, 9000),
+])
+def test_split_cost_at_main_path_sizes(cuda_device, letters, kw, m, n):
+    ta, tb, cost, gid, go, _, _ = _case(np.random.default_rng(m + n), letters,
+                                        [(m, n)], **kw)
+    want = fill_split.split_fill_cost(ta[0], tb[0], cost, gid, go)
+    got = fill_split.split_fill_cost(ta[0].to(cuda_device), tb[0].to(cuda_device),
+                                     cost.to(cuda_device), gid, go)
+    assert int(got) == int(want)
+
+
+@pytest.mark.parametrize("n_cols", [1, 31, 33, 255, 1023, 1024, 1025])
+@pytest.mark.parametrize("letters,kw", [
+    ("ACGT", {}), (PROTEIN, BLOSUM), ("ACGT", ODD), (WIDE, WIDE_KW),
+])
+def test_gotoh_batch_three_buckets_across_the_cap(cuda_device, letters, kw,
+                                                  n_cols):
+    """A ragged call of three buckets: one of ``n_cols`` columns (m_true 0,
+    1, 7 and M, partial and zero widths; past the 1024-column cap at 1025),
+    one of every width class and one of 1023 / 1024 columns: final3 and
+    the last rows == plain, one gotoh_batch launch a width class a mode,
+    and a bucket past the cap on the wide route's gotoh_tile or on
+    gotoh_fill, as ``fill_tile.route_buckets`` says."""
+    rows = 300 if n_cols <= 255 else 200
+    shapes = [
+        [(rows, n_cols), (0, n_cols), (1, n_cols), (rows, max(0, n_cols - 7)),
+         (rows // 2, n_cols // 3), (rows, 0), (7, n_cols), (rows, 1)],
+        [(40, 20), (1, 100), (33, 129), (70, 256), (7, 257), (90, 511),
+         (0, 700), (64, 1000)],
+        [(50, 1023), (1, 1024), (7, 1024)],
+    ]
+    rng = np.random.default_rng(n_cols + len(letters))
+    buckets = [_case(rng, letters, sh, **kw) for sh in shapes]
+    args = _ragged_args(buckets)
+    classes = {fill_batch.width_class(n) for b in buckets for n in b[6]
+               if b[1].shape[1] - 1 <= fill_batch.MAX_COLUMNS}
+    wide = [(b[5], b[6]) for b in buckets
+            if b[1].shape[1] - 1 > fill_batch.MAX_COLUMNS]
+    tiled = len(fill_tile.route_buckets(wide, _sms(cuda_device)))
+    want3 = fill_batch.batch_final3_ragged(*args)
+    want_last = fill_batch.batch_final3_ragged(*args, last_rows=True)
+
+    def counts():
+        return (fill_batch.batch_final3.launches, fill_cuda.batch_moves.launches,
+                fill_cuda.batch_last_rows.launches,
+                fill_batch.batch_final3_ragged.wide_launches)
+
+    before = counts()
+    got3 = fill_batch.batch_final3_ragged(*_ragged_on(cuda_device, args))
+    got_last = fill_batch.batch_final3_ragged(*_ragged_on(cuda_device, args),
+                                              last_rows=True)
+    torch.cuda.synchronize()
+    untiled = len(wide) - tiled
+    assert [a - b for a, b in zip(counts(), before)] == [
+        2 * len(classes), untiled, untiled, 2 * bool(tiled)]
+    assert torch.equal(got3.cpu(), want3)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got_last, want_last))
+
+
+@pytest.mark.parametrize("lone", [True, False])
+def test_gotoh_batch_one_pair_and_two_an_sm(cuda_device, lone):
+    """One width class at a batch of 1 (a lone warp on the card, a 1024^2
+    pair) and of 2 x SMs (64 x 1000 pairs: the plain fill runs pair by
+    pair): one launch, final3 == plain."""
+    shapes = [(1024, 1024)] if lone else [(64, 1000)] * (2 * _sms(cuda_device))
+    args = _case(np.random.default_rng(len(shapes)), "ACGT", shapes)
+    want = fill_batch.batch_final3(*args)
+    before = fill_batch.batch_final3.launches
+    got = fill_batch.batch_final3(*_on(cuda_device, args))
+    torch.cuda.synchronize()
+    assert fill_batch.batch_final3.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("batch,lo,hi", [(1, 0, 32), (33, 0, 32), (132, 0, 32),
+                                         (5, 992, 1024)])
+@pytest.mark.parametrize("letters,kw", [
+    ("ACGT", {}), (PROTEIN, BLOSUM), (WIDE, WIDE_KW),
+])
+def test_batch_final3_dual_at_main_path_shapes(cuda_device, batch, lo, hi,
+                                               letters, kw):
+    """Two sets of ``batch`` pairs, rows lo..hi (short rows for many pairs,
+    a 1024 bucket's top rows for a few), 1 to 5000 columns: one launch a
+    width class (one gotoh_fill launch past the cap), == plain."""
+    rng = np.random.default_rng(batch + hi)
+    # The plain fill runs pair by pair: 5000 columns at a 1024 bucket's top
+    # rows or for 2 x 132 pairs took 4-5 s a scheme, and past the cap a
+    # dual call is one gotoh_fill launch at any N.
+    for n_cols in (1, 64, fill_batch.MAX_COLUMNS, 1025) + (
+            (5000,) * (batch <= 33 and hi <= 32)):
+        shapes = [(int(rng.integers(lo, hi + 1)), int(rng.integers(0, n_cols + 1)))
+                  for _ in range(2 * batch)]
+        shapes[0] = (hi, n_cols)
+        ta, tb, cost, gid, go, mt, nt = _case(rng, letters, shapes, **kw)
+        args = (ta.reshape(2, batch, -1), tb.reshape(2, batch, -1), cost, gid,
+                go, np.reshape(mt, (2, batch)), np.reshape(nt, (2, batch)))
+        want = fill_batch.batch_final3_dual(*args)
+
+        def counts():
+            return (fill_batch.batch_final3.launches
+                    + fill_cuda.batch_moves.launches
+                    + fill_tile.gotoh_tile.launches)
+
+        before = counts()
+        got = fill_batch.batch_final3_dual(
+            args[0].to(cuda_device), args[1].to(cuda_device),
+            cost.to(cuda_device), *args[3:])
+        torch.cuda.synchronize()
+        design = 1 if n_cols > fill_batch.MAX_COLUMNS else len(
+            {fill_batch.width_class(n) for n in nt})
+        assert counts() == before + design
+        assert torch.equal(got.cpu(), want), n_cols
+
+
+# -- the main paths, launch by launch ----------------------------------------
+#
+# Each main path at its users' sizes on the card, against device="cpu", the
+# single-pair path or the route it replaced, with every launch and copy it
+# makes counted (``launches``) and held to its design: the launch plan the
+# host rules give.  Every gotoh_fill launch is also tallied where it is
+# made (``fill_cuda._launch``) and held to its wrappers' counts.
+
+GOLDENS = [  # tests/test_conformance.py:19-31: seq_1, seq_2, the four
+    # scores, then the score and cost
+    ("TT", "TA", 3, -4, -5, -2, -1, 7),
+    ("TAAAGCTAA", "TAGCTC", 2, -3, -5, -2, -9, 24),
+    ("TGGATGAGGCTCCACGCACTAA", "GATTGGTGAGGCTCAGCAT", 2, -3, -5, -2, -15, 56),
+    ("CGGTCTTAGCATATGTTGGCATAC", "ATTAGCATCATAGTGGA", 2, -3, -5, -2, -21, 62),
+    ("CGGTCTTAGCATATGTTGGCATAC", "ATTAGCATCATAGTGGA", 4, -5, -3, -5, -20, 102),
+    ("GTAGGCGGTC", "CAGCTGC", 1, -2, -5, -2, -18, 28),
+    ("CTGTACCG", "CGGAACAGTCCGAT", 1, -2, -5, -2, -18, 26),
+    ("GGAGGACGTT", "GAG", 1, -2, -5, -2, -21, 31),
+    ("GGAGGACGTT", "GAG", "1", "-2", "-5", "-2", -21, 31),
+]
+SCHEMES = {"dna": ("ACGT", {}), "blosum62": (PROTEIN, BLOSUM)}
+
+
+def _counts() -> dict:
+    """Every launch and copy counter of the port, by name."""
+    wrappers = {
+        "batch_moves": fill_cuda.batch_moves,
+        "batch_last_rows": fill_cuda.batch_last_rows,
+        "strip_fill_block": fill_cuda.strip_fill_block,
+        "batch_moves_ragged": fill_cuda.batch_moves_ragged,
+        "batch_final3": fill_batch.batch_final3,
+        "batch_moves_warp": fill_batch.batch_moves_warp,
+        "gotoh_tile": fill_tile.gotoh_tile,
+        "wave_frontiers": fill_wave.wave_frontiers,
+        "walk_block": linear_tb.walk_block,
+        "walk_ragged": linear_tb.walk_ragged,
+        "tokenize_ragged": packed.tokenize_ragged,
+        "render_ragged": packed.render_ragged,
+    }
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out["letters_upload"] = packed.upload.copies
+    out["fetch"] = batch_mod._to_host.copies
+    out["wide_launches"] = fill_batch.batch_final3_ragged.wide_launches
+    out["wide_pairs"] = fill_batch.batch_final3_ragged.wide_pairs
+    return out
+
+
+@pytest.fixture
+def launches(cuda_device, monkeypatch):
+    """``launches()``: the counts of ``_counts`` that moved since the last
+    call, after a synchronise.  Each call also holds the gotoh_fill
+    launches made meanwhile (every call of ``fill_cuda._launch``) to the
+    counts of its three wrappers."""
+    made = []
+    real = fill_cuda._launch
+
+    def tallied(*args, **kw):
+        made.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fill_cuda, "_launch", tallied)
+    last = [_counts()]
+
+    def moved():
+        torch.cuda.synchronize()
+        now = _counts()
+        out = {k: now[k] - last[0][k] for k in now if now[k] != last[0][k]}
+        assert len(made) == sum(out.get(k, 0) for k in (
+            "batch_moves", "batch_last_rows", "strip_fill_block")), out
+        made.clear()
+        last[0] = now
+        return out
+
+    return moved
+
+
+def _design(dev, *fills, **counts) -> dict:
+    """A launch design: ``counts`` plus one launch a non-strip fill
+    ``(batch, m, n, with codes, its gotoh_fill wrapper)``, counted on
+    gotoh_tile where ``fill_tile.route`` sends it; names of no launch left
+    out."""
+    out = collections.Counter(counts)
+    for batch, m, n, moves, wrapper in fills:
+        out["gotoh_tile" if fill_tile.route(batch, m, n, moves, _sms(dev))
+            else wrapper] += 1
+    return {k: v for k, v in out.items() if v}
+
+
+def _cost_fill(m, n):
+    """cost()'s one fill: the split's 2-pair last rows from SPLIT_MIN_ROWS
+    rows of seq_1, the direct cost-only fill below."""
+    if m >= SPLIT_MIN_ROWS:
+        return (2, m - m // 2, n, False, "batch_last_rows")
+    return (1, m, n, False, "batch_moves")
+
+
+def _blocked_fills(m, n, budget=DEFAULT_MOVES_BUDGET_BYTES):
+    """The replay fills of a blocked align: one a block, with codes."""
+    bounds = linear_tb.block_bounds(m, n, block_moves_bytes=budget)
+    return [(1, i1 - i0, n, True, "batch_moves")
+            for i0, i1 in zip(bounds, bounds[1:])]
+
+
+def _fields(r):
+    return (r.cost, r.score, r.seq_1_aligned, r.middle_part, r.seq_2_aligned)
+
+
+@functools.cache
+def _chunk(letters: str, count: int = 1024, lo: int = 819, hi: int = 1024):
+    """The runner's default chunk (seeded): ``count`` pairs, each length
+    drawn from [lo, hi] on its own, seq_2 a relative of seq_1 cut or
+    extended to its length."""
+    rng = np.random.default_rng(count + lo + len(letters))
+    pairs = []
+    for _ in range(count):
+        m, n = (int(x) for x in rng.integers(lo, hi + 1, 2))
+        s1 = _seq(rng, letters, m)
+        s2 = _relative(rng, s1, letters) + _seq(rng, letters, max(0, n - m))
+        pairs.append((s1, s2[:n]))
+    return tuple(pairs)
+
+
+@functools.cache
+def _long_pair(size: int, letters: str):
+    rng = np.random.default_rng(size + len(letters))
+    s1 = _seq(rng, letters, size)
+    return s1, _relative(rng, s1, letters)
+
+
+def _unicode_kw(tmp_path):
+    mtx = tmp_path / "unicode.mtx"
+    mtx.write_text(UNICODE_MTX, encoding="utf-8")
+    return dict(scoring_mat_path=mtx)
+
+
+def _single_runs(name, tmp_path):
+    """(find_global_alignment's arguments, the golden (score, cost) or
+    None) a pair."""
+    if name == "goldens":
+        return [(dict(seq_1="ACGT", seq_2="AGT"), (0, 7))] + [
+            (dict(seq_1=a, seq_2=b, match_score=ma, mismatch_score=mi,
+                  gap_open_score=go, gap_extension_score=ge), (score, cost))
+            for a, b, ma, mi, go, ge, score, cost in GOLDENS]
+    rng = np.random.default_rng(len(name))
+    if name == "non-ASCII":
+        kw = _unicode_kw(tmp_path)
+        return [(dict(seq_1=_seq(rng, "ΩЖ字A", m), seq_2=_seq(rng, "ΩЖ字A", n),
+                      **kw), None)
+                for m, n in ((300, 280), (1, 9), (700, 650), (64, 1), (90, 95))]
+    size, letters, kw = {"4096^2 DNA": (4096, "ACGT", {}),
+                         "8000^2 DNA": (8000, "ACGT", {}),
+                         "1500^2 BLOSUM62": (1500, PROTEIN, BLOSUM)}[name]
+    s1 = _seq(rng, letters, size)
+    return [(dict(seq_1=s1, seq_2=_relative(rng, s1, letters), **kw), None)]
+
+
+@pytest.mark.parametrize("name", ["goldens", "4096^2 DNA", "8000^2 DNA",
+                                  "1500^2 BLOSUM62", "non-ASCII"])
+def test_single_pair_main_path(cuda_device, launches, monkeypatch, tmp_path,
+                               name):
+    """``find_global_alignment`` on the card == device="cpu" (strings,
+    cost, score, report; the goldens' score and cost), one fill (routed)
+    and one walk a pair; ``cost()`` one launch, == the direct fill == the
+    alignment's cost.  At 8000^2 and 1500^2 BLOSUM62 the card's walk ==
+    the host walk (``traceback_moves``) over the fetched codes, and the
+    align == the same align on gotoh_fill.  Under the non-ASCII matrix,
+    ``align_pairs`` in both modes == device="cpu" too."""
+    from globalign_tpu_torch.ops.traceback import traceback_moves
+
+    runs = _single_runs(name, tmp_path)
+    want = [find_global_alignment(**kw, device="cpu") for kw, _ in runs]
+    launches()
+    got = [find_global_alignment(**kw, device="cuda") for kw, _ in runs]
+    assert launches() == _design(
+        cuda_device, *[(1, len(kw["seq_1"]), len(kw["seq_2"]), True,
+                        "batch_moves") for kw, _ in runs],
+        walk_block=len(runs))
+    for (kw, golden), r, w in zip(runs, got, want):
+        assert r == w and str(r) == str(w)
+        if golden is not None:
+            assert (r.score, r.cost) == golden
+        s1, s2 = kw["seq_1"], kw["seq_2"]
+        aligner = GotohAligner(validate_and_transform_args(**kw).scheme,
+                               device="cuda")
+        launches()
+        cost = aligner.cost(s1, s2)
+        assert launches() == _design(cuda_device, _cost_fill(len(s1), len(s2)))
+        direct, _ = aligner._batch_fill(s1, s2, want_moves=False)
+        assert cost == int(direct.min()) == r.cost
+        if name in ("8000^2 DNA", "1500^2 BLOSUM62"):
+            final3, moves = aligner._batch_fill(s1, s2, want_moves=True)
+            assert (r.seq_1_aligned, r.middle_part, r.seq_2_aligned,
+                    r.cost) == tuple(traceback_moves(
+                        moves[0].cpu().numpy(), s1, s2, final3[0].cpu().numpy()))
+            with monkeypatch.context() as patch:
+                _no_tile(patch)
+                on_fill = find_global_alignment(**kw, device="cuda")
+            assert on_fill == r and str(on_fill) == str(r)
+    if name == "non-ASCII":
+        pairs = [(kw["seq_1"], kw["seq_2"]) for kw, _ in runs]
+        mtx = runs[0][0]["scoring_mat_path"]
+        for with_traceback in (False, True):
+            assert align_pairs(pairs, scoring_mat_path=mtx,
+                               with_traceback=with_traceback) == align_pairs(
+                pairs, scoring_mat_path=mtx, with_traceback=with_traceback,
+                device="cpu")
+
+
+@pytest.mark.parametrize("size,letters,kw", [
+    (10_000, "ACGT", {}), (20_000, "ACGT", {}), (9000, PROTEIN, BLOSUM),
+])
+def test_blocked_align_equals_the_full_matrix_route(cuda_device, launches,
+                                                    monkeypatch, size, letters,
+                                                    kw):
+    """Past the 64 MiB moves budget: one checkpoint launch, and a replay
+    fill (routed) and a walk a block; strings, cost, score and report
+    bytes == the same call with the budget raised (the full-matrix route);
+    ``cost()`` == its cost, in one launch."""
+    from globalign_tpu_torch import api
+
+    s1, s2 = _long_pair(size, letters)
+    call = dict(seq_1=s1, seq_2=s2, **kw)
+    fills = _blocked_fills(len(s1), len(s2))
+    launches()
+    got = find_global_alignment(**call, device="cuda")
+    assert launches() == _design(cuda_device, *fills, gotoh_tile=1,
+                                 walk_block=len(fills))
+    with monkeypatch.context() as patch:
+        patch.setattr(api, "GotohAligner", functools.partial(
+            GotohAligner, moves_budget_bytes=1 << 40))
+        full = find_global_alignment(**call, device="cuda")
+    assert got == full and str(got) == str(full)
+    aligner = GotohAligner(validate_and_transform_args(**call).scheme,
+                           device="cuda")
+    launches()
+    assert aligner.cost(s1, s2) == got.cost
+    assert launches() == _design(cuda_device, _cost_fill(len(s1), len(s2)))
+
+
+LETTERS_DESIGN = dict(letters_upload=1, tokenize_ragged=1, fetch=1)
+
+
+@pytest.mark.parametrize("with_traceback", [False, True])
+@pytest.mark.parametrize("name", sorted(SCHEMES))
+def test_align_pairs_on_a_chunk(cuda_device, launches, name, with_traceback):
+    """``align_pairs`` on the runner's 1024-pair chunk (819-1024 letters):
+    cost-only one gotoh_batch launch a width class, traceback one
+    gotoh_batch_moves launch a width class, one walk and one render, each
+    call one letters upload, one tokenize and one fetch; every fourth pair
+    == the single-pair path on the card, every 64th (16 pairs across 14 of
+    the chunk's 49 buckets) == device="cpu"."""
+    letters, kw = SCHEMES[name]
+    pairs = list(_chunk(letters))
+    scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
+    classes = {fill_batch.width_class(len(b)) for _, b in pairs}
+    launches()
+    got = align_pairs(pairs, scheme=scheme, with_traceback=with_traceback)
+    assert launches() == (
+        dict(batch_moves_warp=len(classes), walk_ragged=1, render_ragged=1,
+             **LETTERS_DESIGN) if with_traceback
+        else dict(batch_final3=len(classes), **LETTERS_DESIGN))
+    aligner = GotohAligner(scheme, device="cuda")
+    for (s1, s2), r in list(zip(pairs, got))[::4]:
+        if with_traceback:
+            assert _fields(r) == _fields(aligner.align(s1, s2))
+        else:
+            cost = aligner.cost(s1, s2)
+            assert _fields(r) == (cost, final_cost_to_score(
+                cost=cost, m=len(s1), n=len(s2), max_score=scheme.max_score),
+                None, None, None)
+    cpu = align_pairs(pairs[::64], scheme=scheme, with_traceback=with_traceback,
+                      device="cpu")
+    assert cpu == got[::64]
+
+
+def _segments_of(pairs, budget, capacity):
+    """align_pairs' traceback segments by its rule, as (m, n) lists: buckets
+    in order of first appearance, each one's pairs in input order, a
+    segment closed where its codes (``fill_cuda.ragged_bytes`` a pair)
+    would pass ``capacity``; a bucket whose padded pair passes ``budget``
+    goes blocked and joins none."""
+    keys = {}
+    for a, b in pairs:
+        keys.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                        []).append((len(a), len(b)))
+    segs, used = [[]], 0
+    for key, shapes in keys.items():
+        if fill_cuda.ragged_bytes(*key) > budget:
+            continue
+        for m, n in shapes:
+            if used + fill_cuda.ragged_bytes(m, n) > capacity:
+                segs.append([])
+                used = 0
+            segs[-1].append((m, n))
+            used += fill_cuda.ragged_bytes(m, n)
+    return [seg for seg in segs if seg]
+
+
+@pytest.mark.parametrize("name", ["lowered budget", "both routes",
+                                  "protein tail", "flush=False"])
+def test_align_pairs_routes(cuda_device, launches, monkeypatch, name):
+    """A lowered moves budget and segment capacity (three or more segments
+    and a blocked pair); a traceback call on both sides of 1024 columns
+    (both fill routes, one walk); a cost-only BLOSUM62 call of the protein
+    mix's lengths, its pairs past 1024 columns in one gotoh_tile launch;
+    ``flush=False`` (the render queued, nothing fetched before
+    ``resolve()``).  Each == device="cpu" or the single-pair path."""
+    rng = np.random.default_rng(len(name))
+    dna = len(resolve_scheme("ACGT", "ACGT").costing.values)
+    if name == "lowered budget":
+        pairs = list(_chunk("ACGT", 12, 290, 300))
+        s1 = _seq(rng, "ACGT", 1200)
+        pairs.insert(5, (s1, _relative(rng, s1, "ACGT")[:1100]))
+        want = align_pairs(pairs)
+        budget = 400_000
+        with monkeypatch.context() as patch:
+            patch.setattr(batch_mod, "DEVICE_WALK_MOVES_BUDGET", budget)
+            patch.setattr(batch_mod, "_segment_budget", lambda device: budget)
+            launches()
+            got = align_pairs(pairs)
+            moved = launches()
+        segs = _segments_of(pairs, budget, budget)
+        routes = [fill_cuda.ragged_routes(*zip(*seg), dna, _sms(cuda_device))
+                  for seg in segs]
+        assert len(segs) >= 3
+        assert moved == _design(
+            cuda_device, *_blocked_fills(1200, 1100), gotoh_tile=1, walk_block=1,
+            batch_moves_warp=sum(len(w) for w, _ in routes),
+            batch_moves_ragged=sum(len(c) for _, c in routes),
+            walk_ragged=len(segs), render_ragged=len(segs), **LETTERS_DESIGN)
+        assert got == want == align_pairs(pairs, device="cpu")
+    elif name == "both routes":
+        pairs = list(_chunk("ACGT", 12, 290, 1000))
+        for k, size in ((2, 1100), (7, 2300), (9, 1500)):
+            s1 = _seq(rng, "ACGT", size)
+            pairs.insert(k, (s1, _relative(rng, s1, "ACGT")))
+        launches()
+        got = align_pairs(pairs)
+        moved = launches()
+        warp, classes = fill_cuda.ragged_routes(
+            [len(a) for a, _ in pairs], [len(b) for _, b in pairs], dna,
+            _sms(cuda_device))
+        assert warp and classes
+        assert moved == dict(batch_moves_warp=len(warp),
+                             batch_moves_ragged=len(classes), walk_ragged=1,
+                             render_ragged=1, **LETTERS_DESIGN)
+        aligner = GotohAligner(resolve_scheme("ACGT", "ACGT"), device="cuda")
+        assert [_fields(r) for r in got] == [
+            _fields(aligner.align(a, b)) for a, b in pairs]
+        assert got == align_pairs(pairs, device="cpu")
+    elif name == "protein tail":
+        lengths = np.clip(np.round(300 * np.exp(0.6 * rng.standard_normal(256))),
+                          30, 4000).astype(int).tolist()
+        pairs = []
+        for size in lengths + [1100, 2600, 3900]:
+            s1 = _seq(rng, PROTEIN, size)
+            pairs.append((s1, _relative(rng, s1, PROTEIN)))
+        scheme = resolve_scheme(PROTEIN, PROTEIN, **BLOSUM)
+        buckets = {}
+        for a, b in pairs:
+            key = (bucket_length(len(a)), bucket_length(len(b)))
+            buckets.setdefault(key, ([], []))
+            buckets[key][0].append(len(a))
+            buckets[key][1].append(len(b))
+        wide = [v for (_, n_cols), v in buckets.items()
+                if n_cols > fill_batch.MAX_COLUMNS]
+        assert fill_tile.route_buckets(wide, _sms(cuda_device)) == list(
+            range(len(wide)))
+        narrow = {fill_batch.width_class(len(b)) for _, b in pairs
+                  if bucket_length(len(b)) <= fill_batch.MAX_COLUMNS}
+        launches()
+        got = align_pairs(pairs, scheme=scheme, with_traceback=False)
+        assert launches() == dict(
+            batch_final3=len(narrow), gotoh_tile=1, wide_launches=1,
+            wide_pairs=sum(len(m) for m, _ in wide), **LETTERS_DESIGN)
+        aligner = GotohAligner(scheme, device="cuda")
+        assert [r.cost for r in got] == [aligner.cost(a, b) for a, b in pairs]
+        some = pairs[:29] + pairs[-3:]  # the CPU's time: 32 pairs, the widest
+        assert got[:29] + got[-3:] == align_pairs(
+            some, scheme=scheme, with_traceback=False, device="cpu")
+    else:
+        pairs = list(_chunk("ACGT"))
+        want = align_pairs(pairs)
+        launches()
+        pending = align_pairs(pairs, flush=False)
+        moved = launches()
+        assert "fetch" not in moved and (
+            moved["render_ragged"], moved["tokenize_ragged"],
+            moved["letters_upload"]) == (1, 1, 1)
+        assert pending.resolve() == want
+
+
+def _pack_of(dev, pairs, scheme):
+    """align_pairs' pack of ``pairs`` on the card, uploaded and tokenized:
+    (the packed call, the pairs in pack order)."""
+    keys = {}
+    for k, (a, b) in enumerate(pairs):
+        keys.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                        []).append(k)
+    spec = [([pairs[i][0] for i in idx], [pairs[i][1] for i in idx], m, n)
+            for (m, n), idx in keys.items()]
+    call = packed.pack_call(scheme.alphabet, spec, with_render=True, pin=True)
+    call.upload(dev)
+    call.tokenize()
+    return call, [pairs[i] for idx in keys.values() for i in idx]
+
+
+def _fill_args(dev, call, order, scheme):
+    """The fill arguments of a packed call's buckets, as align_pairs passes
+    them: (tok_a list, tok_b list, cost, gap_id, gap_open, m lists, n lists)."""
+    cost = torch.from_numpy(np.ascontiguousarray(
+        scheme.costing.values, dtype=np.int32)).to(dev)
+    tas, tbs, mts, nts, row = [], [], [], [], 0
+    for k, (_, _, nb, _, _) in enumerate(call.slots):
+        ta, tb = call.bucket(k)
+        tas.append(ta)
+        tbs.append(tb)
+        mts.append([len(a) for a, _ in order[row : row + nb]])
+        nts.append([len(b) for _, b in order[row : row + nb]])
+        row += nb
+    return tas, tbs, cost, scheme.alphabet.gap_id, scheme.gap_open_cost, mts, nts
+
+
+def _walked(dev, call, order, scheme):
+    """The call's one traceback segment: (ops, count, j_exit) of its ragged
+    fill and walk over the arena's buckets."""
+    return linear_tb.walk_ragged(fill_cuda.batch_moves_ragged(
+        *_fill_args(dev, call, order, scheme)))
+
+
+def _tokens_equal(dev, call, shift=0):
+    """tokenize_ragged into an arena of its own, its rows ``shift`` tokens
+    in, == tokenize_plain (run on the card on the same tensors)."""
+    want = packed.tokenize_plain(call.letters, call.table, call.token_desc,
+                                 torch.zeros_like(call.arena))
+    desc = call.token_desc.clone()
+    desc[:, 2] += shift
+    arena = torch.zeros(shift + call.arena_size, dtype=torch.int32, device=dev)
+    packed.tokenize_ragged(call.letters, call.table, desc, arena)
+    return torch.equal(arena[shift:], want)
+
+
+def _render_equal(dev, call, walk, base=0):
+    """render_ragged into a lines buffer of its own from letter ``base`` on
+    == render_plain (on the card, same tensors), lines and ends."""
+    ops, count, j_exit = walk
+    lens = count.long() + j_exit.long()
+    total = int(lens.sum())
+    want = torch.zeros_like(call.lines())
+    packed.render_plain(ops, count, j_exit, torch.cumsum(lens, 0) - lens,
+                        call.letters, call.render_desc, want)
+    got = torch.zeros((3, base + call.line_cap), dtype=want.dtype, device=dev)
+    ends = packed.render_ragged(
+        ops, count, j_exit, call.letters, call.render_desc, got,
+        torch.tensor([base], dtype=torch.int64, device=dev))
+    return torch.equal(got[:, base : base + total], want[:, :total]) and (
+        torch.equal(ends.long() - base, torch.cumsum(lens, 0)))
+
+
+@pytest.mark.parametrize("name", ["dna", "blosum62", "non-ASCII"])
+def test_letters_kernels_on_a_chunk(cuda_device, tmp_path, name):
+    """tokenize_ragged and render_ragged on a 1024-pair chunk packed as
+    align_pairs packs it, its segment rendered from its own fill and walk:
+    == the plain versions, and the lines == the numpy route's strings
+    (the tapes fetched, ``linear_tb.render_many``)."""
+    letters, kw = (("ΩЖ字A", _unicode_kw(tmp_path)) if name == "non-ASCII"
+                   else SCHEMES[name])
+    pairs = list(_chunk(letters))
+    scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
+    call, order = _pack_of(cuda_device, pairs, scheme)
+    assert _tokens_equal(cuda_device, call)
+    walk = _walked(cuda_device, call, order, scheme)
+    assert _render_equal(cuda_device, call, walk)
+    lines = call.lines()
+    ends = packed.render_ragged(*walk, call.letters, call.render_desc, lines)
+    host_lines, host_ends = batch_mod._to_host([lines, ends])
+    tapes, counts, j_exits = (x.cpu().numpy() for x in walk)
+    forward = [np.concatenate((np.full(j_exits[k], linear_tb.OP_LEFT, np.uint8),
+                               tapes[k, : counts[k]][::-1]))
+               for k in range(len(order))]
+    assert packed.decode_lines(host_lines, host_ends, call.wide) == (
+        linear_tb.render_many(forward, [a for a, _ in order],
+                              [b for _, b in order]))
+
+
+@pytest.mark.parametrize("buffer", ["codes", "tokens", "lines"])
+def test_offsets_past_byte_2_31(cuda_device, buffer):
+    """int64 offsets end to end: a ragged fill's pair placed past byte 2^31
+    of a 2.2 GB codes buffer (fill and walk == plain, one
+    gotoh_batch_moves launch); a chunk's token rows past byte 2^31 of a
+    2.2 GB arena; its lines past byte 2^31 of a 3.2 GB lines buffer."""
+    if buffer == "codes":
+        args = _ragged_args([_case(np.random.default_rng(31), "ACGT",
+                                   [(700, 650), (1000, 1000)])])
+        place = dict(offsets=[16, 2**31 + 4096], nbytes=2_200_000_000)
+        want = fill_cuda.batch_moves_ragged(*args, **place)
+        before = fill_batch.batch_moves_warp.launches
+        got = fill_cuda.batch_moves_ragged(*_ragged_on(cuda_device, args), **place)
+        walk = linear_tb.walk_ragged(got)
+        torch.cuda.synchronize()
+        assert fill_batch.batch_moves_warp.launches == before + 1
+        assert int(got.layout[:, 4].max()) > 2**31
+        _assert_ragged_equal(got, want)
+        for g, w in zip(walk, linear_tb.walk_ragged(want)):
+            assert torch.equal(g.cpu(), w)
+        return
+    pairs = list(_chunk("ACGT"))
+    scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)))
+    call, order = _pack_of(cuda_device, pairs, scheme)
+    if buffer == "tokens":
+        assert _tokens_equal(cuda_device, call, shift=(1 << 29) + 64)
+    else:
+        assert _render_equal(cuda_device, call,
+                             _walked(cuda_device, call, order, scheme),
+                             base=(1 << 30) + 4096)
+
+
+def test_batch_cli_on_the_card(cuda_device, tmp_path):
+    """The batch CLI with traceback and CIGARs: ``--device cuda`` ==
+    ``--device cpu`` (the results TSV byte for byte, the manifest
+    fingerprints); ``--shard`` (an NCCL world of one) and, over 2 gloo
+    processes on the card, ``--distributed`` with and without ``--shard``
+    merge to the same TSV.  All seven processes run at once."""
+    pairs = _chunk("ACGT", 128, 50, 300)
+    tsv = tmp_path / "pairs.tsv"
+    tsv.write_text("".join(f"{a}\t{b}\n" for a, b in pairs))
+    base = [sys.executable, "-m", "globalign_tpu_torch.batch_cli",
+            "--pairs_tsv", str(tsv), "--with_traceback", "--cigar"]
+    runs = [("cuda", base + ["-o", str(tmp_path / "cuda.tsv"), "--device", "cuda"]),
+            ("cpu", base + ["-o", str(tmp_path / "cpu.tsv"), "--device", "cpu"]),
+            ("shard", base + ["-o", str(tmp_path / "shard.tsv"), "--shard"])]
+    for k, extra in enumerate(([], ["--shard"])):
+        runs += [(f"dist{k}", base + [
+            "-o", str(tmp_path / f"dist{k}.tsv"), "--distributed", "--backend",
+            "gloo", "--coordinator_address", f"file://{tmp_path / f'store{k}'}",
+            "--num_processes", "2", "--process_id", str(rank), "--chunk_pairs",
+            "32", *extra]) for rank in range(2)]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = [(name, subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE))
+             for name, cmd in runs]
+    try:
+        errors = [proc.communicate(timeout=600)[1] for _, proc in procs]
+    finally:
+        for _, proc in procs:
+            proc.kill()
+    for (name, proc), err in zip(procs, errors):
+        assert proc.returncode == 0, f"{name}: {err[-3000:]}"
+    card = (tmp_path / "cuda.tsv").read_bytes()
+    assert len(card.splitlines()) == len(pairs)
+    assert card == (tmp_path / "cpu.tsv").read_bytes()
+    prints = [{json.loads(line)["fingerprint"] for line in (
+        tmp_path / f"{device}.tsv.manifest.jsonl").read_text().splitlines()}
+        for device in ("cuda", "cpu")]
+    assert prints[0] == prints[1]
+    assert (tmp_path / "shard.tsv").read_bytes() == card
+    for k in range(2):
+        rows = [line for part in sorted(tmp_path.glob(f"dist{k}.tsv*"))
+                if not part.name.endswith(".jsonl")
+                for line in part.read_text().splitlines(keepends=True)]
+        merged = sorted(rows, key=lambda line: int(line.split("\t")[0]))
+        assert "".join(merged).encode() == card
+
+
+@pytest.mark.parametrize("with_traceback", [False, True])
+@pytest.mark.parametrize("name", sorted(SCHEMES))
+def test_world_of_one_on_a_chunk(cuda_device, world_of_one, launches, name,
+                                 with_traceback):
+    """``align_pairs(mesh=)`` over an NCCL world of one on the 1024-pair
+    chunk == the unsharded call, pair by pair; the mesh path keeps a
+    launch a bucket shard (cost-only a gotoh_batch launch, traceback a
+    moves fill and a walk_block launch) and one fetch."""
+    letters, kw = SCHEMES[name]
+    pairs = list(_chunk(letters))
+    scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)), **kw)
+    want = align_pairs(pairs, scheme=scheme, with_traceback=with_traceback)
+    launches()
+    got = align_pairs(pairs, scheme=scheme, with_traceback=with_traceback,
+                      mesh=world_of_one)
+    moved = launches()
+    buckets = {}
+    for a, b in pairs:
+        buckets.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                           []).append((len(a), len(b)))
+    if with_traceback:
+        fills = []
+        for key, shapes in buckets.items():
+            per = batch_mod.DEVICE_WALK_MOVES_BUDGET // fill_cuda.ragged_bytes(*key)
+            for lo in range(0, len(shapes), per):
+                group = shapes[lo : lo + per]
+                fills.append((len(group), max(m for m, _ in group),
+                              max(n for _, n in group), True, "batch_moves"))
+        assert moved == _design(cuda_device, *fills, walk_block=len(fills),
+                                fetch=1)
+    else:
+        assert moved == dict(batch_final3=len(buckets), fetch=1)
+    assert [_fields(r) for r in got] == [_fields(r) for r in want]
+
+
+LONG_COSTS = [(50_000, "ACGT", {}), (20_000, PROTEIN, BLOSUM)]
+
+
+def _pair_cost_args(size, letters, kw):
+    s1, s2 = _long_pair(size, letters)
+    aligner = GotohAligner(resolve_scheme(s1, s2, **kw), device="cuda")
+    return aligner, (aligner._encode(s1), aligner._encode(s2), aligner.cost_mat,
+                     aligner.gap_id, aligner.gap_open)
+
+
+@pytest.mark.parametrize("size,letters,kw", LONG_COSTS)
+def test_world_of_one_pair_cost_at_long_pair_sizes(world_of_one, launches,
+                                                   size, letters, kw):
+    """``sharded_pair_cost`` on an NCCL world of one: a strip-mode launch a
+    block, the cost == ``cost()`` (the split)."""
+    from globalign_tpu_torch.parallel import seqpar
+
+    aligner, enc = _pair_cost_args(size, letters, kw)
+    launches()
+    final3 = seqpar.sharded_pair_cost(world_of_one, *enc)
+    assert launches() == dict(
+        strip_fill_block=-(-size // seqpar.DEFAULT_BLOCK_ROWS))
+    assert int(final3.min()) == aligner.cost(*_long_pair(size, letters))
+
+
+def test_four_gloo_ranks_share_the_card(world_of_one, tmp_path):
+    """Four gloo ranks on one card (their exchanges staged through host
+    memory), every rank: ``sharded_pair_cost`` on the 50 000^2 DNA and
+    20 000^2 BLOSUM62 pairs == the NCCL world of one's lanes, a strip
+    launch a block; ``align_blocked(mesh=)`` at 20 000^2 == the unsharded
+    blocked path (strings, cost, score, report bytes), a strip launch a
+    block of its checkpoint pass's pipeline; ``align_pairs(mesh=)`` on the
+    DNA chunk, both modes, == the unsharded call."""
+    from globalign_tpu_torch.parallel import seqpar
+    from tests.torch_dist_harness import run_ranks, strip_launches
+
+    cases, want = [], []
+    for size, letters, kw in LONG_COSTS:
+        _, enc = _pair_cost_args(size, letters, kw)
+        cases.append(dict(
+            kind="pair_cost", device="cuda", tok_a=enc[0].tolist(),
+            tok_b=enc[1].tolist(), cost=enc[2].tolist(), gap_id=enc[3],
+            gap_open=enc[4], block_rows=seqpar.DEFAULT_BLOCK_ROWS))
+        want.append((seqpar.sharded_pair_cost(world_of_one, *enc).tolist(),
+                     -(-size // seqpar.DEFAULT_BLOCK_ROWS)))
+    s1, s2 = _long_pair(20_000, "ACGT")
+    blocked = find_global_alignment(seq_1=s1, seq_2=s2, device="cuda")
+    bounds = linear_tb.block_bounds(len(s1), len(s2))
+    want.append((blocked, sum(-(-(hi - lo) // min(seqpar.DEFAULT_BLOCK_ROWS,
+                                                  hi - lo))
+                              for lo, hi in zip(bounds, bounds[1:]))))
+    cases.append(dict(kind="align_blocked", device="cuda", s1=s1, s2=s2))
+    pairs = list(_chunk("ACGT"))
+    for with_traceback in (False, True):
+        cases.append(dict(kind="align_pairs", device="cuda", pairs=pairs,
+                          traceback=with_traceback))
+        want.append(([list(_fields(r)) for r in align_pairs(
+            pairs, with_traceback=with_traceback)], 0))
+    max_score = resolve_scheme(s1, s2).max_score
+    for answers, strips in zip(run_ranks(tmp_path, 4, cases, timeout=900),
+                               strip_launches(tmp_path, 4)):
+        cost, s1a, mid, s2a = answers[2]
+        answers[2] = blocked._replace(
+            seq_1_aligned=s1a, middle_part=mid, seq_2_aligned=s2a, cost=cost,
+            score=final_cost_to_score(cost=cost, m=len(s1), n=len(s2),
+                                      max_score=max_score))
+        assert answers == [w for w, _ in want]
+        assert str(answers[2]) == str(blocked)
+        assert strips == [k for _, k in want]
+
+
+@pytest.mark.parametrize("size", [10_000, 50_000])
+def test_wave_split_cost_at_long_pair_sizes(cuda_device, launches, size):
+    """``wave_split_fill_cost`` (TPU kernel #9's entry point): one launch,
+    == ``cost()`` (the row split) and, at 10 000^2, the direct fill."""
+    s1, s2 = _long_pair(size, "ACGT")
+    aligner = GotohAligner(resolve_scheme(s1, s2), device="cuda")
+    prm = fill_wave.uniform_scheme_params(aligner.scheme.costing.values,
+                                          aligner.gap_id)
+    launches()
+    cost = int(fill_wave.wave_split_fill_cost(
+        aligner._encode(s1), aligner._encode(s2), *prm, aligner.gap_open,
+        len(s1), len(s2)))
+    assert launches() == dict(wave_frontiers=1)
+    assert cost == aligner.cost(s1, s2)
+    if size <= 10_000:
+        direct, _ = aligner._batch_fill(s1, s2, want_moves=False)
+        assert cost == int(direct.min())
+
+
+def test_batch_final3_dual_on_a_chunks_widest_buckets(cuda_device, launches):
+    """``batch_final3_dual`` (TPU kernel #11's entry point) on the DNA
+    chunk's two widest buckets, a set each: one launch, every pair's cost
+    == ``align_pairs``'."""
+    from globalign_tpu_torch.utils.tokenize import encode_padded
+
+    pairs = list(_chunk("ACGT"))
+    scheme = resolve_scheme(*("".join(s) for s in zip(*pairs)))
+    groups = {}
+    for k, (a, b) in enumerate(pairs):
+        groups.setdefault((bucket_length(len(a)), bucket_length(len(b))),
+                          []).append(k)
+    widest = sorted(groups, key=lambda key: (key[1], key[0]))[-2:]
+    per_set = min(len(groups[key]) for key in widest)
+    ids = [groups[key][:per_set] for key in widest]
+    rows, cols = (max(key[side] for key in widest) for side in (0, 1))
+
+    def tokens(side, width):
+        return torch.from_numpy(np.stack([
+            [encode_padded(scheme.alphabet, pairs[k][side], width) for k in i]
+            for i in ids])).to(cuda_device)
+
+    cost = torch.from_numpy(np.ascontiguousarray(scheme.costing.values,
+                                                 dtype=np.int32))
+    launches()
+    final3 = fill_batch.batch_final3_dual(
+        tokens(0, rows), tokens(1, cols), cost.to(cuda_device),
+        scheme.alphabet.gap_id, scheme.gap_open_cost,
+        [[len(pairs[k][0]) for k in i] for i in ids],
+        [[len(pairs[k][1]) for k in i] for i in ids])
+    assert launches() == dict(batch_final3=1)
+    costs = align_pairs(pairs, scheme=scheme, with_traceback=False)
+    assert final3.min(-1).values.tolist() == [[costs[k].cost for k in i]
+                                              for i in ids]
+
+
+def test_compat_on_the_card(cuda_device, launches, tmp_path):
+    """``globalign_tpu_torch.compat`` called as code written against the
+    reference calls it, with no device argument (so the card): the
+    goldens, and a 4472^2 DNA and a 4472 x 4471 BLOSUM62 pair at the
+    reference's input limit, == device="cpu" (one fill and one walk a
+    pair; == ``cost()``); ``start``'s refusal at 4473 x 4472 beside
+    ``find_global_alignment`` running it; ``globaligner.main``'s report
+    bytes == the port's CLI on the CPU; ``dp_compat``'s interpreted 200^2
+    fill == the card's cost."""
+    from globalign_tpu_torch import cli as torch_cli
+    from globalign_tpu_torch import compat
+
+    def one_align(m, n):  # one fill and one walk
+        return _design(cuda_device, (1, m, n, True, "batch_moves"), walk_block=1)
+
+    goldens = _single_runs("goldens", tmp_path)
+    want = [find_global_alignment(**kw, device="cpu") for kw, _ in goldens]
+    launches()
+    got = [compat.globaligner.find_global_alignment(**kw) for kw, _ in goldens]
+    assert launches() == _design(cuda_device, *[
+        (1, len(kw["seq_1"]), len(kw["seq_2"]), True, "batch_moves")
+        for kw, _ in goldens], walk_block=len(goldens))
+    assert got == want and [str(r) for r in got] == [str(w) for w in want]
+    assert [(r.score, r.cost) for r in got] == [g for _, g in goldens]
+    rng = np.random.default_rng(9)
+    s1 = _seq(rng, "ACGT", 4472)
+    limit = [dict(seq_1=s1, seq_2=_relative(rng, s1, "ACGT"))]
+    s1 = _seq(rng, PROTEIN, 4472)
+    limit.append(dict(seq_1=s1, seq_2=_relative(rng, s1, PROTEIN)[:4471], **BLOSUM))
+    for kw in limit:
+        want_r = find_global_alignment(**kw, device="cpu")
+        launches()
+        r = compat.globaligner.find_global_alignment(**kw)
+        assert launches() == one_align(len(kw["seq_1"]), len(kw["seq_2"]))
+        aligner = GotohAligner(validate_and_transform_args(**kw).scheme,
+                               device="cuda")
+        assert r == want_r and str(r) == str(want_r)
+        assert r.cost == aligner.cost(kw["seq_1"], kw["seq_2"])
+    s1 = _seq(rng, "ACGT", 4473)
+    past = dict(seq_1=s1, seq_2=_relative(rng, s1, "ACGT")[:4472])
+    with pytest.raises(RuntimeError, match="too long"):
+        compat.start.validate_and_transform_args(**past)
+    compat.start.validate_and_transform_args(**limit[0])
+    launches()
+    r = compat.find_global_alignment(**past)
+    assert launches() == one_align(4473, 4472)
+    assert r.cost == GotohAligner(validate_and_transform_args(**past).scheme,
+                                  device="cuda").cost(past["seq_1"], past["seq_2"])
+    s1 = _seq(rng, PROTEIN, 1500)
+    fasta = tmp_path / "pair.fasta"
+    fasta.write_text(f">a\n{s1}\n>b\n{_relative(rng, s1, PROTEIN)[:1400]}\n")
+    argv = ["-i", str(fasta), "--scoring_mat_name", "BLOSUM62"]
+    torch_cli.main(argv + ["--device", "cpu", "-o", str(tmp_path / "cpu.txt")])
+    launches()
+    compat.globaligner.main(argv + ["-o", str(tmp_path / "card.txt")])
+    assert launches() == one_align(1500, 1400)
+    assert (tmp_path / "card.txt").read_bytes() == (tmp_path / "cpu.txt").read_bytes()
+    s1 = _seq(rng, "ACGT", 200)
+    s2 = _relative(rng, s1, "ACGT")
+    r = compat.find_global_alignment(seq_1=s1, seq_2=s2)
+    costing, go = r.costing_mat, r.gap_open_cost
+    dp = compat.globaligner.make_dp_array(s1, s2, costing,
+                                          compat.start.get_max_val(costing), go)
+    compat.globaligner.dp_array_forward(dp, s1, s2, costing, go)
+    assert compat.globaligner.dp_array_backward(dp, s1, s2, costing, go)[3] == r.cost
+
+
+
+# -- each cell's kernels against their bounds ---------------------------------
+#
+# Every kernel instance a cell's device trace shows, timed at that cell's
+# shapes on its own traffic (device time, from the benchmark's tracer) and
+# held to a bound it cannot beat: the true cells at the roofline's ceiling
+# (``benchmark/harness/peaks.py``), the bytes it must write or read at the
+# HBM's peak, or its longest walk at one step a clock.  Each case prints one
+# JSON line, a row a kernel: ``ms``, ``bound_ms`` and ``bound_by``,
+# ``plain_ms`` (its plain version on the host CPU, or on the card where
+# named; a fill's over each bucket's first PLAIN_ROWS rows, scaled to all
+# its rows) and ``library_ms`` (no library on the card fills, walks or
+# renders a Gotoh alignment: null).  Show the lines with ``-rP``.
+
+HBM_BYTES_S = 3.35e12  # H100 SXM5's HBM3 peak (NVIDIA's datasheet)
+PLAIN_ROWS = 4
+CELL_CONFIGS = {"dna.pair_align": ("dna_wfa", "wfa_10k_pair"),
+                "protein.batch_cost": ("protein_blosum62", "protein_rv12_cost"),
+                "sars2.batch_tb": ("sars2_blastn", "sars2_genomes_tb")}
+KERNEL_FAMILIES = ("gotoh_", "walk_", "wave_split", "render_kernel",
+                   "tokenize_kernel")
+
+
+def _cell_call(cell: str):
+    """A cell's first call from its traffic file (seed 7) and its scheme."""
+    from benchmark.harness import traffic
+
+    bench = REPO / "benchmark"
+    config, mix = CELL_CONFIGS[cell]
+    cfg = json.loads((bench / "configs" / f"{config}.json").read_text())
+    spec = json.loads((bench / "traffic" / f"{mix}.json").read_text())
+    (pairs,) = traffic.generate({**spec, "pool_calls": 1}, cfg["letters"], 7)
+    return pairs, resolve_scheme(cfg["letters"], cfg["letters"], **cfg["scheme"])
+
+
+def _traced_ms(fn, reps: int) -> tuple[dict, int]:
+    """Device ms a call of every kernel of the port's sources that ``fn``
+    launches, and its launches a call, over ``reps`` calls after one
+    warm-up, keyed by the trace's name without spaces, namespace and
+    arguments (``gotoh_tile_kernel<64,4,true,true>``); and the count of
+    every kernel the window recorded."""
+    from benchmark.harness import trace
+
+    fn()
+    traced = trace.Slice()
+    with trace.profiled(traced):
+        for _ in range(reps):
+            fn()
+    out = collections.defaultdict(lambda: [0.0, 0])
+    for kind, name, start, end in traced.events:
+        key = name.replace(" ", "")
+        key = key[key.find("::") + 2 :].split("(")[0] if "::" in key else key
+        if kind == "kernel" and key.startswith(KERNEL_FAMILIES):
+            out[key][0] += (end - start) / 1e6 / reps
+            out[key][1] += 1
+    recorded = sum(kind == "kernel" for kind, *_ in traced.events)
+    return {k: (ms, n / reps) for k, (ms, n) in out.items()}, recorded
+
+
+def _host_ms(fn) -> float:
+    """Wall ms of ``fn`` and what it queued, after one untimed call."""
+    fn()
+    return _wall_ms(fn)
+
+
+def _wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _plain_fill_ms(fill, tas, tbs, cost, gap_id, gap_open, mts, nts) -> float:
+    """``fill`` (a ragged wrapper) on the host over each bucket's first
+    PLAIN_ROWS rows, each bucket's time scaled by its rows over those."""
+    total = 0.0
+    for ta, tb, ms, ns in zip(tas, tbs, mts, nts):
+        rows = min(PLAIN_ROWS, ta.shape[1] - 1)
+        if rows:
+            cut = ta[:, : rows + 1].cpu().contiguous()
+            total += _wall_ms(lambda: fill(
+                [cut], [tb.cpu()], cost.cpu(), gap_id, gap_open,
+                [[min(m, rows) for m in ms]], [ns])) * (ta.shape[1] - 1) / rows
+    return total
+
+
+def _row(want, name, shape, plain, **work):
+    """Add a launch's work (cells, bytes, steps), shape and plain version
+    to kernel instance ``name``'s row of ``want``."""
+    row = want.setdefault(name, dict(cells=0, bytes=0, steps=0, shape=[], plain=[]))
+    for k, v in work.items():
+        row[k] += v
+    row["shape"].append(shape)
+    row["plain"].append(plain)
+
+
+def _pair_cell(dev, pairs, scheme):
+    """dna.pair_align's request past the moves budget: the checkpoint pass,
+    then each block's replay fill and walk, the bottom block first
+    (``linear_tb.align_blocked``)."""
+    ((s1, s2),) = pairs
+    m, n = len(s1), len(s2)
+    ta, tb, cost, gid, go, _, _ = _on(dev, _args(scheme, pairs))
+    bounds = linear_tb.block_bounds(m, n, block_moves_bytes=DEFAULT_MOVES_BUDGET_BYTES)
+    blocks = list(zip(bounds, bounds[1:]))[::-1]
+    sms = _sms(dev)
+    walks = []
+
+    def request():
+        fill_tile.checkpoint_rows(ta[0], tb[0], cost, gid, go, bounds[1:])
+        j = torch.full((1,), n, dtype=torch.int32, device=dev)
+        level = None
+        for i0, i1 in blocks:
+            final3, moves = fill_cuda.batch_moves(
+                ta[:, i0 : i1 + 1].contiguous(), tb, cost, gid, go, [i1 - i0], [n])
+            if level is None:
+                level = final3[0].argmin().to(torch.int32).reshape(1)
+            walks.append((moves, j, level))
+            _, count, j, level = linear_tb.walk_block(moves, [i1 - i0], j, level)
+            walks[-1] += (int(count),)
+
+    request()
+    want = {}
+    h, w = fill_tile.plan([(m, n)], False, sms)
+    _row(want, f"gotoh_tile_kernel<{h},{w},false,true>",
+         f"{m} x {n} cost only, rows {bounds[1:]}",
+         lambda: _plain_fill_ms(fill_batch.batch_final3_ragged, [ta], [tb], cost,
+                                gid, go, [[m]], [[n]]), cells=m * n)
+    for (i0, i1), (moves, j, level, steps) in zip(blocks, walks):
+        assert fill_tile.route(1, i1 - i0, n, True, sms)
+        h, w = fill_tile.plan([(i1 - i0, n)], True, sms)
+        _row(want, f"gotoh_tile_kernel<{h},{w},true,true>",
+             f"replay block {i1 - i0} x {n} with codes",
+             lambda i0=i0, i1=i1: _plain_fill_ms(
+                 fill_cuda.batch_moves_ragged, [ta[:, i0 : i1 + 1]], [tb], cost,
+                 gid, go, [[i1 - i0]], [[n]]),
+             cells=(i1 - i0) * n, bytes=(i1 - i0 + 1) * (n + 1))
+        _row(want, "walk_block_kernel", f"{steps} steps",
+             lambda moves=moves.cpu(), k=i1 - i0, j=j.cpu(), level=level.cpu():
+             _host_ms(lambda: linear_tb.walk_block(moves, [k], j, level)),
+             steps=steps)
+    want["walk_block_kernel"]["plain_note"] = "the plain walk on the host"
+    walks.clear()
+    return request, want
+
+
+def _batch_cell(dev, pairs, scheme, with_traceback):
+    """An align_pairs call's kernels over its pack (its buckets): the
+    tokenize, then the cost fill, or the moves fill, the walk and the
+    render of its one traceback segment."""
+    call, order = _pack_of(dev, pairs, scheme)
+    args = _fill_args(dev, call, order, scheme)
+    tas, tbs, cost, gid, go, mts, nts = args
+    letters = sum(len(a) + len(b) for a, b in pairs)
+    lines = call.lines() if with_traceback else None
+    out = {}
+
+    def run():
+        call.tokenize()
+        if not with_traceback:
+            fill_batch.batch_final3_ragged(*args)
+            return
+        filled = fill_cuda.batch_moves_ragged(*args)
+        out["walk"] = linear_tb.walk_ragged(filled)
+        out["final3"], out["layout"] = filled.final3, filled.layout
+        packed.render_ragged(*out["walk"], call.letters, call.render_desc, lines)
+
+    run()
+    want, sms, alphabet = {}, _sms(dev), cost.shape[0]
+    _row(want, "tokenize_kernel", f"{len(pairs)} pairs, {letters} letters",
+         lambda: _host_ms(lambda: packed.tokenize_plain(
+             call.letters, call.table, call.token_desc, torch.zeros_like(call.arena))),
+         bytes=5 * letters)  # a letter's byte in, its int32 token out
+    want["tokenize_kernel"]["plain_note"] = "tokenize_plain on the card"
+    cells = [sum(m * n for m, n in zip(ms, ns)) for ms, ns in zip(mts, nts)]
+    bucket_plain = lambda fill, k: lambda: _plain_fill_ms(  # noqa: E731
+        fill, [tas[k]], [tbs[k]], cost, gid, go, [mts[k]], [nts[k]])
+    if not with_traceback:
+        wide = [k for k, tb in enumerate(tbs)
+                if fill_batch.plan(tb.shape[1] - 1, alphabet) is None]
+        for k, tb in enumerate(tbs):
+            if k not in wide:
+                width = fill_batch.plan(tb.shape[1] - 1, alphabet)
+                _row(want, f"gotoh_batch_kernel<{width},false",
+                     f"{len(mts[k])} x {tas[k].shape[1] - 1} x {tb.shape[1] - 1}",
+                     bucket_plain(fill_batch.batch_final3_ragged, k), cells=cells[k])
+        if wide:
+            assert fill_tile.route_buckets([(mts[k], nts[k]) for k in wide],
+                                           sms) == list(range(len(wide)))
+            h, w = fill_tile.plan([d for k in wide for d in zip(mts[k], nts[k])],
+                                  False, sms)
+            for k in wide:
+                _row(want, f"gotoh_tile_kernel<{h},{w},false,true>",
+                     f"{len(mts[k])} x {tas[k].shape[1] - 1} x {tbs[k].shape[1] - 1}",
+                     bucket_plain(fill_batch.batch_final3_ragged, k), cells=cells[k])
+        return run, want
+    m_all = [m for ms in mts for m in ms]
+    n_all = [n for ns in nts for n in ns]
+    warp, classes = fill_cuda.ragged_routes(m_all, n_all, alphabet, sms)
+    ((lp, idx),) = classes  # the call's genomes in one launch class
+    assert not warp and len(idx) == len(m_all)
+    _row(want, f"gotoh_fill_kernel<{lp[0]},true,true,true>",
+         f"{len(idx)} pairs, {lp[1]} warps, {lp[2]} bands, {lp[3]} passes",
+         lambda: _plain_fill_ms(fill_cuda.batch_moves_ragged, *args),
+         cells=sum(m * n for m, n in zip(m_all, n_all)),
+         bytes=sum((m + 1) * (n + 1) for m, n in zip(m_all, n_all)))
+    ops, count, j_exit = out["walk"]
+    lo, ld = (int(x) for x in out["layout"][0, 4:6])
+    m0, n0 = m_all[0], n_all[0]
+    codes0 = fill_cuda.batch_moves_ragged(*args).codes[lo : lo + (m0 + 1) * ld]
+    codes0 = codes0.view(m0 + 1, ld)[:, : n0 + 1].cpu().contiguous()[None]
+    level0 = out["final3"][0].argmin().to(torch.int32).reshape(1).cpu()
+    _row(want, "walk_ragged_kernel", f"{len(m_all)} walks, {int(count.sum())} steps",
+         lambda: len(m_all) * _host_ms(lambda: linear_tb.walk_block(
+             codes0, [m0], torch.tensor([n0], dtype=torch.int32), level0)),
+         steps=int(count.max()))
+    want["walk_ragged_kernel"]["plain_note"] = (
+        "the first pair's walk on the host, times the pairs")
+    lens = count.long() + j_exit.long()
+    walked = int(lens.sum())
+    _row(want, "render_kernel", f"{walked} columns of lines",
+         lambda: _host_ms(lambda: packed.render_plain(
+             ops, count, j_exit, torch.cumsum(lens, 0) - lens, call.letters,
+             call.render_desc, torch.zeros_like(lines))),
+         bytes=int(count.sum()) + letters + 3 * walked * lines.element_size())
+    want["render_kernel"]["plain_note"] = "render_plain on the card"
+    return run, want
+
+
+def _cell_kernels(cell: str) -> dict:
+    """A cell's kernel rows (the section's comment), each with ``rule``, the
+    host rules' instance it matches (None where they pick none), beside
+    ``picked``, every instance those rules pick."""
+    from benchmark.harness import peaks
+
+    dev = torch.device("cuda", 0)
+    pairs, scheme = _cell_call(cell)
+    if cell == "dna.pair_align":
+        run, want = _pair_cell(dev, pairs, scheme)
+    else:
+        run, want = _batch_cell(dev, pairs, scheme,
+                                with_traceback=cell == "sars2.batch_tb")
+    card = peaks.card()
+    ceiling = peaks.ceiling_cells_per_s(**card)
+    traced, recorded = _traced_ms(run, reps=2)
+    rows = []
+    for name, (ms, launches) in sorted(traced.items()):
+        rule = next((prefix for prefix in want if name.startswith(prefix)), None)
+        spec = want.get(rule, dict(cells=0, bytes=0, steps=0, shape=[], plain=[]))
+        bound_ms, bound_by = max(
+            (1e3 * spec["cells"] / ceiling, "operations"),
+            (1e3 * spec["bytes"] / HBM_BYTES_S, "bytes"),
+            (1e3 * spec["steps"] / (card["max_sm_mhz"] * 1e6), "latency"))
+        rows.append(dict(name=name, rule=rule, shape="; ".join(spec["shape"]),
+                         launches=launches, ms=ms, bound_ms=bound_ms,
+                         bound_by=bound_by, plain_ms=sum(f() for f in spec["plain"]),
+                         plain_note=spec.get("plain_note", "the host's row scan"),
+                         library_ms=None))
+    return dict(cell=cell, card=torch.cuda.get_device_name(dev),
+                ceiling_cells_per_s=ceiling, kernel_events=recorded,
+                picked=sorted(want), kernels=rows)
+
+
+@pytest.fixture(scope="module")
+def cell_kernels():
+    """Every cell's ``_cell_kernels``, measured in one process of their own:
+    late in this file's process the profiler lost the first kernels of its
+    windows (on an H100 80GB HBM3), in a fresh one it lost none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.cuda.empty_cache()  # room for the child's 15 GB of genome codes
+    code = ("import json, sys; from tests.test_torch_cuda import _cell_kernels; "
+            "print(json.dumps([_cell_kernels(c) for c in sys.argv[1:]]))")
+    proc = subprocess.run([sys.executable, "-c", code, *sorted(CELL_CONFIGS)],
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return {line["cell"]: line
+            for line in json.loads(proc.stdout.strip().splitlines()[-1])}
+
+
+@pytest.mark.parametrize("cell", sorted(CELL_CONFIGS))
+def test_cell_kernels_against_their_bounds(cell_kernels, record_property, cell):
+    """Each of the port's kernel instances that a cell's call launches is
+    one its host rules pick, each they pick runs, every call launches each
+    the same whole number of times, and none runs faster than its bound.
+    Each row is printed beside its plain version's time."""
+    line = cell_kernels[cell]
+    assert sorted(row["rule"] or "" for row in line["kernels"]) == line["picked"], line
+    for row in line["kernels"]:
+        assert row["launches"] >= 1 and float(row["launches"]).is_integer(), row
+        assert 0 < row["bound_ms"] <= row["ms"], row
+    record_property("kernels", json.dumps(line))
+    print(json.dumps(line))

@@ -12,9 +12,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "globalign_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
-]
+PORT_FILES = sorted((REPO / "globalign_tpu_torch").rglob("*.py"))
 
 
 def test_import_leaves_jax_out():
@@ -59,47 +57,3 @@ def test_source_imports_no_jax(path):
                 path, node.lineno, name,
             )
 
-
-def test_chip_smoke_refuses_to_run_without_a_gpu():
-    """Without a CUDA device the smoke script exits non-zero, no result."""
-    import torch
-
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the script would run")
-    proc = subprocess.run(
-        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
-        text=True, timeout=300,
-    )
-    assert proc.returncode != 0
-    assert '"ok"' not in proc.stdout
-    assert "no CUDA device" in proc.stderr
-
-
-def test_walk_ab_refuses_to_run_without_a_gpu():
-    """The walk A/B mode (``--walk-ab``) also exits non-zero without a
-    CUDA device, before it builds anything, and prints no timings."""
-    import torch
-
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the script would run")
-    proc = subprocess.run(
-        [sys.executable, "chip_smoke.py", "--walk-ab",
-         "globalign_tpu_torch/csrc/walk_block.cu"],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 1
-    assert proc.stdout == ""
-    assert "no CUDA device" in proc.stderr
-
-
-def test_chip_smoke_refuses_to_run_alone(tmp_path):
-    """Copied away from the package, the smoke script exits non-zero and
-    prints no result line."""
-    alone = tmp_path / "chip_smoke.py"
-    alone.write_text((REPO / "chip_smoke.py").read_text())
-    proc = subprocess.run(
-        [sys.executable, str(alone)], cwd=tmp_path, capture_output=True,
-        text=True, timeout=300,
-    )
-    assert proc.returncode != 0
-    assert '"ok"' not in proc.stdout

@@ -74,10 +74,10 @@ def _three_ways(scheme, s1, s2, block_rows):
     return tuple(want), tuple(got), tuple(full)
 
 
-@pytest.mark.parametrize("block_rows", [1, 7, "m"])
+@pytest.mark.parametrize("block_rows", [1, 7, 16, "m"])
 def test_blocked_equals_jax_and_full_dna(block_rows):
     scheme, _ = _scheme("dna")
-    seed = {1: 1, 7: 7, "m": 99}[block_rows]
+    seed = {1: 1, 7: 7, 16: 16, "m": 99}[block_rows]
     for s1, s2 in _pairs(seed, DNA, 4, 1, 90):
         k = len(s1) if block_rows == "m" else block_rows
         want, got, full = _three_ways(scheme, s1, s2, k)
@@ -251,22 +251,3 @@ def test_split_cost_matches_jax_splits(kind, m):
             want_moves=False,
         )
         assert int(got) == want_stacked == want_lanes == int(direct.min()), (m, n)
-
-
-def test_blocked_phase_marks_follow_the_design():
-    """``on_phase`` is called once after the checkpoint pass, after every
-    replay fill and walk (last block first), then at the fetch and the end."""
-    scheme, _ = _scheme("dna")
-    s1, s2 = next(_pairs(3, DNA, 1, 40, 60))
-    labels = []
-    linear_tb.align_blocked(
-        torch.from_numpy(_tokens(scheme, s1)),
-        torch.from_numpy(_tokens(scheme, s2)),
-        torch.from_numpy(np.ascontiguousarray(scheme.costing.values, np.int32)),
-        scheme.alphabet.gap_id, scheme.gap_open_cost, s1, s2, block_rows=16,
-        on_phase=labels.append,
-    )
-    nblocks = -(-len(s1) // 16)
-    assert labels == (
-        ["checkpoints"] + ["fill", "walk"] * nblocks + ["fetch", "assembled"]
-    )

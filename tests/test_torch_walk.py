@@ -153,7 +153,7 @@ def test_align_walks_once_and_never_on_the_host(monkeypatch, shape):
 
 def test_align_equals_the_host_walk_over_its_codes():
     """The walk route against ``traceback_moves`` over the same codes (the
-    oracle ``chip_smoke.py`` uses on the card)."""
+    oracle ``tests/test_torch_cuda.py`` uses on the card)."""
     for seed, (letters, kw) in enumerate(SCHEMES.values()):
         s1, s2 = _pair(seed, letters, 60, 47)
         aligner = GotohAligner(tga.resolve_scheme(letters, letters, **kw),

@@ -8,7 +8,9 @@ computes the JAX package's answers and compares.
 
 Each case is a dict with a ``kind`` (a function below) and its arguments,
 JSON-friendly: tokens and cost matrices as lists, schemes as the keyword
-arguments of ``resolve_scheme``.
+arguments of ``resolve_scheme``, and ``device`` ("cpu" by default; gloo
+ranks on one card all take "cuda").  Each rank also records the strip-mode
+launches of each case (:func:`strip_launches`).
 """
 
 from __future__ import annotations
@@ -49,10 +51,18 @@ def run_ranks(tmp_path, world: int, cases: list, timeout: float = 180.0,
             p.kill()
     for rank, (p, err) in enumerate(zip(procs, errors)):
         assert p.returncode == 0, f"rank {rank}: {err[-3000:]}"
-    return [
-        json.loads((Path(tmp_path) / f"rank{rank}-{world}.json").read_text())
-        for rank in range(world)
-    ]
+    return [_rank_file(tmp_path, rank, world)["answers"] for rank in range(world)]
+
+
+def strip_launches(tmp_path, world: int) -> list:
+    """Each rank's ``strip_fill_block`` launches a case, after
+    :func:`run_ranks`."""
+    return [_rank_file(tmp_path, rank, world)["strip_launches"]
+            for rank in range(world)]
+
+
+def _rank_file(tmp_path, rank: int, world: int) -> dict:
+    return json.loads((Path(tmp_path) / f"rank{rank}-{world}.json").read_text())
 
 
 # -- the rank's side ------------------------------------------------------
@@ -61,7 +71,8 @@ def run_ranks(tmp_path, world: int, cases: list, timeout: float = 180.0,
 def _tensors(case, *names):
     import torch
 
-    return [torch.tensor(case[k], dtype=torch.int32) for k in names]
+    return [torch.tensor(case[k], dtype=torch.int32,
+                         device=case.get("device", "cpu")) for k in names]
 
 
 def pair_cost(mesh, case):
@@ -97,14 +108,16 @@ def align_blocked(mesh, case):
     s1, s2 = case["s1"], case["s2"]
     scheme = resolve_scheme(s1, s2, **case.get("scheme", {}))
 
+    device = case.get("device", "cpu")
+
     def enc(s):
         tok = [0] + list(scheme.alphabet.encode(s))
-        return torch.tensor(tok, dtype=torch.int32)
+        return torch.tensor(tok, dtype=torch.int32, device=device)
 
-    cost = torch.tensor(scheme.costing.values, dtype=torch.int32)
+    cost = torch.tensor(scheme.costing.values, dtype=torch.int32, device=device)
     tb = linear_tb.align_blocked(
         enc(s1), enc(s2), cost, scheme.alphabet.gap_id, scheme.gap_open_cost,
-        s1, s2, block_rows=case["block_rows"], mesh=mesh,
+        s1, s2, block_rows=case.get("block_rows"), mesh=mesh,
     )
     return [tb.cost, tb.seq_1_aligned, tb.middle_part, tb.seq_2_aligned]
 
@@ -114,7 +127,7 @@ def align_pairs(mesh, case):
 
     results = run(
         [tuple(p) for p in case["pairs"]], with_traceback=case["traceback"],
-        device="cpu", mesh=mesh, **case.get("scheme", {}),
+        device=case.get("device", "cpu"), mesh=mesh, **case.get("scheme", {}),
     )
     return [
         [r.cost, r.score, r.seq_1_aligned, r.middle_part, r.seq_2_aligned]
@@ -142,6 +155,7 @@ def main() -> int:
     spec = json.loads(Path(spec_path).read_text())
     import torch.distributed as dist
 
+    from globalign_tpu_torch.ops import fill_cuda
     from globalign_tpu_torch.parallel import make_pair_mesh, multihost
 
     multihost.initialize(spec["store"], world, rank, backend="gloo")
@@ -149,7 +163,11 @@ def main() -> int:
         mesh = make_pair_mesh()
         kinds = {f.__name__: f for f in
                  (pair_cost, block_last_rows, align_blocked, align_pairs, runner)}
-        answers = [kinds[case["kind"]](mesh, case) for case in spec["cases"]]
+        answers, strips = [], []
+        for case in spec["cases"]:
+            before = fill_cuda.strip_fill_block.launches
+            answers.append(kinds[case["kind"]](mesh, case))
+            strips.append(fill_cuda.strip_fill_block.launches - before)
         jax_loaded = sorted(
             m for m in sys.modules if m.split(".")[0] in ("jax", "globalign_tpu")
         )
@@ -158,7 +176,7 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     out = Path(spec["out"]) / f"rank{rank}-{world}.json"
-    out.write_text(json.dumps(answers))
+    out.write_text(json.dumps({"answers": answers, "strip_launches": strips}))
     return 0
 
 
