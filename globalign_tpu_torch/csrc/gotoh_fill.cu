@@ -718,6 +718,7 @@ struct Placed {  // a shape the occupancy query placed
   size_t smem;
   int warps;
   int P;
+  int clusters;  // of the shape the card holds at once
 };
 struct Allowed {  // the dynamic shared memory a kernel may take on a card
   Kernel kernel;
@@ -741,15 +742,18 @@ cudaError_t optin_bytes(int dev, int* optin) {
   return cudaSuccess;
 }
 
-// Lets `kernel` take `smem` bytes and checks that one cluster of `cfg` fits
-// the card; cudaErrorInvalidConfiguration if none does.
+// Lets `kernel` take `smem` bytes and reads how many clusters of `cfg` the
+// card holds at once into `clusters`; cudaErrorInvalidConfiguration if none
+// fits.
 cudaError_t place(Kernel kernel, int dev, size_t smem, int warps, int P,
-                  const cudaLaunchConfig_t& cfg) {
+                  const cudaLaunchConfig_t& cfg, int* clusters) {
   std::lock_guard<std::mutex> hold(cache_mu);
   for (const Placed& p : placed)
     if (p.kernel == kernel && p.dev == dev && p.smem == smem &&
-        p.warps == warps && p.P == P)
+        p.warps == warps && p.P == P) {
+      *clusters = p.clusters;
       return cudaSuccess;
+    }
   Allowed* allow = nullptr;
   for (Allowed& a : allowed)
     if (a.kernel == kernel && a.dev == dev) allow = &a;
@@ -763,13 +767,54 @@ cudaError_t place(Kernel kernel, int dev, size_t smem, int warps, int P,
     else
       allowed.push_back({kernel, dev, smem});
   }
-  int clusters = 0;
+  int count = 0;
   const cudaError_t err =
-      cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+      cudaOccupancyMaxActiveClusters(&count, (const void*)kernel, &cfg);
   if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  placed.push_back({kernel, dev, smem, warps, P});
+  if (count < 1) return cudaErrorInvalidConfiguration;
+  placed.push_back({kernel, dev, smem, warps, P, count});
+  *clusters = count;
   return cudaSuccess;
+}
+
+// The kernel and dynamic shared memory of a launch shape on card `dev`: the
+// (A, A) cost table in shared memory where it fits beside the rings and
+// the staged codes.
+cudaError_t shape_of(int dev, int A, bool moves, bool ragged, int W, int warps,
+                     Kernel* kernel, size_t* smem) {
+  int optin = 0;
+  const cudaError_t err = optin_bytes(dev, &optin);
+  if (err != cudaSuccess) return err;
+  // s_full, s_empty, s_red and s_tot
+  const size_t static_bytes = 2 * MAX_WARPS * (NSLOT * sizeof(uint64_t) + sizeof(int));
+  const size_t ring_bytes = (size_t)warps * RING * sizeof(int4);
+  const size_t stage = moves ? (size_t)warps * WARP * stage_bytes(W) : 0;
+  const size_t table_bytes = (size_t)A * A * sizeof(int);
+  if (static_bytes + ring_bytes + stage > (size_t)optin)
+    return cudaErrorInvalidConfiguration;
+  const bool table_in_smem =
+      static_bytes + ring_bytes + stage + table_bytes <= (size_t)optin;
+  *smem = ring_bytes + stage + (table_in_smem ? table_bytes : 0);
+  *kernel = pick_kernel(W, moves, table_in_smem, ragged);
+  return *kernel ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The configuration of a launch of B clusters of P blocks of `warps` warps;
+// `attr` holds its cluster attribute.
+cudaLaunchConfig_t config_of(int B, int P, int warps, size_t smem,
+                             void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * P);
+  cfg.blockDim = dim3(warps * WARP);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 // Launches one fill: B pairs of up to M rows (pass_edge's row stride) and
@@ -785,35 +830,14 @@ cudaError_t launch(Args args, int B, int N, bool moves, bool ragged, int W,
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int optin = 0;
-  err = optin_bytes(dev, &optin);
+  Kernel kernel = nullptr;
+  size_t smem = 0;
+  err = shape_of(dev, args.A, moves, ragged, W, warps, &kernel, &smem);
   if (err != cudaSuccess) return err;
-  // s_full, s_empty, s_red and s_tot
-  const size_t static_bytes = 2 * MAX_WARPS * (NSLOT * sizeof(uint64_t) + sizeof(int));
-  const size_t ring_bytes = (size_t)warps * RING * sizeof(int4);
-  const size_t stage = moves ? (size_t)warps * WARP * stage_bytes(W) : 0;
-  const size_t table_bytes = (size_t)args.A * args.A * sizeof(int);
-  if (static_bytes + ring_bytes + stage > (size_t)optin)
-    return cudaErrorInvalidConfiguration;
-  const bool table_in_smem =
-      static_bytes + ring_bytes + stage + table_bytes <= (size_t)optin;
-  const size_t smem = ring_bytes + stage + (table_in_smem ? table_bytes : 0);
-  const Kernel kernel = pick_kernel(W, moves, table_in_smem, ragged);
-  if (!kernel) return cudaErrorInvalidValue;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * P);
-  cfg.blockDim = dim3(warps * WARP);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = P;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = place(kernel, dev, smem, warps, P, cfg);
+  const cudaLaunchConfig_t cfg = config_of(B, P, warps, smem, stream, attr);
+  int clusters = 0;
+  err = place(kernel, dev, smem, warps, P, cfg, &clusters);
   if (err != cudaSuccess) return err;
   args.P = P;
   err = cudaLaunchKernelEx(&cfg, kernel, args);
@@ -869,6 +893,28 @@ int gotoh_fill_ragged_launch(const void* desc, const void* cost_mat,
             (uint8_t*)moves, nullptr, nullptr, (int4*)pass_edge,
             M, N, A, gap_id, gap_open, P};
   return (int)launch(args, B, N, true, true, W, warps, P, stream);
+}
+
+// How many clusters of a launch shape the current card holds at once
+// (cudaOccupancyMaxActiveClusters), into `clusters`: W columns a lane,
+// `warps` warps a block, P blocks a cluster, with codes or not, the ragged
+// mode or not, an (A, A) cost table (in shared memory where it fits, as a
+// launch places it).  Read once a shape, as the launches read it.
+int gotoh_fill_clusters(int W, int warps, int P, int moves, int ragged, int A,
+                        int* clusters) {
+  if (!clusters || warps < 1 || warps > MAX_WARPS || P < 1 || P > MAX_BANDS ||
+      A < 1 || (ragged && !moves))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  Kernel kernel = nullptr;
+  size_t smem = 0;
+  err = shape_of(dev, A, moves != 0, ragged != 0, W, warps, &kernel, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config_of(1, P, warps, smem, nullptr, attr);
+  return (int)place(kernel, dev, smem, warps, P, cfg, clusters);
 }
 
 const char* gotoh_fill_error_string(int err) {

@@ -15,7 +15,11 @@
 //   * fill_pallas.py:stacked_fill_last_rows (:735) and
 //     _make_row_kernel / row_fill_last_rows (:153, :256): the blocked
 //     traceback's checkpoint rows — here every checkpoint row of the pass
-//     from one launch, where the JAX package fills a block a call.
+//     from one launch, where the JAX package fills a block a call;
+//   * with codes in a ragged moves fill's buffer, the pairs of a
+//     gotoh_fill ragged launch class that its clusters leave to a lone
+//     last wave (ops/fill_tile.route_tail): the JAX package's moves fills
+//     of an align_pairs call (globalign_tpu/batch.py:_lanes_walk_fills).
 //
 // What it computes.  Pair p, with 1-origin tokens a_0..a_m and b_0..b_n
 // read at its own offsets from tok_a and tok_b (pairs[p]: the pairs of a
@@ -23,9 +27,15 @@
 // lengths m, n (meta), exactly what gotoh_fill's moves and last-row modes
 // compute (csrc/gotoh_fill.cu:33-70):
 //   final3[f] = (M, Ix, Iy) at (m, n), f the pair's final3 row (pairs[p]);
-//   moves[p, i, j] (optional) for 1 <= i <= m, 1 <= j <= n: bits 0-1 the M
+//   codes (optional) at a byte offset, row stride ld >= n + 1 and count of
+//   rows >= m + 1 of the pair's own (pairs[p]): code (i, j) at byte
+//   i ld + j of that region for 1 <= i <= m, 1 <= j <= n, bits 0-1 the M
 //   predecessor, 2-3 Ix, 4-5 Iy (0 = M, 1 = Ix, 2 = Iy, ties M > Ix > Iy);
-//   every other byte of moves[p] is written 0;
+//   every other byte of the region is written 0 and no byte outside it.
+//   A dense (B, M+1, N+1) buffer is the regions p (M+1)(N+1), N + 1 and
+//   M + 1; a ragged moves fill's (ops/fill_cuda.batch_moves_ragged) the
+//   pairs' own offsets, strides ragged_stride(n) and m + 1 rows, so a
+//   launch can fill some of its pairs into the buffer gotoh_fill fills;
 //   rows_out[p, k] (optional) = row r_k of the pair's list (meta), under
 //   the contract of fill_cuda.batch_last_rows: (M, Ix, Iy) at columns
 //   1..n, column 0 (BIG, BIG, Iy(r, 0)) — row 0 itself when r = 0 —, BIG
@@ -66,7 +76,7 @@
 //   * Codes are staged for the whole tile in the warp's shared memory (H
 //     rows of 32 W bytes, 17 KB at 128 x 128) and written out after its
 //     steps, a row a run: head bytes singly, then aligned words, then the
-//     tail (the row stride N + 1 is odd), as gotoh_fill writes them.  The
+//     tail (a row stride may be odd), as gotoh_fill writes them.  The
 //     step loop stores one word a lane and never waits on the warp.
 //   * Hand-offs through L2, no grid barrier (wave_split.cu's scheme).  Per
 //     pair, a row buffer holds the bottom row of the tile last finished in
@@ -85,10 +95,10 @@
 //     anti-diagonal b + c, then the pair, then b.  A tile's producers
 //     hold smaller tickets, taken by running warps, so a warp only waits on
 //     resident ones.  A wait that can never end traps after ~2^25 polls.
-//   * Bytes and rows that no tile writes (row 0 and column 0 of the codes,
-//     the padding, columns past n of the requested rows, and the pairs and
-//     rows that hold no inner cell) are written by the launch's threads
-//     before they take a ticket.
+//   * Bytes and rows that no tile writes (row 0 and column 0 of a pair's
+//     codes, the padding of its region, columns past n of the requested
+//     rows, and the pairs and rows that hold no inner cell) are written by
+//     the launch's threads before they take a ticket.
 //
 // What bounds it on this card.  A cell is ~10 int32 operations cost only,
 // ~24 with codes; the card issues 64 a clock an SM.  A tile's steps are a
@@ -115,6 +125,7 @@ constexpr int WARPS = 4;          // warps a block, one block an SM
 constexpr int FLAG_STRIDE = 32;   // ints between flags: one 128-byte line each
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_ALPHABET = 1 << 16;  // tokens share a word with a mark
+constexpr int PAIR_VECS = 3;      // longlong2 a pair (ops/fill_tile.PAIR_WORDS)
 
 struct Params {
   const int* tok_a;      // pair p's seq_1 at pairs[p].x, m + 1 tokens
@@ -126,16 +137,17 @@ struct Params {
   // tile row, (B, TB+1); each pair's row list, (B, K) ascending in [0, m]
   const int* meta;
   const int4* order;     // (tiles,) of (p, b, c, -)
-  // (B,) of (seq_1 offset, seq_2 offset) in int32 words from tok_a / tok_b,
-  // then (final3 row, -)
+  // (B,) of PAIR_VECS: (seq_1 offset, seq_2 offset) in int32 words from
+  // tok_a / tok_b; (final3 row, the codes' byte offset); (the codes' row
+  // stride, their rows)
   const longlong2* pairs;
   int* final3;           // (rows, 3): pair p's at its final3 row
-  uint8_t* moves;        // (B, M+1, N+1) or null
+  uint8_t* moves;        // the codes buffer (pairs[p]'s regions) or null
   int* rows_out;         // (B, K, 3, N+1) or null
   int4* rowbuf;          // (B, C 32 W + 1) of (M, Ix, Iy, -)
   int4* colbuf;          // (B, TB, H + 1) of (M, Ix unclamped, Iy, -)
   int* flags;            // [0] the ticket counter; [FLAG_STRIDE (1 + p C + c)]
-  int B, M, N, A, gap_id, go, K, TB, C, tiles;
+  int B, N, A, gap_id, go, K, TB, C, tiles;
 };
 
 __device__ __forceinline__ int addmin(int a, int b, int c) {
@@ -244,36 +256,45 @@ __device__ __forceinline__ int* row_out(const Params& P, int p, int k) {
   return P.rows_out + ((long long)p * P.K + k) * 3 * (P.N + 1);
 }
 __device__ __forceinline__ const int* seq_a(const Params& P, int p) {
-  return P.tok_a + __ldg(P.pairs + 2 * p).x;
+  return P.tok_a + __ldg(P.pairs + PAIR_VECS * p).x;
 }
 __device__ __forceinline__ const int* seq_b(const Params& P, int p) {
-  return P.tok_b + __ldg(P.pairs + 2 * p).y;
+  return P.tok_b + __ldg(P.pairs + PAIR_VECS * p).y;
 }
 __device__ __forceinline__ int* final3_of(const Params& P, int p) {
-  return P.final3 + 3 * __ldg(P.pairs + 2 * p + 1).x;
+  return P.final3 + 3 * __ldg(P.pairs + PAIR_VECS * p + 1).x;
+}
+__device__ __forceinline__ uint8_t* codes_of(const Params& P, int p) {
+  return P.moves + __ldg(P.pairs + PAIR_VECS * p + 1).y;
+}
+// (row stride, rows) of the pair's codes
+__device__ __forceinline__ longlong2 codes_shape(const Params& P, int p) {
+  return __ldg(P.pairs + PAIR_VECS * p + 2);
 }
 
 // What no tile writes.  Every thread of the launch: the code bytes of row
-// 0, column 0, the padding and the rows past m; the columns past n of the
-// requested rows.  Warp p of the launch (a warp a pair): a pair with no
+// 0, column 0, the padding and the rows past m of each pair's own region;
+// the columns past n of the requested rows.  Warp p of the launch (a warp a pair): a pair with no
 // inner cell (m = 0 or n = 0) — its final3 and rows — and row 0 when the
 // pair's list asks for it.
 __device__ void write_boundary(const Params& P, const int* tab) {
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nthr = (long long)gridDim.x * blockDim.x;
-  const int M = P.M, N = P.N, A = P.A, gap = P.gap_id, go = P.go;
+  const int N = P.N, A = P.A, gap = P.gap_id, go = P.go;
   const long long ld = N + 1;
   for (int p = 0; p < P.B; ++p) {
     const int m = pair_dims(P)[2 * p], n = pair_dims(P)[2 * p + 1];
     if (P.moves) {
-      uint8_t* mv = P.moves + (long long)p * (M + 1) * ld;
-      for (long long j = tid; j <= N; j += nthr) mv[j] = 0;
-      for (long long i = 1 + tid; i <= M; i += nthr) mv[i * ld] = 0;
-      const int pad = N - n;
+      uint8_t* mv = codes_of(P, p);
+      const longlong2 shape = codes_shape(P, p);
+      const long long cld = shape.x;
+      for (long long j = tid; j < cld; j += nthr) mv[j] = 0;
+      for (long long i = 1 + tid; i <= m; i += nthr) mv[i * cld] = 0;
+      const long long pad = cld - 1 - n;
       if (pad > 0)
         for (long long k = tid; k < (long long)m * pad; k += nthr)
-          mv[(1 + k / pad) * ld + n + 1 + k % pad] = 0;
-      for (long long k = (m + 1) * ld + tid; k < (M + 1) * ld; k += nthr) mv[k] = 0;
+          mv[(1 + k / pad) * cld + n + 1 + k % pad] = 0;
+      for (long long k = (m + 1) * cld + tid; k < shape.y * cld; k += nthr) mv[k] = 0;
     }
     if (P.rows_out) {
       const long long pad = N - n;
@@ -511,7 +532,8 @@ __device__ __forceinline__ void run_tile(const Params& P, const int* tab,
   int oM = BIG, oXu = BIG, oY = BIG;  // the lane's last cell
   const int steps = hh + lanes - 1;
   const int cols = min(BW, n - c0);
-  uint8_t* mv = MOVES ? P.moves + (long long)p * (P.M + 1) * ld + c0 + 1 : nullptr;
+  uint8_t* mv = MOVES ? codes_of(P, p) + c0 + 1 : nullptr;
+  const long long cld = MOVES ? codes_shape(P, p).x : 0;  // the codes' stride
 #pragma unroll 2
   for (int k = 0; k < steps; ++k) {
     // The next step's word and lookups: lane 0 takes row k + 2 from the
@@ -595,7 +617,7 @@ __device__ __forceinline__ void run_tile(const Params& P, const int* tab,
   }
   if (MOVES) {  // the tile's staged codes, a row a run
     __syncwarp();
-    flush_rows<SLOT>(mv + (long long)(r0 + 1) * ld, ld, stage, hh, cols, lane);
+    flush_rows<SLOT>(mv + (long long)(r0 + 1) * cld, cld, stage, hh, cols, lane);
   }
   // final3: the cell (m, n), in the lane's last row if the tile holds it.
   const int cn = n - j0;
@@ -699,13 +721,15 @@ extern "C" {
 // columns, in the order of `order` ((tiles, 4) int32 of ops/fill_tile.
 // tile_order); `meta` holds (m, n) a pair, the first list entry of each
 // tile row (B, TB+1) and the row lists (B, K) (ops/fill_tile.metadata);
-// `pairs` (B, 4) int64 each pair's seq_1 and seq_2 offsets (int32 words
-// from tok_a and tok_b) and its final3 row (ops/fill_tile.host_layout);
-// rowbuf holds B (C 32 W + 1) and colbuf B TB (H + 1) int4, TB = ceil(M/H)
-// and C = ceil(N/32W); flags holds 32 (1 + B C) zeroed int32.  `moves`
-// ((B, M+1, N+1) uint8), `rows_out` ((B, K, 3, N+1) int32), `row0`
+// `pairs` (B, 6) int64 each pair's seq_1 and seq_2 offsets (int32 words
+// from tok_a and tok_b), its final3 row, and its codes' byte offset in
+// `moves`, row stride and rows (ops/fill_tile.host_layout); rowbuf holds
+// B (C 32 W + 1) and colbuf B TB (H + 1) int4, TB = ceil(M/H) and
+// C = ceil(N/32W); flags holds 32 (1 + B C) zeroed int32.  `moves` (the
+// codes buffer, uint8), `rows_out` ((B, K, 3, N+1) int32), `row0`
 // ((B, 3, N+1)) and `col0y_top` ((B,)) may be null.  The caller checks the
-// lengths and lists.  One block of 4 warps an SM.
+// lengths, lists and codes regions (disjoint, each in the buffer).  One
+// block of 4 warps an SM.
 int gotoh_tile_launch(const void* tok_a, const void* tok_b,
                       const void* cost_mat, const void* row0,
                       const void* col0y_top, const void* meta,
@@ -749,7 +773,7 @@ int gotoh_tile_launch(const void* tok_a, const void* tok_b,
   P.final3 = (int*)final3;
   P.moves = (uint8_t*)moves, P.rows_out = (int*)rows_out;
   P.rowbuf = (int4*)rowbuf, P.colbuf = (int4*)colbuf, P.flags = (int*)flags;
-  P.B = B, P.M = M, P.N = N, P.A = A, P.gap_id = gap_id, P.go = gap_open;
+  P.B = B, P.N = N, P.A = A, P.gap_id = gap_id, P.go = gap_open;
   P.K = K, P.TB = (M + H - 1) / H, P.C = (N + WARP * W - 1) / (WARP * W);
   P.tiles = tiles;
   if ((long long)tiles > (long long)B * P.TB * P.C) return (int)cudaErrorInvalidValue;

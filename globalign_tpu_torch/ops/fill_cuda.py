@@ -26,7 +26,13 @@ the head of that file, and :func:`plan` for the launch):
     pairs of at most 1024 columns go to a second kernel,
     ``csrc/gotoh_batch_moves.cu`` (a warp a pair, one launch a width
     class, ``fill_batch.batch_moves_warp``), the rest to ``gotoh_fill``'s
-    ragged mode, one launch a launch class (:func:`ragged_routes`).
+    ragged mode, one launch a launch class (:func:`ragged_routes`) — but
+    for the pairs of a class that its clusters, as many as the card holds
+    at once (:func:`_clusters`), would leave to a lone last wave: those go
+    to one ``gotoh_tile`` launch into the same buffer, on a side stream
+    beside the class's launch (``fill_tile.route_tail``: a call of 16
+    genomes fills 15 on ``gotoh_fill`` and the 16th on every SM the 15
+    clusters leave).
 
 On CUDA tensors each launches the kernel; on CPU tensors each runs the
 plain version, the row scan of ``ops.fill_rows``, pair by pair.  There is
@@ -53,6 +59,7 @@ point at the injected row's argmins.  Either may be given alone.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -524,7 +531,10 @@ def ragged_classes(m_true, n_true, sms: int) -> list[tuple[FillPlan, np.ndarray]
     own count and widest pair.  Pairs of one width class share a launch:
     the 1024-pair serving chunk (819-1024 columns) is one class of one
     block a pair, where a bucket of ~21 pairs spread each pair over a
-    cluster."""
+    cluster.  A class of more pairs than the card holds clusters of its
+    launch at once fills in waves; :func:`ragged_routes` gives the pairs
+    of a last, partial wave to ``gotoh_tile`` where
+    ``fill_tile.route_tail`` says so."""
     m = np.asarray(m_true, np.int64)
     n = np.asarray(n_true, np.int64)
     keys = {}
@@ -542,16 +552,20 @@ def ragged_classes(m_true, n_true, sms: int) -> list[tuple[FillPlan, np.ndarray]
     return out
 
 
-def ragged_routes(m_true, n_true, alphabet: int, sms: int):
+def ragged_routes(m_true, n_true, alphabet: int, sms: int, clusters=None):
     """The launches of a ragged moves fill with an (A, A) table on a card of
-    ``sms`` SMs: ``(warp, fill)``.
+    ``sms`` SMs: ``(warp, fill, tile)``.
 
     ``warp`` lists ``(W, pair indices)``, one ``gotoh_batch_moves`` launch a
     width class (W ascending), for the pairs that ``fill_batch.plan``
     accepts by their own n: at most 1024 columns, an alphabet of at most
     256 and a table that fits in shared memory.  ``fill`` lists the other
     pairs as :func:`ragged_classes` does, a ``gotoh_fill`` ragged launch a
-    class.  Indices run longest (m * n) first within a launch.  The batch
+    class, less each class's tail that ``fill_tile.route_tail`` takes;
+    ``tile`` lists those tails, one ``gotoh_tile`` launch with codes each.
+    ``clusters`` gives a class's plan the clusters of its launch that the
+    card holds at once (:func:`_clusters` on a card); without it no class
+    is split.  Indices run longest (m * n) first within a launch.  The batch
     size plays no part, as for the cost fills (``fill_batch.plan``): on an
     H100 ``gotoh_batch_moves`` is 4x faster at 1024 pairs of 1024^2 and at
     every B of 256^2, and ~10% slower at 1 to 33 pairs of 1024^2, where a
@@ -569,8 +583,40 @@ def ragged_routes(m_true, n_true, alphabet: int, sms: int):
         if idx.size:
             warp.append((width, idx[np.argsort(-(m[idx] * n[idx]), kind="stable")]))
     rest = np.flatnonzero(widths == 0)
-    fill = [(lp, rest[idx]) for lp, idx in ragged_classes(m[rest], n[rest], sms)]
-    return warp, fill
+    fill, tile = [], []
+    for lp, idx in ragged_classes(m[rest], n[rest], sms):
+        idx = rest[idx]
+        cut = len(idx) - (0 if clusters is None else fill_tile.route_tail(
+            list(zip(m[idx].tolist(), n[idx].tolist())), clusters(lp), sms))
+        fill.append((lp, idx[:cut]))
+        if cut < len(idx):
+            tile.append(idx[cut:])
+    return warp, fill, tile
+
+
+@functools.cache
+def _clusters(index: int, alphabet: int, lp: FillPlan) -> int:
+    """How many clusters of a ``gotoh_fill`` ragged launch at ``lp`` with an
+    (A, A) table card ``index`` holds at once
+    (``cudaOccupancyMaxActiveClusters``, one query a shape)."""
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.gotoh_fill_clusters(lp.width, lp.warps, lp.bands, 1, 1,
+                                      alphabet, ctypes.byref(out))
+    if err != 0:
+        msg = lib.gotoh_fill_error_string(err).decode()
+        raise RuntimeError(f"gotoh_fill cluster query failed: CUDA error {err} ({msg})")
+    return out.value
+
+
+@functools.cache
+def _side_stream(index: int) -> torch.cuda.Stream:
+    """The stream of card ``index`` that a ragged moves fill's ``gotoh_tile``
+    launches run on, beside its ``gotoh_fill`` launches."""
+    return torch.cuda.Stream(device=index)
 
 
 def batch_moves_ragged(
@@ -605,11 +651,16 @@ def batch_moves_ragged(
     (``fill_batch.batch_moves_warp.launches`` counts them), then one
     ``gotoh_fill`` ragged launch a launch class
     (``batch_moves_ragged.launches`` counts them; ``.wide_launches``
-    counts those launches again and ``.wide_pairs`` the pairs they take).
-    On CPU tensors the plain version, the row scan pair by pair into the
-    same buffer at the same offsets and strides; ``.wide_pairs`` then
-    counts the pairs it fills that ``gotoh_batch_moves`` would not take
-    (``fill_batch.plan``), and no launch is counted.
+    counts those launches again and ``.wide_pairs`` the pairs they take),
+    and one ``gotoh_tile`` launch a class's tail on a side stream that
+    the current stream waits for (``.tile_launches`` and ``.tile_pairs``
+    count them and their pairs; ``fill_tile.gotoh_tile.launches`` too).
+    Nothing waits for the card.  On CPU tensors the plain version, the row
+    scan pair by pair into the same buffer at the same offsets and
+    strides; ``.wide_pairs`` then counts the pairs it fills that
+    ``gotoh_batch_moves`` would not take (``fill_batch.plan``) and
+    ``.tile_pairs`` none, since the tail depends on how many clusters a
+    card holds, and no launch is counted.
     """
     tok_a, tok_b = list(tok_a), list(tok_b)
     with span("fill.batch"):
@@ -617,10 +668,13 @@ def batch_moves_ragged(
                                          n_true)
         layout, nbytes = _ragged_layout(tok_a, tok_b, lengths, offsets, nbytes)
         if device.type == "cuda":
-            warp, classes = ragged_routes(layout[:, 2], layout[:, 3],
-                                          cost_mat.shape[0], _sms(device.index))
-            out = _launch_warp(warp, classes, layout, cost_mat, gap_id,
-                               gap_open, nbytes)
+            warp, classes, tails = ragged_routes(
+                layout[:, 2], layout[:, 3], cost_mat.shape[0],
+                _sms(device.index),
+                functools.partial(_clusters, device.index, cost_mat.shape[0]))
+            ready = torch.cuda.Event() if tails else None
+            out = _launch_warp(warp, [i for _, i in classes] + tails, layout,
+                               cost_mat, gap_id, gap_open, nbytes, ready)
     if device.type == "cpu":
         from . import fill_batch
 
@@ -635,7 +689,11 @@ def batch_moves_ragged(
         with span("fill.wide"):
             _ragged_counts.wide_launches += len(classes)
             _ragged_counts.wide_pairs += sum(len(idx) for _, idx in classes)
-            _launch_classes(classes, out, cost_mat, gap_id, gap_open)
+            _launch_classes(classes, tails, out, cost_mat, gap_id, gap_open)
+            if tails:
+                _ragged_counts.tile_launches += len(tails)
+                _ragged_counts.tile_pairs += sum(len(idx) for idx in tails)
+                _launch_tails(tails, ready, out, cost_mat, gap_id, gap_open)
     return out
 
 
@@ -691,22 +749,28 @@ def _plain_ragged(tok_a, tok_b, cost_mat, gap_id, gap_open, layout, nbytes
     return RaggedMoves(final3, codes, torch.from_numpy(layout), layout)
 
 
-def _launch_warp(warp, classes, layout, cost_mat, gap_id, gap_open,
-                 nbytes) -> RaggedMoves:
+def _launch_warp(warp, rest, layout, cost_mat, gap_id, gap_open, nbytes,
+                 ready) -> RaggedMoves:
     """A ragged moves fill's descriptors and outputs on the card, and its
-    ``gotoh_batch_moves`` launches: ``warp`` and ``classes`` as
-    :func:`ragged_routes` gives them (every pair in one of them), over
-    ``layout``, the host descriptors in pair order, into a buffer of
-    ``nbytes`` bytes; descriptors in launch order come back.  The
-    ``gotoh_fill`` launches (``classes``) are :func:`_launch_classes`'."""
+    ``gotoh_batch_moves`` launches: ``warp`` as :func:`ragged_routes` gives
+    it and ``rest`` the pair indices of its other launches (each
+    ``gotoh_fill`` launch class's, then each ``gotoh_tile`` tail's; every
+    pair in one launch), over ``layout``, the host descriptors in pair
+    order, into a buffer of ``nbytes`` bytes; descriptors in launch order
+    come back.  ``ready``, an event or None, is recorded once the outputs
+    are held and before the launches: what runs beside them waits on it.
+    The other launches are :func:`_launch_classes`' and
+    :func:`_launch_tails`'."""
     from . import fill_batch
 
     device = cost_mat.device
     layout = np.ascontiguousarray(
-        layout[np.concatenate([i for _, i in warp + classes])])
+        layout[np.concatenate([i for _, i in warp] + list(rest))])
     desc = torch.from_numpy(layout).pin_memory().to(device, non_blocking=True)
     final3 = torch.empty((len(layout), 3), dtype=torch.int32, device=device)
     codes = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    if ready is not None:
+        ready.record(torch.cuda.current_stream(device))
     lo = 0
     for width, idx in warp:
         fill_batch.batch_moves_warp(desc, lo, len(idx), width, cost_mat,
@@ -715,18 +779,19 @@ def _launch_warp(warp, classes, layout, cost_mat, gap_id, gap_open,
     return RaggedMoves(final3, codes, desc, layout)
 
 
-def _launch_classes(classes, out: RaggedMoves, cost_mat, gap_id, gap_open
-                    ) -> None:
+def _launch_classes(classes, tails, out: RaggedMoves, cost_mat, gap_id,
+                    gap_open) -> None:
     """A ragged moves fill's ``gotoh_fill`` launches, one a launch class,
     over the descriptors of ``out`` (:func:`_launch_warp`'s) past its
-    warp-routed pairs."""
+    warp-routed pairs and before its ``tails``' pairs."""
     from ..utils import cuda_build
 
     lib = cuda_build.load()
     final3, codes, desc, layout = out
     device = cost_mat.device
     m, n = layout[:, 2], layout[:, 3]
-    lo = len(layout) - sum(len(idx) for _, idx in classes)
+    lo = len(layout) - sum(len(idx) for _, idx in classes) - sum(
+        len(idx) for idx in tails)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for lp, idx in classes:
@@ -754,9 +819,34 @@ def _launch_classes(classes, out: RaggedMoves, cost_mat, gap_id, gap_open
             lo += len(idx)
 
 
+def _launch_tails(tails, ready, out: RaggedMoves, cost_mat, gap_id, gap_open
+                  ) -> None:
+    """A ragged moves fill's ``gotoh_tile`` launches with codes, one a tail
+    of ``tails``, over the last descriptors of ``out``, on the card's side
+    stream: it waits for ``ready`` (an event after the tokens were queued
+    and the outputs held, :func:`_launch_warp`), so the launches start
+    beside the ``gotoh_fill`` launches queued before them, on the SMs their
+    clusters leave, and the current stream waits for it, so nothing after
+    the fill (the walk, the next user of a buffer freed on the current
+    stream) runs before them."""
+    device = cost_mat.device
+    current = torch.cuda.current_stream(device)
+    side = _side_stream(device.index)
+    lo = len(out.layout) - sum(len(idx) for idx in tails)
+    with torch.cuda.stream(side):
+        side.wait_event(ready)
+        for idx in tails:
+            fill_tile.launch_codes(out.layout[lo : lo + len(idx)], out.codes,
+                                   out.final3, cost_mat, gap_id, gap_open)
+            lo += len(idx)
+    current.wait_stream(side)
+
+
 batch_moves_ragged.launches = 0
 batch_moves_ragged.wide_launches = 0
 batch_moves_ragged.wide_pairs = 0
+batch_moves_ragged.tile_launches = 0
+batch_moves_ragged.tile_pairs = 0
 # The wide counters are reached through this name, which a wrapper put in
 # ``batch_moves_ragged``'s place (a test's call count, a timer) leaves alone.
 _ragged_counts = batch_moves_ragged

@@ -9,20 +9,29 @@ compute — final3, the move codes, the last row, with ``row0`` /
 ``col0y_top`` injection — and one output of its own: any list of rows
 of the pair (``rows``), each under the contract of
 ``fill_cuda.batch_last_rows``, from one launch.  The blocked traceback's
-checkpoint pass is that list (:func:`checkpoint_rows`).
+checkpoint pass is that list (:func:`checkpoint_rows`).  Each pair's codes
+go to a region of its own (a byte offset, a row stride and a count of
+rows in the pair table): a dense (B, M+1, N+1) buffer, or the ragged
+buffer of ``fill_cuda.batch_moves_ragged``, where :func:`launch_codes`
+fills the pairs that a ``gotoh_fill`` launch class would leave to a lone
+last wave of clusters (:func:`route_tail`).
 
 Here live:
   * the tiling: :func:`tile_grid`, the ticket table :func:`tile_order`,
     the launch's metadata (:func:`metadata`), its pair table (each pair's
-    token offsets and final3 row: :func:`ragged_pairs` for pairs of
-    several buckets) and the one buffer that carries all three to the
+    token offsets, final3 row and codes region: :func:`ragged_pairs` for
+    the pairs of several buckets, :func:`codes_pairs` for those of a
+    ragged moves fill) and the one buffer that carries all three to the
     card (:func:`host_layout`);
   * :func:`plan`, the (H, W) of a launch, :func:`route`, the rule by
     which ``fill_cuda`` sends a non-strip fill to this kernel instead of
-    ``gotoh_fill``, and :func:`route_buckets`, the rule by which the batch
-    cost fill gives the buckets past ``gotoh_batch`` to one launch;
-  * the launchers :func:`launch` and :func:`launch_ragged` (counter
-    ``gotoh_tile.launches``) and the public wrapper :func:`gotoh_tile`,
+    ``gotoh_fill``, :func:`route_buckets`, the rule by which the batch
+    cost fill gives the buckets past ``gotoh_batch`` to one launch, and
+    :func:`route_tail`, the rule by which a ragged moves fill gives a
+    launch class's last partial wave of clusters to one launch;
+  * the launchers :func:`launch`, :func:`launch_ragged` and
+    :func:`launch_codes` (counter ``gotoh_tile.launches``) and the public
+    wrapper :func:`gotoh_tile`,
     whose plain version on CPU tensors is the row scan
     (``fill_rows.row_fill``), pair by pair and block by block between the
     requested rows;
@@ -48,7 +57,9 @@ WARPS = 4  # warps a block, one block an SM (the kernel's)
 SHAPES = ((128, 4), (64, 4), (64, 2), (32, 4))  # the kernel's (H, W) instances
 FLAG_STRIDE = 32  # int32 a flag: one 128-byte line each
 EDGE_INTS = 4  # an edge cell in the buffers: (M, Ix, Iy, unused) int32
-PAIR_WORDS = 4  # int64 a pair: seq_1 and seq_2 offsets, final3 row, unused
+# int64 a pair: seq_1 and seq_2 offsets, final3 row, and the codes' byte
+# offset, row stride and rows
+PAIR_WORDS = 6
 
 # A tile's time on an NVIDIA H100 80GB HBM3 at 700 W, in microseconds, by
 # (H, W, with codes): a pair one tile column wide, whose 64 tiles run one
@@ -202,8 +213,43 @@ def route_buckets(buckets, sms: int) -> list[int]:
     dims = [d for k in joined for d in zip(*buckets[k])]
     if len(dims) <= 1:
         return joined if dims and route(1, *dims[0], False, sms) else []
-    tiles = model(dims, plan(dims, False, sms), False, sms)
-    return joined if tiles.tiles <= WARPS * sms * tiles.path_tiles else []
+    return joined if path_bound(dims, False, sms) else []
+
+
+def path_bound(dims, want_moves: bool, sms: int) -> bool:
+    """Whether :func:`model` finds one launch over pairs of shapes ``dims``
+    path-bound at :func:`plan`'s shape: its tiles no more than the card's
+    warps times its longest pair's path, so that it takes about that
+    pair's time and not the sum of its pairs'."""
+    tiles = model(dims, plan(dims, want_moves, sms), want_moves, sms)
+    return tiles.tiles <= WARPS * sms * tiles.path_tiles
+
+
+def route_tail(dims, clusters: int, sms: int) -> int:
+    """How many pairs of a ``gotoh_fill`` ragged launch class one launch
+    with codes takes instead: ``dims`` the class's (m, n), largest m * n
+    first, ``clusters`` the clusters of its launch that the card holds at
+    once (``fill_cuda._clusters``).  The class's last ``r`` pairs go, the
+    smallest: those its clusters leave to a last, partial wave.
+
+    r is the class's count modulo ``clusters``, where the class has more
+    pairs than ``clusters``; none where it has no more (a lone wave) or r
+    is 0.  The r pairs go when each is within :func:`route`'s aspect rule
+    (its n <= 8 m) and the launch over them is :func:`path_bound`, so that
+    it takes about one pair's critical path on the SMs the clusters leave
+    and then on all; else the class keeps them.  A call of 16 SARS-CoV-2
+    genomes (29 903 nt) on an H100 is a class of 16 whose clusters of 8
+    SMs the card holds 15 at once: one genome goes, at (64, 4) a path of
+    701 tiles (~22 ms) against a second wave of ~52 ms; 5 or more left
+    over are not path-bound (at (128, 4) 5 x 54 756 tiles > 528 warps x
+    467)."""
+    count = len(dims)
+    if clusters < 1 or count <= clusters or not count % clusters:
+        return 0
+    tail = list(dims)[count - count % clusters :]
+    if any(n > ROUTE_MAX_ASPECT * m for m, n in tail):
+        return 0
+    return len(tail) if path_bound(tail, True, sms) else 0
 
 
 def _rows_of(rows, m_true) -> list[list[int]] | None:
@@ -227,8 +273,9 @@ def ragged_pairs(tok_a, tok_b, first_rows) -> tuple[int, np.ndarray]:
     token tensors on one device, any storage; pair r of bucket k's final3
     goes to row ``first_rows[k] + r``.  Returns (base, pairs): the lowest
     data address among the tokens, and (sum B_k, PAIR_WORDS) int64 rows
-    (seq_1 offset, seq_2 offset, final3 row, 0), the offsets in int32
-    words from base, buckets in order and pairs in their bucket's."""
+    (seq_1 offset, seq_2 offset, final3 row, 0, 0, 0: no codes), the
+    offsets in int32 words from base, buckets in order and pairs in their
+    bucket's."""
     base = min(t.data_ptr() for t in (*tok_a, *tok_b))
     sizes = np.array([ta.shape[0] for ta in tok_a], np.int64)
     r = np.arange(int(sizes.sum())) - np.repeat(np.cumsum(sizes) - sizes, sizes)
@@ -241,6 +288,24 @@ def ragged_pairs(tok_a, tok_b, first_rows) -> tuple[int, np.ndarray]:
         pairs[:, col] = (per_pair([(t.data_ptr() - base) // 4 for t in tok])
                          + r * per_pair([t.shape[1] for t in tok]))
     pairs[:, 2] = per_pair(first_rows) + r
+    return base, pairs
+
+
+def codes_pairs(layout: np.ndarray) -> tuple[int, np.ndarray]:
+    """The pair table of a launch with codes over pairs of a ragged moves
+    fill: ``layout`` their rows of ``fill_cuda.RaggedMoves.layout`` (token
+    addresses, m, n, the codes' byte offset and row stride, the final3
+    row).  Returns (base, pairs): the lowest token address, and
+    (P, PAIR_WORDS) int64 rows (seq_1 offset, seq_2 offset, final3 row,
+    codes offset, row stride, m + 1 rows), the token offsets in int32
+    words from base, (address - base) / 4."""
+    layout = np.asarray(layout, np.int64)
+    base = int(layout[:, :2].min())
+    pairs = np.empty((len(layout), PAIR_WORDS), np.int64)
+    pairs[:, :2] = (layout[:, :2] - base) // 4
+    pairs[:, 2] = layout[:, 6]
+    pairs[:, 3:5] = layout[:, 4:6]
+    pairs[:, 5] = layout[:, 2] + 1
     return base, pairs
 
 
@@ -261,17 +326,19 @@ def host_layout(order: np.ndarray, pairs: np.ndarray, meta: np.ndarray,
 
 
 def _run(tok_a: int, tok_b: int, cost_mat, gap_id, gap_open, dims, pairs,
-         final3, grid, *, want_moves: bool, rows=None, row0=None,
-         col0y_top=None, shape=None):
+         final3, grid, *, codes=None, rows=None, row0=None, col0y_top=None,
+         shape=None):
     """One launch over the pairs ``dims`` ((m, n) each): pair p's tokens at
     ``pairs[p]``'s offsets from the addresses ``tok_a`` / ``tok_b``, its
-    final3 into row ``pairs[p, 2]`` of ``final3``, on ``cost_mat``'s card;
-    ``grid`` (M, N) the rows and columns of the outputs and edge buffers
-    (no pair's m or n past them).  ``rows`` checked lists
-    (:func:`_rows_of`), ``shape`` the (H, W) (default :func:`plan`'s).
-    The tables go in one non-blocking copy from pinned memory, so nothing
-    here waits for the card.  Returns ``(moves (B, M+1, N+1) or None, rows
-    (B, K, 3, N+1) or None)``; ``gotoh_tile.launches`` counts the launch."""
+    final3 into row ``pairs[p, 2]`` of ``final3``, its codes (where
+    ``codes``, a uint8 buffer, is given) into the region of ``codes`` that
+    ``pairs[p, 3:]`` gives, on ``cost_mat``'s card, on the current stream;
+    ``grid`` (M, N) the rows and columns of the rows and edge buffers (no
+    pair's m or n past them).  ``rows`` checked lists (:func:`_rows_of`),
+    ``shape`` the (H, W) (default :func:`plan`'s).  The tables go in one
+    non-blocking copy from pinned memory, so nothing here waits for the
+    card.  Returns the rows (B, K, 3, N+1) or None;
+    ``gotoh_tile.launches`` counts the launch."""
     from ..utils import cuda_build
     from .fill_cuda import _sms
 
@@ -280,7 +347,7 @@ def _run(tok_a: int, tok_b: int, cost_mat, gap_id, gap_open, dims, pairs,
     batch = len(dims)
     m1, n1 = grid[0] + 1, grid[1] + 1
     if shape is None:
-        shape = plan(dims, want_moves, _sms(device.index))
+        shape = plan(dims, codes is not None, _sms(device.index))
     height, width = shape
     if (height, width) not in SHAPES:
         raise ValueError(f"no gotoh_tile instance of shape {shape}")
@@ -294,8 +361,6 @@ def _run(tok_a: int, tok_b: int, cost_mat, gap_id, gap_open, dims, pairs,
     host_layout(order, pairs, meta, out=host.numpy())
     with torch.cuda.device(device):
         tables = host.to(device, non_blocking=True)
-        moves = (torch.empty((batch, m1, n1), dtype=torch.uint8, device=device)
-                 if want_moves else None)
         rows_out = (torch.empty((batch, k, 3, n1), dtype=torch.int32,
                                 device=device) if rows else None)
         rowbuf = torch.empty((batch, tile_cols * columns + 1, EDGE_INTS),
@@ -314,7 +379,7 @@ def _run(tok_a: int, tok_b: int, cost_mat, gap_id, gap_open, dims, pairs,
         err = lib.gotoh_tile_launch(
             tok_a, tok_b, cost_mat.data_ptr(), ptr(row0), ptr(col0y_top),
             at + 4 * (order.size + 2 * pairs.size), at, at + 4 * order.size,
-            final3.data_ptr(), ptr(moves), ptr(rows_out), rowbuf.data_ptr(),
+            final3.data_ptr(), ptr(codes), ptr(rows_out), rowbuf.data_ptr(),
             colbuf.data_ptr(), flags.data_ptr(), batch, m1 - 1, n1 - 1,
             cost_mat.shape[0], int(gap_id), int(gap_open), k, len(order),
             height, width, stream,
@@ -322,7 +387,7 @@ def _run(tok_a: int, tok_b: int, cost_mat, gap_id, gap_open, dims, pairs,
     if err != 0:
         msg = lib.gotoh_tile_error_string(err).decode()
         raise RuntimeError(f"gotoh_tile launch failed: CUDA error {err} ({msg})")
-    return moves, rows_out
+    return rows_out
 
 
 def launch(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
@@ -339,11 +404,14 @@ def launch(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
     p = np.arange(batch, dtype=np.int64)
     pairs = np.zeros((batch, PAIR_WORDS), np.int64)
     pairs[:, 0], pairs[:, 1], pairs[:, 2] = p * m1, p * n1, p
+    pairs[:, 3], pairs[:, 4], pairs[:, 5] = p * m1 * n1, n1, m1  # dense codes
     final3 = torch.empty((batch, 3), dtype=torch.int32, device=tok_a.device)
-    moves, rows_out = _run(
+    moves = (torch.empty((batch, m1, n1), dtype=torch.uint8, device=tok_a.device)
+             if want_moves else None)
+    rows_out = _run(
         tok_a.data_ptr(), tok_b.data_ptr(), cost_mat, gap_id, gap_open,
         list(zip(m_true.tolist(), n_true.tolist())), pairs, final3,
-        (m1 - 1, n1 - 1), want_moves=want_moves, rows=rows, row0=row0,
+        (m1 - 1, n1 - 1), codes=moves, rows=rows, row0=row0,
         col0y_top=col0y_top, shape=shape,
     )
     return final3, moves, rows_out
@@ -365,9 +433,9 @@ def launch_ragged(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
             for d in zip(mt.tolist(), nt.tolist())]
     grid = (max(t.shape[1] for t in tok_a) - 1,
             max(t.shape[1] for t in tok_b) - 1)
-    _, rows_out = _run(base, base, cost_mat, gap_id, gap_open, dims, pairs,
-                       final3, grid, want_moves=False,
-                       rows=[[m] for m, _ in dims] if last_rows else None)
+    rows_out = _run(base, base, cost_mat, gap_id, gap_open, dims, pairs,
+                    final3, grid,
+                    rows=[[m] for m, _ in dims] if last_rows else None)
     if not last_rows:
         return None
     lasts, lo = [], 0
@@ -375,6 +443,24 @@ def launch_ragged(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true,
         lasts.append(rows_out[lo : lo + tb.shape[0], 0, :, : tb.shape[1]])
         lo += tb.shape[0]
     return lasts
+
+
+def launch_codes(layout, codes, final3, cost_mat, gap_id, gap_open, *,
+                 shape=None) -> None:
+    """One launch with codes over pairs of a ragged moves fill, into its
+    buffers: ``layout`` the pairs' host descriptors (rows of
+    ``fill_cuda.RaggedMoves.layout``: token addresses on ``cost_mat``'s
+    card, m, n, the codes' byte offset and row stride, the final3 row),
+    ``codes`` the fill's uint8 buffer and ``final3`` its (P, 3) int32 rows.
+    Each pair's region of ``codes`` comes out as ``batch_moves_ragged``
+    writes it, and no byte outside the pairs' regions is written.  On the
+    current stream; ``shape`` the (H, W) (default :func:`plan`'s)."""
+    base, pairs = codes_pairs(layout)
+    dims = list(zip(np.asarray(layout)[:, 2].tolist(),
+                    np.asarray(layout)[:, 3].tolist()))
+    grid = (max(m for m, _ in dims), max(n for _, n in dims))
+    _run(base, base, cost_mat, gap_id, gap_open, dims, pairs, final3, grid,
+         codes=codes, shape=shape)
 
 
 def _plain_rows(tok_a, tok_b, cost_mat, gap_id, gap_open, m, n, rows, row0,
@@ -479,7 +565,7 @@ def checkpoint_rows(tok_a: torch.Tensor, tok_b: torch.Tensor,
 
 def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
                 height: int, columns: int, rows=None, want_moves: bool = True,
-                row0=None, col0y_top=None, offsets=None):
+                row0=None, col0y_top=None, offsets=None, codes=None):
     """The kernel's schedule, executed on the host: ``(final3 (B, 3),
     moves (B, M+1, N+1) or None, rows (B, K, 3, N+1) or None)`` as numpy
     arrays, for numpy inputs shaped as :func:`gotoh_tile`'s (``rows``
@@ -487,10 +573,15 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
     pair table, :func:`ragged_pairs`), ``tok_a`` and ``tok_b`` are flat
     buffers and pair p reads its m + 1 and n + 1 tokens from those
     offsets, as the kernel does; M and N are then the largest m and n.
+    With ``codes`` ((B, 3): the last three columns of a pair table,
+    :func:`codes_pairs`: each pair's byte offset, row stride and rows),
+    ``moves`` is a flat uint8 buffer up to the last region's end, each
+    pair's codes in its region as the kernel writes them; a byte of no
+    region keeps the 255 it starts from.
 
     What the kernel does, in its order: the writes no tile makes (the code
-    bytes of row 0, column 0 and the padding; row 0 and the pairs with m
-    or n of 0), then the tiles of ``tile_order(dims, height, columns)`` in
+    bytes of row 0, column 0, the padding and the rows past m of each
+    pair's region; row 0 and the pairs with m or n of 0), then the tiles of ``tile_order(dims, height, columns)`` in
     ticket order, each filled from nothing but what the kernel hands over
     — the row buffer (the bottom row of the tile above, and column 0's Iy
     at entry 0), the column buffer (the left tile's right column with Ix
@@ -524,7 +615,16 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
         assert len(sa) == m + 1 and len(sb) == n + 1, "tokens past the buffer"
     k_rows = len(rows[0]) if rows else 0
     final3 = np.zeros((batch, 3), np.int64)
-    moves = np.full((batch, m1, n1), 255, np.uint8) if want_moves else None
+    dense = codes is None
+    if dense:  # the regions of a (B, M+1, N+1) buffer
+        codes = [(p * m1 * n1, n1, m1) for p in range(batch)]
+    codes = np.asarray(codes, np.int64).reshape(batch, 3)
+    moves = (np.full(int((codes[:, 0] + codes[:, 1] * codes[:, 2]).max(
+        initial=0)), 255, np.uint8) if want_moves else None)
+    region = [moves[off : off + ld * nrows].reshape(nrows, ld)
+              for off, ld, nrows in codes.tolist()] if want_moves else None
+    for (m, n), (_, ld, nrows) in zip(dims, codes.tolist()):
+        assert nrows > m and ld > n, "a region too small for its pair"
     rows_out = np.full((batch, k_rows, 3, n1), -1, np.int64) if rows else None
 
     def row0_at(p, j, dprefix):
@@ -536,10 +636,10 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
     for p, (m, n) in enumerate(dims):
         seed = go if col0y_top is None else int(np.asarray(col0y_top)[p])
         if want_moves:
-            moves[p, 0, :] = 0
-            moves[p, :, 0] = 0
-            moves[p, 1 : m + 1, n + 1 :] = 0
-            moves[p, m + 1 :, :] = 0
+            region[p][0, :] = 0
+            region[p][:, 0] = 0
+            region[p][1 : m + 1, n + 1 :] = 0
+            region[p][m + 1 :, :] = 0
         if rows:
             rows_out[p, :, :, n + 1 :] = BIG
         wants_row0 = bool(rows) and rows[p][0] == 0
@@ -625,7 +725,7 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
                     code_m = 0 if d_m == best else 1 if d_x == best else 2
                     code_y = 0 if mp + go == vy else 1 if xp + go == vy else 2
                     code_x = 0 if xc == h_m + go + d else 1 if xc == h_x + d else 2
-                    moves[p, i, j] = code_m | code_x << 2 | code_y << 4
+                    region[p][i, j] = code_m | code_x << 2 | code_y << 4
                 d_m, d_x, d_y = mp, xp, yp
                 new.append((mc, xc, yc))
                 h_m, h_x, h_y = mc, xc, yc
@@ -644,4 +744,6 @@ def plain_tiled(tok_a, tok_b, cost_mat, gap_id, gap_open, m_true, n_true, *,
             rowbuf[p][0] = ((t, me), edge[hh])
         if n > c0 + columns:  # a tile to the right
             colbuf[p][b][: hh + 1] = [((t, me), v) for v in right]
+    if want_moves and dense:
+        moves = moves.reshape(batch, m1, n1)
     return final3, moves, rows_out

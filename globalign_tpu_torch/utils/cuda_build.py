@@ -51,6 +51,11 @@ SIGNATURES = {
             + [_PTR],  # stream
             _I32,
         ),
+        "gotoh_fill_clusters": (
+            [_I32] * 6  # W warps P moves ragged A
+            + [_PTR],  # clusters (int *)
+            _I32,
+        ),
         "gotoh_fill_error_string": ([_I32], ctypes.c_char_p),
     },
     "gotoh_batch": {

@@ -645,7 +645,7 @@ def test_ragged_fill_and_walk_match_plain(cuda_device, letters, kw, placed):
         offsets[order] = np.cumsum(np.concatenate([[16], size[order][:-1] + 48]))
         place = dict(offsets=offsets, nbytes=int((offsets + size).max()) + 9)
     want = fill_cuda.batch_moves_ragged(*args, **place)
-    warp, classes = fill_cuda.ragged_routes(
+    warp, classes, _ = fill_cuda.ragged_routes(
         m, n, shared[0].shape[0],
         torch.cuda.get_device_properties(cuda_device).multi_processor_count)
     counters = (fill_batch.batch_moves_warp, fill_cuda.batch_moves_ragged,
@@ -739,7 +739,7 @@ def test_batch_moves_ragged_mixes_both_routes(cuda_device):
             [b[5] for b in buckets], [b[6] for b in buckets])
     m = [x for b in buckets for x in b[5]]
     n = [x for b in buckets for x in b[6]]
-    warp, classes = fill_cuda.ragged_routes(
+    warp, classes, _ = fill_cuda.ragged_routes(
         m, n, 5, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
     assert [w for w, _ in warp] == [4, 32] and classes
     want = fill_cuda.batch_moves_ragged(*args)
@@ -757,6 +757,79 @@ def test_batch_moves_ragged_mixes_both_routes(cuda_device):
     assert torch.equal(got.codes.cpu(), want.codes)
     for g, w in zip(got_walk, linear_tb.walk_ragged(want)):
         assert torch.equal(g.cpu(), w)
+
+
+def _split_call(rng, letters, kw):
+    """A ragged set on both routes: 6 narrow pairs (gotoh_batch_moves) and
+    one gotoh_fill launch class of 5 pairs of 1934-2048 columns (W 4, 2
+    warps, 8 bands, 1 pass at 132 SMs) and 300-2000 rows, in two buckets."""
+    narrow = [(int(rng.integers(1, 300)), int(rng.integers(1, 1000)))
+              for _ in range(6)]
+    wide = [(300, 1950), (2000, 2048), (1200, 1999), (700, 1934), (1500, 2011)]
+    return _ragged_args([_case(rng, letters, narrow[:3] + wide[:2], **kw),
+                         _case(rng, letters, narrow[3:] + wide[2:], **kw)])
+
+
+def _split_counts():
+    return (fill_batch.batch_moves_warp.launches,
+            fill_cuda.batch_moves_ragged.launches,
+            fill_cuda.batch_moves_ragged.wide_pairs,
+            fill_tile.gotoh_tile.launches,
+            fill_cuda.batch_moves_ragged.tile_launches,
+            fill_cuda.batch_moves_ragged.tile_pairs)
+
+
+@pytest.mark.parametrize("letters,kw", [("ACGT", {}), (PROTEIN, BLOSUM)])
+def test_a_split_launch_class_matches_plain(cuda_device, monkeypatch, letters,
+                                            kw):
+    """A call on both routes whose gotoh_fill launch class of 5 pairs is
+    forced to split (the cluster query patched to 4: the smallest pair
+    goes to gotoh_tile, on the side stream): a gotoh_batch_moves launch a
+    width class, one gotoh_fill launch of 4 and one gotoh_tile launch of 1;
+    final3, every pair's region of the buffer (packed, and placed with
+    gaps out of pair order) and the walk equal the plain versions."""
+    rng = np.random.default_rng(91 + len(letters))
+    args = _split_call(rng, letters, kw)
+    m = [x for ms in args[5] for x in ms]
+    n = [x for ns in args[6] for x in ns]
+    warp, classes, tiles = fill_cuda.ragged_routes(
+        m, n, args[2].shape[0], _sms(cuda_device), lambda lp: 4)
+    assert len(classes) == 1 and [len(t) for t in tiles] == [1]
+    assert m[int(tiles[0][0])] == 300
+    monkeypatch.setattr(fill_cuda, "_clusters", lambda index, alphabet, lp: 4)
+    for place in ({}, _placed(rng, args)):
+        want = fill_cuda.batch_moves_ragged(*args, **place)
+        before = _split_counts()
+        got = fill_cuda.batch_moves_ragged(*_ragged_on(cuda_device, args), **place)
+        got_walk = linear_tb.walk_ragged(got)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_split_counts(), before)] == [
+            len(warp), 1, 4, 1, 1, 1]
+        _assert_ragged_equal(got, want)
+        if not place:
+            assert torch.equal(got.codes.cpu(), want.codes)
+        for g, w in zip(got_walk, linear_tb.walk_ragged(want)):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_split_class_makes_no_synchronising_call(cuda_device, monkeypatch):
+    """The ragged moves fill with a class split (the cluster query patched
+    to 4) queues its gotoh_fill launch, the side stream's gotoh_tile launch
+    and the joins without a synchronising call (sync debug mode "error"),
+    and equals the plain version."""
+    args = _split_call(np.random.default_rng(95), "ACGT", {})
+    monkeypatch.setattr(fill_cuda, "_clusters", lambda index, alphabet, lp: 4)
+    on_card = _ragged_on(cuda_device, args)
+    fill_cuda.batch_moves_ragged(*on_card)  # the build, the card's SMs
+    torch.cuda.synchronize()
+    before = fill_cuda.batch_moves_ragged.tile_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fill_cuda.batch_moves_ragged(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fill_cuda.batch_moves_ragged.tile_launches == before + 1
+    _assert_ragged_equal(got, fill_cuda.batch_moves_ragged(*args))
 
 
 def test_align_pairs_genomes_match_the_reference(cuda_device):
@@ -1126,6 +1199,66 @@ def test_gotoh_tile_takes_a_table_in_global_memory(cuda_device):
     for shape in fill_tile.SHAPES:
         _assert_tile_equals_plain(cuda_device, _case(rng, letters, [(70, 300)]),
                                   shape)
+
+
+def _placed(rng, args, gap=48):
+    """``batch_moves_ragged``'s ``offsets`` / ``nbytes`` placing a ragged
+    set's pairs with gaps, out of pair order, at multiples of 16."""
+    m = [x for ms in args[5] for x in ms]
+    n = [x for ns in args[6] for x in ns]
+    size = fill_cuda.ragged_bytes(np.array(m), np.array(n))
+    order = rng.permutation(len(m))
+    offsets = np.zeros(len(m), np.int64)
+    offsets[order] = np.cumsum(np.concatenate([[16], size[order][:-1] + gap]))
+    return dict(offsets=offsets, nbytes=int((offsets + size).max()) + 9)
+
+
+def _assert_tile_codes_equal(dev, args, place, shape=None):
+    """One ``fill_tile.launch_codes`` launch over every pair of a ragged set
+    (``batch_moves_ragged``'s arguments, placed by ``place``) into a buffer
+    of 0xAB bytes == the plain ragged fill: final3 and every byte of each
+    pair's region; the bytes outside the regions keep their 0xAB."""
+    want = fill_cuda.batch_moves_ragged(*args, **place)
+    tas, tbs, cost, gid, go, mts, nts = _ragged_on(dev, args)
+    _, lengths = fill_cuda._check_buckets(tas, tbs, cost, gid, mts, nts)
+    layout, nbytes = fill_cuda._ragged_layout(tas, tbs, lengths, place["offsets"],
+                                              place["nbytes"])
+    codes = torch.full((nbytes,), 0xAB, dtype=torch.uint8, device=dev)
+    final3 = torch.full((len(layout), 3), -7, dtype=torch.int32, device=dev)
+    before = fill_tile.gotoh_tile.launches
+    fill_tile.launch_codes(layout, codes, final3, cost, gid, go, shape=shape)
+    torch.cuda.synchronize()
+    assert fill_tile.gotoh_tile.launches == before + 1
+    assert torch.equal(final3.cpu(), want.final3)
+    region = torch.zeros(nbytes, dtype=torch.bool, device=dev)
+    for row in want.layout.tolist():
+        lo, hi = row[4], row[4] + (row[2] + 1) * row[5]
+        assert torch.equal(codes[lo:hi].cpu(), want.codes[lo:hi]), row[2:4]
+        region[lo:hi] = True
+    assert bool(torch.where(region, 0xAB, codes).eq(0xAB).all())
+
+
+@pytest.mark.parametrize("shape", fill_tile.SHAPES)
+@pytest.mark.parametrize("letters,scheme_kw", [
+    ("ACGT", {}), (PROTEIN, BLOSUM), (WIDE, WIDE_KW),
+])
+def test_gotoh_tile_codes_into_a_ragged_fill_at_its_tile_edges(
+        cuda_device, shape, letters, scheme_kw):
+    """gotoh_tile with codes at a ragged fill's byte offsets and row
+    strides (``fill_tile.launch_codes``), every (H, W) instance, one launch
+    over pairs at its tile edges (k H +- 1 rows, k 32 W +- 1 columns, m or
+    n of 0 and 1) and with n + 1 at every residue mod 16, placed with gaps
+    out of pair order: final3 and each pair's region equal the plain ragged
+    fill byte for byte, and no byte outside the regions is written."""
+    height, width = shape
+    cols = 32 * width
+    shapes = [sh for group in _tile_shapes(height, width) for sh in group]
+    shapes += [(height + 3 * k, cols + k) for k in range(16)]
+    assert {(n + 1) % 16 for _, n in shapes} == set(range(16))
+    rng = np.random.default_rng(7 * height + width + len(letters))
+    args = _ragged_args([_case(rng, letters, shapes[k : k + 5], **scheme_kw)
+                         for k in range(0, len(shapes), 5)])
+    _assert_tile_codes_equal(cuda_device, args, _placed(rng, args), shape)
 
 
 def _fill_launches():
@@ -1635,7 +1768,7 @@ def test_ragged_fill_and_walk_at_main_path_sizes(cuda_device, letters, kw,
     rng = np.random.default_rng(len(shapes) + len(letters))
     args = _ragged_args([_case(rng, letters, sh, **kw) for sh in shapes])
     want = fill_cuda.batch_moves_ragged(*args)
-    warp, classes = fill_cuda.ragged_routes(
+    warp, classes, _ = fill_cuda.ragged_routes(
         [m for ms in args[5] for m in ms], [n for ns in args[6] for n in ns],
         args[2].shape[0], _sms(cuda_device))
     counters = (fill_batch.batch_moves_warp, fill_cuda.batch_moves_ragged,
@@ -1840,6 +1973,8 @@ def _counts() -> dict:
     out["fetch"] = batch_mod._to_host.copies
     out["wide_launches"] = fill_batch.batch_final3_ragged.wide_launches
     out["wide_pairs"] = fill_batch.batch_final3_ragged.wide_pairs
+    out["tile_launches"] = fill_cuda.batch_moves_ragged.tile_launches
+    out["tile_pairs"] = fill_cuda.batch_moves_ragged.tile_pairs
     return out
 
 
@@ -2123,8 +2258,8 @@ def test_align_pairs_routes(cuda_device, launches, monkeypatch, name):
         assert len(segs) >= 3
         assert moved == _design(
             cuda_device, *_blocked_fills(1200, 1100), gotoh_tile=1, walk_block=1,
-            batch_moves_warp=sum(len(w) for w, _ in routes),
-            batch_moves_ragged=sum(len(c) for _, c in routes),
+            batch_moves_warp=sum(len(w) for w, _, _ in routes),
+            batch_moves_ragged=sum(len(c) for _, c, _ in routes),
             walk_ragged=len(segs), render_ragged=len(segs), **LETTERS_DESIGN)
         assert got == want == align_pairs(pairs, device="cpu")
     elif name == "both routes":
@@ -2135,7 +2270,7 @@ def test_align_pairs_routes(cuda_device, launches, monkeypatch, name):
         launches()
         got = align_pairs(pairs)
         moved = launches()
-        warp, classes = fill_cuda.ragged_routes(
+        warp, classes, _ = fill_cuda.ragged_routes(
             [len(a) for a, _ in pairs], [len(b) for _, b in pairs], dna,
             _sms(cuda_device))
         assert warp and classes
@@ -2186,6 +2321,66 @@ def test_align_pairs_routes(cuda_device, launches, monkeypatch, name):
             moved["render_ragged"], moved["tokenize_ragged"],
             moved["letters_upload"]) == (1, 1, 1)
         assert pending.resolve() == want
+
+
+def _genome_call(count: int = 16):
+    """``count`` pairs of 29 903 nt from the genome cell's traffic
+    (``benchmark/traffic/sars2_genomes_tb.json``) and its scheme's
+    keywords, BLAST+'s blastn."""
+    from benchmark.harness import traffic
+
+    bench = REPO / "benchmark"
+    mix = json.loads((bench / "traffic" / "sars2_genomes_tb.json").read_text())
+    kw = json.loads((bench / "configs" / "sars2_blastn.json").read_text())["scheme"]
+    (pairs,) = traffic.generate({**mix, "pool_calls": 1, "pairs_per_call": count},
+                                "ACGT", 2 ** 31 + 23)
+    return pairs, kw
+
+
+def test_genome_call_fills_its_last_wave_on_gotoh_tile(cuda_device, launches,
+                                                       monkeypatch):
+    """A call of 16 genomes (one traceback segment, one gotoh_fill launch
+    class at W 16, 8 warps, 8 bands): the card holds fewer clusters of it
+    than 16 (15 on an H100), so one gotoh_fill ragged launch fills 15 and
+    one gotoh_tile launch with codes the 16th into the same buffer; equal
+    to the same call with the split off (the cluster query patched to 16):
+    final3, every byte of the codes, the walk, and every line of the
+    call's results."""
+    pairs, kw = _genome_call()
+    scheme = resolve_scheme("ACGT", "ACGT", **kw)
+    call, order = _pack_of(cuda_device, pairs, scheme)
+    args = _fill_args(cuda_device, call, order, scheme)
+    m = [x for ms in args[5] for x in ms]
+    n = [x for ns in args[6] for x in ns]
+    alphabet = args[2].shape[0]
+    ((lp, _),) = fill_cuda.ragged_classes(m, n, _sms(cuda_device))
+    clusters = fill_cuda._clusters(cuda_device.index or 0, alphabet, lp)
+    assert fill_tile.route_tail(sorted(zip(m, n), key=lambda d: -d[0] * d[1]),
+                                clusters, _sms(cuda_device)) == 1, clusters
+    launches()
+    wide = fill_cuda.batch_moves_ragged.wide_pairs
+    split = fill_cuda.batch_moves_ragged(*args)
+    split_walk = linear_tb.walk_ragged(split)
+    assert launches() == dict(batch_moves_ragged=1, gotoh_tile=1, tile_launches=1,
+                              tile_pairs=1, walk_ragged=1)
+    assert fill_cuda.batch_moves_ragged.wide_pairs - wide == 15
+    got = align_pairs(pairs, **kw)
+    assert launches() == dict(batch_moves_ragged=1, gotoh_tile=1, tile_launches=1,
+                              tile_pairs=1, walk_ragged=1, render_ragged=1,
+                              **LETTERS_DESIGN)
+    with monkeypatch.context() as patch:
+        patch.setattr(fill_cuda, "_clusters", lambda index, alphabet, lp: 16)
+        whole = fill_cuda.batch_moves_ragged(*args)
+        whole_walk = linear_tb.walk_ragged(whole)
+        assert launches() == dict(batch_moves_ragged=1, walk_ragged=1)
+        want = align_pairs(pairs, **kw)
+    assert torch.equal(split.final3, whole.final3)
+    assert torch.equal(split.codes, whole.codes)
+    for g, w in zip(split_walk, whole_walk):
+        assert torch.equal(g, w)
+    assert got == want
+    del split, whole, split_walk, whole_walk
+    torch.cuda.empty_cache()
 
 
 def _pack_of(dev, pairs, scheme):
@@ -2281,12 +2476,20 @@ def test_letters_kernels_on_a_chunk(cuda_device, tmp_path, name):
                               [b for _, b in order]))
 
 
-@pytest.mark.parametrize("buffer", ["codes", "tokens", "lines"])
+@pytest.mark.parametrize("buffer", ["codes", "tile codes", "tokens", "lines"])
 def test_offsets_past_byte_2_31(cuda_device, buffer):
     """int64 offsets end to end: a ragged fill's pair placed past byte 2^31
     of a 2.2 GB codes buffer (fill and walk == plain, one
-    gotoh_batch_moves launch); a chunk's token rows past byte 2^31 of a
-    2.2 GB arena; its lines past byte 2^31 of a 3.2 GB lines buffer."""
+    gotoh_batch_moves launch), and gotoh_tile's codes there (one
+    ``fill_tile.launch_codes`` launch == plain, nothing written outside
+    the pairs' regions); a chunk's token rows past byte 2^31 of a 2.2 GB
+    arena; its lines past byte 2^31 of a 3.2 GB lines buffer."""
+    if buffer == "tile codes":
+        args = _ragged_args([_case(np.random.default_rng(33), "ACGT",
+                                   [(700, 650), (1000, 1000)])])
+        _assert_tile_codes_equal(cuda_device, args, dict(
+            offsets=[16, 2**31 + 4096], nbytes=2_200_000_000))
+        return
     if buffer == "codes":
         args = _ragged_args([_case(np.random.default_rng(31), "ACGT",
                                    [(700, 650), (1000, 1000)])])
@@ -2788,14 +2991,27 @@ def _batch_cell(dev, pairs, scheme, with_traceback):
         return run, want
     m_all = [m for ms in mts for m in ms]
     n_all = [n for ns in nts for n in ns]
-    warp, classes = fill_cuda.ragged_routes(m_all, n_all, alphabet, sms)
+    warp, classes, tails = fill_cuda.ragged_routes(
+        m_all, n_all, alphabet, sms,
+        functools.partial(fill_cuda._clusters, dev.index or 0, alphabet))
     ((lp, idx),) = classes  # the call's genomes in one launch class
-    assert not warp and len(idx) == len(m_all)
-    _row(want, f"gotoh_fill_kernel<{lp[0]},true,true,true>",
-         f"{len(idx)} pairs, {lp[1]} warps, {lp[2]} bands, {lp[3]} passes",
-         lambda: _plain_fill_ms(fill_cuda.batch_moves_ragged, *args),
-         cells=sum(m * n for m, n in zip(m_all, n_all)),
-         bytes=sum((m + 1) * (n + 1) for m, n in zip(m_all, n_all)))
+    assert not warp and len(idx) + sum(len(t) for t in tails) == len(m_all)
+    cells = sum(m * n for m, n in zip(m_all, n_all))
+    plain = functools.cache(  # the call's fill on the host, shared by cells
+        lambda: _plain_fill_ms(fill_cuda.batch_moves_ragged, *args) / cells)
+
+    def fill_row(name, shape, ks):
+        part = sum(m_all[k] * n_all[k] for k in ks)
+        _row(want, name, shape, lambda: plain() * part, cells=part,
+             bytes=sum((m_all[k] + 1) * (n_all[k] + 1) for k in ks))
+
+    fill_row(f"gotoh_fill_kernel<{lp[0]},true,true,true>",
+             f"{len(idx)} pairs, {lp[1]} warps, {lp[2]} bands, {lp[3]} passes",
+             idx.tolist())
+    for tail in tails:  # the pairs its clusters leave to a last wave
+        h, w = fill_tile.plan([(m_all[k], n_all[k]) for k in tail], True, sms)
+        fill_row(f"gotoh_tile_kernel<{h},{w},true,true>",
+                 f"{len(tail)} pairs, codes into the ragged fill", tail.tolist())
     ops, count, j_exit = out["walk"]
     lo, ld = (int(x) for x in out["layout"][0, 4:6])
     m0, n0 = m_all[0], n_all[0]

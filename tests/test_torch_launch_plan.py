@@ -205,18 +205,42 @@ def test_genome_call_segments(monkeypatch, capacity, segments):
         assert len(batch._segments(list(buckets.values()), cap)) == segments
 
 
-def test_genome_segment_is_one_gotoh_fill_launch():
+@pytest.mark.parametrize("clusters,tail", [(15, 1), (16, 0), (20, 0), (13, 3),
+                                           (12, 4), (11, 0)])
+def test_genome_segment_is_one_gotoh_fill_launch(clusters, tail):
     """A segment of a call's 16 genomes: no ``gotoh_batch_moves`` launch and
-    one ``gotoh_fill`` ragged launch class of all 16 at W 16, 8 warps, 8
-    bands and 1 pass, the table in shared memory:
-    ``gotoh_fill_kernel<16,true,true,true>``."""
+    one ``gotoh_fill`` ragged launch class at W 16, 8 warps, 8 bands and 1
+    pass, the table in shared memory: ``gotoh_fill_kernel<16,true,true,
+    true>``, of every genome but the ``tail`` its ``clusters`` (as many as
+    the card holds at once) leave to a last wave, which one
+    ``gotoh_tile`` launch takes, the smallest.  On an H100 the card holds
+    15: one genome goes to ``gotoh_tile_kernel<64,4,true,true>``; at 16 or
+    20 none (no partial wave); at 13 three and at 12 four (at (128, 4) 4 x
+    54 756 tiles are within 528 warps x a path of 467), at 11 none (5 left
+    over are not path-bound)."""
     width, moves, tsmem, ragged = _instance("gotoh_fill_kernel<16,true,true,true>")
-    assert moves and ragged
+    height, tile_w, tile_moves, tile_tsmem = _instance(
+        "gotoh_tile_kernel<64,4,true,true>")
+    assert moves and ragged and tile_moves
     for call in _genome_calls():
-        warp, classes = fill_cuda.ragged_routes(
-            [len(a) for a, _ in call], [len(b) for _, b in call], DNA_TABLE, SMS)
+        m, n = [len(a) for a, _ in call], [len(b) for _, b in call]
+        warp, classes, tiles = fill_cuda.ragged_routes(
+            m, n, DNA_TABLE, SMS, lambda lp: clusters)
         assert warp == []
         ((lp, idx),) = classes
         assert tuple(lp) == (width, 8, 8, 1)
         assert tsmem is _fill_table_in_smem(width, lp[1], moves, DNA_TABLE)
-        assert sorted(np.asarray(idx).tolist()) == list(range(16))
+        assert len(idx) == 16 - tail
+        if not tail:
+            assert tiles == []
+            assert sorted(np.asarray(idx).tolist()) == list(range(16))
+            continue
+        ((rest),) = tiles
+        assert sorted(np.concatenate([idx, rest]).tolist()) == list(range(16))
+        cells = [m[k] * n[k] for k in range(16)]
+        assert max(cells[k] for k in rest) <= min(cells[k] for k in idx)
+        dims = [(m[k], n[k]) for k in rest]
+        assert fill_tile.path_bound(dims, True, SMS)
+        if tail == 1:  # the cell's
+            assert fill_tile.plan(dims, True, SMS) == (height, tile_w)
+        assert tile_tsmem is _tile_table_in_smem(height, tile_w, True, DNA_TABLE)

@@ -219,7 +219,8 @@ def test_ragged_routes():
     chunk is one W = 32 launch and no ``gotoh_fill`` launch."""
     m = [3, 50, 7, 9, 400, 2, 1, 0, 700, 5, 12]
     n = [90, 40_000, 5000, 130, 129, 1, 0, 5, 1024, 1025, 600]
-    warp, rest = fill_cuda.ragged_routes(m, n, 20, 132)
+    warp, rest, tile = fill_cuda.ragged_routes(m, n, 20, 132)
+    assert tile == []
     assert [(w, idx.tolist()) for w, idx in warp] == [
         (4, [0, 5, 6, 7]), (8, [4, 3]), (32, [8, 10])]
     assert sorted(k for _, idx in rest for k in idx.tolist()) == [1, 2, 9]
@@ -228,7 +229,7 @@ def test_ragged_routes():
     assert [(lp, idx.tolist()) for lp, idx in rest] == [
         (lp, [sub[k] for k in idx.tolist()]) for lp, idx in want]
     for alphabet in (250, 300):  # past shared memory (4 A^2 bytes), past 256
-        warp, rest = fill_cuda.ragged_routes(m, n, alphabet, 132)
+        warp, rest, _ = fill_cuda.ragged_routes(m, n, alphabet, 132)
         assert not warp
         assert sorted(k for _, idx in rest for k in idx.tolist()) == list(range(11))
     rng = np.random.default_rng(5)
@@ -237,6 +238,48 @@ def test_ragged_routes():
     assert width == 32 and not fill_cuda.ragged_routes(m, n, 5, 132)[1]
     assert sorted(idx.tolist()) == list(range(1024))
     assert (np.diff(m[idx] * n[idx]) <= 0).all()
+
+
+@pytest.mark.parametrize("case,clusters,kept", [
+    ("lone wave", 11, [11]), ("partial wave", 4, [8]), ("two classes", 2, [2, 10]),
+    ("past the aspect", 5, [11]), ("not path-bound", 6, [11]),
+])
+def test_ragged_routes_give_a_partial_wave_to_gotoh_tile(case, clusters, kept):
+    """Given the clusters of each launch the card holds at once, a
+    ``gotoh_fill`` class of P pairs over C clusters gives its last P mod C
+    pairs, the smallest, to one ``gotoh_tile`` launch a class
+    (``fill_tile.route_tail``) when P > C, each of them within 8 columns a
+    row, and the launch over them is path-bound; else it keeps them.
+    Classes of 11 pairs of 2500 columns (one class at 132 SMs): over 11
+    clusters none goes, over 4 three; with a class of 3 pairs of 40 000
+    columns over 2 clusters one of each; over 5 none, the smallest 9
+    columns a row; 11 genome-sized pairs over 6 none (5 left over are not
+    path-bound)."""
+    m = [2000 + 90 * k for k in range(11)]
+    n = [2500] * 11
+    if case == "two classes":
+        m += [6000, 6100, 6200]
+        n += [40_000] * 3
+    if case == "past the aspect":
+        m[4] = 300
+    if case == "not path-bound":
+        m, n = [29_903 + k for k in range(11)], [29_903] * 11
+    warp, fill, tile = fill_cuda.ragged_routes(m, n, 5, 132, lambda lp: clusters)
+    plain = fill_cuda.ragged_routes(m, n, 5, 132)
+    assert warp == plain[0] == [] and plain[2] == []
+    assert [lp for lp, _ in fill] == [lp for lp, _ in plain[1]]
+    assert [len(idx) for _, idx in fill] == kept
+    cells = np.array(m) * np.array(n)
+    tails = []
+    for (_, idx), (_, whole) in zip(fill, plain[1]):
+        assert idx.tolist() == whole[: len(idx)].tolist()  # longest first
+        if len(idx) < len(whole):
+            assert len(whole) > clusters
+            assert len(whole) - len(idx) == len(whole) % clusters
+            tails.append(whole[len(idx) :].tolist())
+            assert cells[whole[len(idx) :]].max() <= cells[idx].min()
+    assert [t.tolist() for t in tile] == tails
+    assert len(tile) == {"partial wave": 1, "two classes": 2}.get(case, 0)
 
 
 def _call_pairs(letters, seed):
@@ -300,7 +343,7 @@ def test_align_pairs_in_segments_matches_jax(monkeypatch, tmp_path, name):
     assert filled == len(pairs) - (not wide)
     routes = [fill_cuda.ragged_routes(np.concatenate(f[5]), np.concatenate(f[6]),
                                       f[2].shape[0], 132) for f in fills]
-    assert any(warp and rest for warp, rest in routes) == wide
+    assert any(warp and rest for warp, rest, _ in routes) == wide
     for f in fills:  # each segment's codes fit the budget
         assert sum(fill_cuda.ragged_bytes(m, n) for mt, nt in zip(f[5], f[6])
                    for m, n in zip(mt, nt)) <= budget

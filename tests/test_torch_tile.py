@@ -221,10 +221,58 @@ def test_plain_tiled_reads_a_ragged_arena(name, tile):
             p += 1
 
 
+# A ragged moves fill's set: n + 1 at every residue mod 16, m or n of 0.
+RAGGED_CODES = [
+    [(m, n) for m, n in zip((9, 30, 17, 1, 25, 12, 33, 40), range(15, 23))],
+    [(m, n) for m, n in zip((21, 5, 38, 14, 27, 2, 36, 19), range(23, 31))],
+    [(0, 17), (11, 0), (1, 1)],
+]
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("name", sorted(SCHEMES))
+def test_plain_tiled_writes_codes_into_a_ragged_fill(name, tile):
+    """The schedule with codes over a ragged moves fill's pairs, each
+    pair's codes at its own byte offset, row stride and m + 1 rows (the
+    pair table of ``codes_pairs`` over the fill's layout, the pairs placed
+    with gaps out of pair order): every byte of each pair's region and
+    final3 equal the row scan's ragged buffer (``batch_moves_ragged`` on
+    the CPU), and no byte outside the regions is written."""
+    height, columns = tile
+    letters, scheme, cost = _scheme(name)
+    gid, go = scheme.alphabet.gap_id, scheme.gap_open_cost
+    rng = np.random.default_rng(height * 10 + columns)
+    call, views, lengths = _ragged_call(rng, scheme, letters, RAGGED_CODES)
+    mt = [m for ms, _ in lengths for m in ms]
+    nt = [n for _, ns in lengths for n in ns]
+    size = fill_cuda.ragged_bytes(np.array(mt), np.array(nt))
+    order = rng.permutation(len(mt))
+    offsets = np.zeros(len(mt), np.int64)
+    offsets[order] = np.cumsum(np.concatenate([[32], size[order][:-1] + 16]))
+    want = fill_cuda.batch_moves_ragged(
+        [a for a, _ in views], [b for _, b in views], torch.from_numpy(cost),
+        gid, go, [m for m, _ in lengths], [n for _, n in lengths],
+        offsets=offsets, nbytes=int((offsets + size).max()) + 48)
+    assert set(((np.array(nt) + 1) % 16).tolist()) == set(range(16))
+    base, pairs = fill_tile.codes_pairs(want.layout)
+    shift = (base - call.arena.data_ptr()) // 4
+    arena = call.arena.numpy()
+    f3, moves, _ = fill_tile.plain_tiled(
+        arena, arena, cost, gid, go, mt, nt, height=height, columns=columns,
+        offsets=pairs[:, :2] + shift, codes=pairs[:, 3:])
+    assert (f3 == want.final3.numpy()[pairs[:, 2]]).all()
+    codes = want.codes.numpy()
+    written = np.zeros(len(moves), bool)
+    for off, ld, rows in pairs[:, 3:].tolist():
+        assert (moves[off : off + ld * rows] == codes[off : off + ld * rows]).all()
+        written[off : off + ld * rows] = True
+    assert (moves[~written] == 255).all() and (~written).any()
+
+
 def test_wide_route_host_layout():
     """The wide route's tables on the host: each pair's token offsets are
     its rows in the arena (slot + r (width)), its final3 row its row of the
-    call's final3, and the one buffer holds the ticket table, the pair
+    call's final3, no codes region (cost only), and the one buffer holds the ticket table, the pair
     table (16-byte aligned) and the metadata, in that order."""
     letters, scheme, _ = _scheme("blosum62")
     call, views, lengths = _ragged_call(np.random.default_rng(2), scheme,
@@ -238,7 +286,7 @@ def test_wide_route_host_layout():
     for k, (slot_a, slot_b, batch, m1, n1) in enumerate(call.slots):
         for r in range(batch):
             assert pairs[p].tolist() == [slot_a + r * m1, slot_b + r * n1,
-                                         first_rows[k] + r, 0]
+                                         first_rows[k] + r, 0, 0, 0]
             p += 1
     dims = tuple((m, n) for ms, ns in lengths for m, n in zip(ms, ns))
     order = fill_tile.tile_order(dims, 8, 16)
@@ -318,6 +366,29 @@ def test_route_buckets(case):
         "short_and_long": ([([600], [1100]), ([1300], [1400])], [0, 1]),
     }[case]
     assert fill_tile.route_buckets(buckets, sms) == want
+
+
+GENOME = (29_903, 29_903)
+
+
+@pytest.mark.parametrize("dims,clusters,tail", [
+    ([GENOME] * 16, 15, 1), ([GENOME] * 16, 16, 0), ([GENOME] * 15, 15, 0),
+    ([GENOME] * 16, 20, 0), ([GENOME] * 16, 13, 3), ([GENOME] * 16, 12, 4),
+    ([GENOME] * 16, 11, 0), ([GENOME] * 16, 0, 0),
+    ([GENOME] * 15 + [(3000, 29_903)], 15, 0),  # past 8 columns a row
+    ([GENOME] * 15 + [(3738, 29_903)], 15, 1),  # within
+    ([(3000, 2900)] * 7, 3, 1), ([(3000, 2900)] * 7, 7, 0),
+])
+def test_route_tail(dims, clusters, tail):
+    """A ragged launch class's pairs that one launch with codes takes: its
+    count modulo the clusters the card holds at once, where it has more
+    pairs than that, if each is within 8 columns a row and the launch is
+    path-bound.  A genome call on an H100's 15 clusters gives one; at 16 or
+    more clusters, or 15 genomes, none; 3 at 13 and 4 at 12 clusters
+    (path-bound at (64, 4) and (128, 4)); 5 at 11 are not path-bound."""
+    assert fill_tile.route_tail(dims, clusters, 132) == tail
+    if tail:
+        assert fill_tile.path_bound(dims[len(dims) - tail :], True, 132)
 
 
 @pytest.mark.parametrize("height,columns", [(4, 8), (128, 128), (32, 128), (64, 64)])
