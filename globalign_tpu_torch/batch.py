@@ -38,7 +38,11 @@ of a ``flush=True`` call) brings them to the host in one copy and one
 synchronisation; the host decodes the lines once and cuts them pair by
 pair.  A pair whose codes alone exceed the moves budget takes the blocked
 linear-space traceback (``linear_tb.align_blocked``) on its own, eagerly,
-from its own tokens (``encode_padded``).
+from its own tokens (``encode_padded``): a checkpoint pass, then a replay
+fill and a walk a block.  That is also the route of genomes past the
+budget, each in turn (an mpox genome of 197 209 nt holds 38.9 GB of codes
+against the card's 1536 MiB); ``align_pairs.blocked_pairs`` counts the
+pairs it takes.
 
 With ``mesh=`` (a ``parallel.Mesh``; every rank calls with the same pairs)
 each bucket's batch axis is sharded over the ranks
@@ -323,7 +327,8 @@ def align_pairs(
 
     ``align_pairs.segments`` counts the traceback segments that unsharded
     calls dispatch, each one ``fill`` phase (a ragged fill and its walk)
-    and one ``render``.
+    and one ``render``; ``align_pairs.blocked_pairs`` the pairs that take
+    the blocked route, each one ``blocked`` phase.
     """
     dev = resolve_device(device)
 
@@ -411,6 +416,7 @@ def align_pairs(
     for key in blocked:
         for idx in buckets[key]:
             s1, s2 = pairs[idx]
+            align_pairs.blocked_pairs += 1
             with _phase("blocked"):
                 tb = linear_tb.align_blocked(
                     _to_device(encode_padded(scheme.alphabet, s1, len(s1)), dev),
@@ -536,6 +542,7 @@ def align_pairs(
 
 
 align_pairs.segments = 0
+align_pairs.blocked_pairs = 0
 
 
 def _segments(lengths, budget: int) -> list[list[tuple[int, int, int]]]:

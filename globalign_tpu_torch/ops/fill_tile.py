@@ -82,13 +82,18 @@ ROUTE_MIN_SIDE = 256
 ROUTE_MIN_SIDE_COST = 1024
 ROUTE_MAX_ASPECT = 8
 
+# tile_order keeps the tables of up to CACHED_TILES tiles (16 MiB each, so
+# its 16 entries hold at most 256 MiB).  A larger one, such as an mpox
+# genome's checkpoint pass (2.37 M tiles, 38 MB at (128, 4)), is built for
+# its launch alone: indels give every genome a shape of its own.
+CACHED_TILES = 1 << 20
+
 
 def tile_grid(m: int, n: int, height: int, columns: int) -> tuple[int, int]:
     """(TB, C): tile rows over DP rows 1..m, tile columns over 1..n."""
     return -(-m // height), -(-n // columns)
 
 
-@functools.lru_cache(maxsize=16)
 def tile_order(dims: tuple[tuple[int, int], ...], height: int,
                columns: int) -> np.ndarray:
     """The ticket table of a launch over pairs of shapes ``dims`` ((m, n)
@@ -101,7 +106,16 @@ def tile_order(dims: tuple[tuple[int, int], ...], height: int,
     then the pair, then b, so a tile's producers (b-1, c) and (b, c-1)
     hold smaller tickets.  Built without a sort or a loop over the pairs
     (each tile's ticket is counted directly); the array is read-only
-    (cached)."""
+    (cached up to ``CACHED_TILES`` tiles)."""
+    tiles = sum(tb * c for tb, c in (tile_grid(m, n, height, columns)
+                                     for m, n in dims if m > 0 and n > 0))
+    if tiles <= CACHED_TILES:
+        return _cached_order(tuple(dims), height, columns)
+    return _order(dims, height, columns)
+
+
+def _order(dims, height: int, columns: int) -> np.ndarray:
+    """:func:`tile_order`'s table, built."""
     grids = np.array([tile_grid(m, n, height, columns) if m > 0 and n > 0
                       else (0, 0) for m, n in dims], np.int64).reshape(-1, 2)
     tb, c = grids[:, 0], grids[:, 1]
@@ -121,6 +135,9 @@ def tile_order(dims: tuple[tuple[int, int], ...], height: int,
     out[ticket, 0], out[ticket, 1], out[ticket, 2] = p, b, cc
     out.flags.writeable = False
     return out
+
+
+_cached_order = functools.lru_cache(maxsize=16)(_order)
 
 
 def metadata(dims, rows, height: int, tile_rows: int) -> np.ndarray:

@@ -18,7 +18,9 @@ The span names (README, "Tracing"):
     ``fill.wide``, ``fill.walk``;
   * a single-pair request: validate, scheme (inside validate), aligner,
     encode, fill (under the moves budget) or checkpoints and replays
-    (blocked), fetch, traceback, results.
+    (blocked; inside replays one ``replay`` a block), fetch, traceback,
+    results; ``align_pairs``' blocked pairs open checkpoints, replays (with
+    their ``replay`` spans), fetch and traceback inside its ``blocked``.
 """
 
 from __future__ import annotations

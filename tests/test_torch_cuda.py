@@ -6,7 +6,10 @@ nor the JAX package, so on a machine with the card and without JAX it runs
 alone:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
-        tests/test_torch_cuda.py -q
+        tests/test_torch_cuda.py -q -m "not slow"
+
+and the full-size checks marked ``slow`` (minutes each: the mpox cell's
+call against the reference) alone with ``-m slow``.
 
 Tolerance 0: final3, last rows, move codes, op tapes and costs are
 integers, and alignments are strings.
@@ -2383,6 +2386,42 @@ def test_genome_call_fills_its_last_wave_on_gotoh_tile(cuda_device, launches,
     torch.cuda.empty_cache()
 
 
+@pytest.mark.slow
+def test_align_pairs_mpox_genomes_match_the_reference(cuda_device, launches):
+    """One call of the mpox cell (``mpox.batch_tb``: 2 genomes of 197 209 nt
+    from its traffic, BLAST+'s blastn): each genome's codes (38.9 GB) pass
+    the moves budget, so each takes the blocked route, one cost-only
+    gotoh_tile checkpoint pass and 386 replay blocks, each one gotoh_fill
+    launch (short and wide: ``fill_tile.route`` keeps it there) and one
+    walk_block launch; no traceback segment, no upload, no fetch of a
+    segment.  Costs, scores and the three lines equal the benchmark's
+    plain reference on the card, a genome at a time (its codes in diagonal
+    order: 72.4 GiB).  Slow: the reference takes minutes a genome."""
+    from benchmark.reference import gotoh, scheme as ref_scheme
+
+    pairs, scheme = _cell_call("mpox.batch_tb")
+    fills = [f for a, b in pairs for f in _blocked_fills(len(a), len(b))]
+    assert len(fills) == 2 * 386
+    before = (batch_mod.align_pairs.blocked_pairs, linear_tb.align_blocked.blocks,
+              batch_mod.align_pairs.segments)
+    launches()
+    got = align_pairs(pairs, scheme=scheme)
+    assert launches() == _design(cuda_device, *fills, gotoh_tile=len(pairs),
+                                 walk_block=len(fills))
+    after = (batch_mod.align_pairs.blocked_pairs, linear_tb.align_blocked.blocks,
+             batch_mod.align_pairs.segments)
+    assert [a - b for a, b in zip(after, before)] == [len(pairs), len(fills), 0]
+    torch.cuda.empty_cache()
+    config = json.loads((REPO / "benchmark" / "configs" / "mpox_blastn.json")
+                        .read_text())
+    costing = ref_scheme.resolve(config["scheme"], config["letters"])
+    for pair, result in zip(pairs, got):
+        (want,) = gotoh.align([pair], costing, traceback=True, device=cuda_device,
+                              budget_bytes=8 << 30)
+        assert _fields(result) == want
+        torch.cuda.empty_cache()
+
+
 def _pack_of(dev, pairs, scheme):
     """align_pairs' pack of ``pairs`` on the card, uploaded and tokenized:
     (the packed call, the pairs in pack order)."""
@@ -2810,7 +2849,8 @@ HBM_BYTES_S = 3.35e12  # H100 SXM5's HBM3 peak (NVIDIA's datasheet)
 PLAIN_ROWS = 4
 CELL_CONFIGS = {"dna.pair_align": ("dna_wfa", "wfa_10k_pair"),
                 "protein.batch_cost": ("protein_blosum62", "protein_rv12_cost"),
-                "sars2.batch_tb": ("sars2_blastn", "sars2_genomes_tb")}
+                "sars2.batch_tb": ("sars2_blastn", "sars2_genomes_tb"),
+                "mpox.batch_tb": ("mpox_blastn", "mpox_genomes_tb")}
 KERNEL_FAMILIES = ("gotoh_", "walk_", "wave_split", "render_kernel",
                    "tokenize_kernel")
 
@@ -2939,6 +2979,62 @@ def _pair_cell(dev, pairs, scheme):
     return request, want
 
 
+def _blocked_cell(dev, pairs, scheme):
+    """mpox.batch_tb's call: ``align_pairs`` sends each genome down the
+    blocked route (``linear_tb.align_blocked``), a checkpoint pass on
+    gotoh_tile, then each block's replay on gotoh_fill (short and wide)
+    and its walk.  The plain versions run on the first genome: its fills
+    over PLAIN_ROWS rows scaled to every cell of the call, its top block's
+    walk on the host times the call's blocks."""
+    out = {}
+
+    def run():
+        out["results"] = align_pairs(pairs, scheme=scheme, device=dev)
+
+    run()
+    sms, want = _sms(dev), {}
+    ta, tb, cost, gid, go, (m0,), (n0,) = _on(dev, _args(scheme, pairs[:1]))
+    cells = [len(a) * len(b) for a, b in pairs]
+    rate = {codes: functools.cache(lambda fill=fill: _plain_fill_ms(
+        fill, [ta], [tb], cost, gid, go, [[m0]], [[n0]]) / (m0 * n0))
+        for codes, fill in ((False, fill_batch.batch_final3_ragged),
+                            (True, fill_cuda.batch_moves_ragged))}
+    h, w = fill_tile.plan([(m0, n0)], False, sms)
+    blocks = []
+    for (a, b), c in zip(pairs, cells):
+        assert fill_tile.plan([(len(a), len(b))], False, sms) == (h, w)
+        _row(want, f"gotoh_tile_kernel<{h},{w},false,true>",
+             f"{len(a)} x {len(b)} cost only, checkpoint rows",
+             lambda c=c: rate[False]() * c, cells=c)
+        bounds = linear_tb.block_bounds(len(a), len(b))
+        blocks += [(i1 - i0, len(b)) for i0, i1 in zip(bounds, bounds[1:])]
+    width = fill_cuda.plan(1, max(n for _, n in blocks), True, sms).width
+    for k, n in blocks:
+        assert not fill_tile.route(1, k, n, True, sms)
+        assert fill_cuda.plan(1, n, True, sms).width == width
+    replay = f"gotoh_fill_kernel<{width},true,true,false>"
+    _row(want, replay, f"{len(blocks)} replay blocks of up to "
+         f"{max(k for k, _ in blocks)} x {max(n for _, n in blocks)} with codes",
+         lambda: rate[True]() * sum(cells), cells=sum(cells),
+         bytes=sum((k + 1) * (n + 1) for k, n in blocks))
+    top = linear_tb.block_bounds(m0, n0)[1]
+    final3, moves = fill_cuda.batch_moves(ta[:, : top + 1].contiguous(), tb, cost,
+                                          gid, go, [top], [n0])
+    moves, level = moves.cpu(), final3[0].argmin().to(torch.int32).reshape(1).cpu()
+    start = torch.tensor([n0], dtype=torch.int32)
+    # a walk stops at row 0: the leading gaps of seq_1's line are not its
+    steps = sum(len(r.seq_1_aligned.lstrip("-")) for r in out["results"])
+    _row(want, "walk_block_kernel", f"{len(blocks)} walks, {steps} steps",
+         lambda: len(blocks) * _host_ms(
+             lambda: linear_tb.walk_block(moves, [top], start, level)),
+         steps=steps)
+    want["walk_block_kernel"]["plain_note"] = (
+        "the first genome's top block walked on the host, times the blocks")
+    for name in (replay, f"gotoh_tile_kernel<{h},{w},false,true>"):
+        want[name]["plain_note"] = "the host's row scan on the first genome, by cells"
+    return run, want
+
+
 def _batch_cell(dev, pairs, scheme, with_traceback):
     """An align_pairs call's kernels over its pack (its buckets): the
     tokenize, then the cost fill, or the moves fill, the walk and the
@@ -3045,12 +3141,15 @@ def _cell_kernels(cell: str) -> dict:
     pairs, scheme = _cell_call(cell)
     if cell == "dna.pair_align":
         run, want = _pair_cell(dev, pairs, scheme)
+    elif cell == "mpox.batch_tb":
+        run, want = _blocked_cell(dev, pairs, scheme)
     else:
         run, want = _batch_cell(dev, pairs, scheme,
                                 with_traceback=cell == "sars2.batch_tb")
     card = peaks.card()
     ceiling = peaks.ceiling_cells_per_s(**card)
-    traced, recorded = _traced_ms(run, reps=2)
+    # an mpox call (~24 s on an H100) already averages over 772 launches
+    traced, recorded = _traced_ms(run, reps=1 if cell == "mpox.batch_tb" else 2)
     rows = []
     for name, (ms, launches) in sorted(traced.items()):
         rule = next((prefix for prefix in want if name.startswith(prefix)), None)
@@ -3071,19 +3170,25 @@ def _cell_kernels(cell: str) -> dict:
 
 @pytest.fixture(scope="module")
 def cell_kernels():
-    """Every cell's ``_cell_kernels``, measured in one process of their own:
-    late in this file's process the profiler lost the first kernels of its
-    windows (on an H100 80GB HBM3), in a fresh one it lost none."""
+    """``cell_kernels(cell)``: the cell's ``_cell_kernels``, measured in a
+    process of its own: late in a process the profiler lost the first
+    kernels of its windows (on an H100 80GB HBM3: in this file's process,
+    and in one child after the mpox cell's ~100 s), in a fresh one it lost
+    none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     torch.cuda.empty_cache()  # room for the child's 15 GB of genome codes
     code = ("import json, sys; from tests.test_torch_cuda import _cell_kernels; "
-            "print(json.dumps([_cell_kernels(c) for c in sys.argv[1:]]))")
-    proc = subprocess.run([sys.executable, "-c", code, *sorted(CELL_CONFIGS)],
-                          cwd=REPO, capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return {line["cell"]: line
-            for line in json.loads(proc.stdout.strip().splitlines()[-1])}
+            "print(json.dumps(_cell_kernels(sys.argv[1])))")
+
+    @functools.cache
+    def measure(cell: str) -> dict:
+        proc = subprocess.run([sys.executable, "-c", code, cell], cwd=REPO,
+                              capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    return measure
 
 
 @pytest.mark.parametrize("cell", sorted(CELL_CONFIGS))
@@ -3092,7 +3197,7 @@ def test_cell_kernels_against_their_bounds(cell_kernels, record_property, cell):
     one its host rules pick, each they pick runs, every call launches each
     the same whole number of times, and none runs faster than its bound.
     Each row is printed beside its plain version's time."""
-    line = cell_kernels[cell]
+    line = cell_kernels(cell)
     assert sorted(row["rule"] or "" for row in line["kernels"]) == line["picked"], line
     for row in line["kernels"]:
         assert row["launches"] >= 1 and float(row["launches"]).is_integer(), row

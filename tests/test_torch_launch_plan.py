@@ -244,3 +244,54 @@ def test_genome_segment_is_one_gotoh_fill_launch(clusters, tail):
         if tail == 1:  # the cell's
             assert fill_tile.plan(dims, True, SMS) == (height, tile_w)
         assert tile_tsmem is _tile_table_in_smem(height, tile_w, True, DNA_TABLE)
+
+
+# -- mpox.batch_tb: 2 genomes of 197 209 nt a call, with traceback ----------
+
+
+def _mpox_genomes():
+    return [pair for call in _pool("mpox_genomes_tb", "ACGT") for pair in call]
+
+
+def test_mpox_genomes_go_blocked(monkeypatch):
+    """Every genome's bucket passes the 1536 MiB moves budget, so
+    ``align_pairs`` sends it to the blocked route; its 38.9 GB of codes
+    would pass a segment's capacity too, a quarter of the card."""
+    monkeypatch.setattr(batch, "_card_memory", lambda index: CARD_MEMORY)
+    capacity = batch._segment_budget(torch.device("cuda", 0))
+    for a, b in _mpox_genomes():
+        key = (bucket_length(len(a)), bucket_length(len(b)))
+        assert fill_cuda.ragged_bytes(*key) > batch.DEVICE_WALK_MOVES_BUDGET
+        assert fill_cuda.ragged_bytes(len(a), len(b)) > capacity
+
+
+@pytest.mark.parametrize("part,instance", [
+    ("checkpoints", "gotoh_tile_kernel<128,4,false,true>"),
+    ("replays", "gotoh_fill_kernel<16,true,true,false>"),
+])
+def test_mpox_genome_blocks_and_kernels(part, instance):
+    """A genome (m = 197 209) replays in 386 blocks of 512 rows, the last
+    one of 89 (``block_bounds``: 64 MiB holds 340 rows of 197 210 bytes,
+    under ``DEFAULT_BLOCK_ROWS``).  The checkpoint pass is one cost-only
+    gotoh_tile launch at ``fill_tile.plan``'s (128, 4); each replay is short
+    and wide (n > 8 m), so ``fill_tile.route`` keeps it on gotoh_fill, at
+    ``fill_cuda.plan``'s W 16, 8 warps, 8 bands (one cluster) and 7
+    passes, its table in shared memory, without the ragged mode."""
+    for a, b in _mpox_genomes():
+        m, n = len(a), len(b)
+        bounds = linear_tb.block_bounds(m, n)
+        sizes = [i1 - i0 for i0, i1 in zip(bounds, bounds[1:])]
+        assert len(sizes) == 386 and set(sizes[:-1]) == {512} and sizes[-1] == 89
+        if part == "checkpoints":
+            height, width, moves, tsmem = _instance(instance)
+            assert not moves
+            assert fill_tile.plan([(m, n)], False, SMS) == (height, width)
+            assert tsmem is _tile_table_in_smem(height, width, False, DNA_TABLE)
+            continue
+        width, moves, tsmem, ragged = _instance(instance)
+        assert moves and not ragged
+        for rows in set(sizes):
+            assert not fill_tile.route(1, rows, n, True, SMS)
+        lp = fill_cuda.plan(1, n, True, SMS)
+        assert tuple(lp) == (width, 8, 8, 7)
+        assert tsmem is _fill_table_in_smem(width, lp.warps, True, DNA_TABLE)

@@ -415,6 +415,21 @@ def test_tile_order_puts_producers_first_and_covers_every_cell_once(height, colu
         assert not cover[:, 0].any()
 
 
+@pytest.mark.parametrize("cap", [0, 40, 1 << 20])
+def test_tile_order_caches_only_tables_within_its_cap(monkeypatch, cap):
+    """A table of up to ``CACHED_TILES`` tiles comes from the cache (the
+    same read-only array again); a larger one is built for each launch,
+    equal to the cached one, and leaves the cache as it was."""
+    monkeypatch.setattr(fill_tile, "CACHED_TILES", cap)
+    dims = ((9 * 8 + 3, 5 * 16 - 2), (17, 33))  # 10 x 5 + 3 x 3 = 59 tiles
+    fill_tile._cached_order.cache_clear()
+    first, again = (fill_tile.tile_order(dims, 8, 16) for _ in range(2))
+    cached = fill_tile._cached_order.cache_info().currsize
+    assert (first is again) is (cap >= 59) and cached == (cap >= 59)
+    assert not first.flags.writeable and len(first) == 59
+    assert (first == fill_tile._order(dims, 8, 16)).all()
+
+
 def test_metadata_lays_out_dims_first_rows_and_lists():
     meta = fill_tile.metadata(((9, 4), (20, 3)), [[0, 5, 9], [1, 17, 20]], 8, 3)
     assert meta.tolist() == [

@@ -19,6 +19,7 @@ from globalign_tpu_torch import (
     resolve_scheme,
 )
 from globalign_tpu_torch import batch as batch_mod
+from globalign_tpu_torch.ops import linear_tb
 from globalign_tpu_torch.utils import spans
 from globalign_tpu_torch.utils.spans import span
 
@@ -136,12 +137,19 @@ def test_blocked_align_spans():
     scheme = resolve_scheme(seq_1, seq_2)
     aligner = GotohAligner(scheme, moves_budget_bytes=256, device="cpu")
     want = GotohAligner(scheme, device="cpu").align(seq_1, seq_2)
+    blocks = linear_tb.align_blocked.blocks
     got, ranges, _ = _profiled(lambda: aligner.align(seq_1, seq_2))
+    blocks = linear_tb.align_blocked.blocks - blocks
     assert got == want
     assert [name for name, _, _ in _top_level(ranges)] == [
         spans.PREFIX + s
         for s in ("encode", "checkpoints", "replays", "fetch", "traceback")
     ]
+    # one replay span a block, each inside the replays span
+    replays = next(r for r in ranges if r[0] == spans.PREFIX + "replays")
+    inner = [r for r in ranges if r[0] == spans.PREFIX + "replay"]
+    assert len(inner) == blocks >= 1
+    assert all(replays[1] <= s and e <= replays[2] for _, s, e in inner)
 
 
 COST_ONLY = {"validate", "scheme", "bucket", "pack", "fill", "fetch", "results"}
