@@ -42,7 +42,11 @@ from its own tokens (``encode_padded``): a checkpoint pass, then a replay
 fill and a walk a block.  That is also the route of genomes past the
 budget, each in turn (an mpox genome of 197 209 nt holds 38.9 GB of codes
 against the card's 1536 MiB); ``align_pairs.blocked_pairs`` counts the
-pairs it takes.
+pairs it takes.  An unsharded call on a card sizes the replay blocks from
+the card as it sizes segments (``_block_budget``: a quarter of its
+memory), so an mpox genome replays in 2 blocks, each one ``gotoh_tile``
+launch over every SM, where the 64 MiB of ``DEFAULT_BLOCK_MOVES_BYTES``
+(the CPU's and the mesh's) cuts it into 386 strips of 512 rows.
 
 With ``mesh=`` (a ``parallel.Mesh``; every rank calls with the same pairs)
 each bucket's batch axis is sharded over the ranks
@@ -192,6 +196,19 @@ def _segment_budget(device: torch.device) -> int:
     if device.type == "cuda":
         return max(budget, _card_memory(device.index) // 4)
     return budget
+
+
+def _block_budget(device: torch.device, mesh) -> int:
+    """Bytes of codes one replay block of a blocked pair may hold
+    (``linear_tb.block_bounds``): on a card without ``mesh``, a segment's
+    capacity (:func:`_segment_budget`), since ``align_blocked`` holds one
+    block's codes at a time, so with the previous call's segment that the
+    runner's pipeline may hold the two stay within half the card; on the
+    CPU and with ``mesh`` (whose column-sharded checkpoint pass has never
+    run at blocks that large) ``linear_tb.DEFAULT_BLOCK_MOVES_BYTES``."""
+    if device.type == "cuda" and mesh is None:
+        return _segment_budget(device)
+    return linear_tb.DEFAULT_BLOCK_MOVES_BYTES
 
 
 def _encode_bucket(alphabet, seqs: list[str], padded_len: int) -> np.ndarray:
@@ -421,7 +438,8 @@ def align_pairs(
                 tb = linear_tb.align_blocked(
                     _to_device(encode_padded(scheme.alphabet, s1, len(s1)), dev),
                     _to_device(encode_padded(scheme.alphabet, s2, len(s2)), dev),
-                    cost_mat, gap_id, gap_open, s1, s2, mesh=mesh,
+                    cost_mat, gap_id, gap_open, s1, s2,
+                    block_moves_bytes=_block_budget(dev, mesh), mesh=mesh,
                 )
                 results[idx] = PairResult(
                     cost=tb.cost,

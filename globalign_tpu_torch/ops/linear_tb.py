@@ -302,7 +302,10 @@ def align_blocked(
         gap_id / gap_open: the gap token and the gap-open cost.
         seq_1 / seq_2: the strings (for emitting the aligned text).
         block_rows / block_moves_bytes: the checkpoint interval K, or the
-            bytes of codes one block may hold (``block_bounds``).
+            bytes of codes one block may hold (``block_bounds``; the loop
+            holds one block's codes at a time).  ``align_pairs`` passes a
+            quarter of a card's memory (an mpox genome: 2 blocks, each on
+            ``gotoh_tile``), ``GotohAligner`` its moves budget (64 MiB).
         mesh: optional ``parallel.Mesh``; every rank calls with the same
             arguments (module docstring).
 
@@ -346,6 +349,10 @@ def align_blocked(
                     [i1 - i0], [n], row0=rows[b], col0y_top=c0_top[i0 : i0 + 1],
                 )
                 ops, count, j, level = walk_block(moves, [i1 - i0], j, level)
+                # The walk is queued: free the codes before the next block
+                # asks for its own (the allocator orders reuse by stream),
+                # so one block's codes are held at a time.
+                del moves
             tapes.append((ops[0], count))
 
     # One copy: the cost, the counts, the exit column and every tape.

@@ -2232,35 +2232,45 @@ def _segments_of(pairs, budget, capacity):
     return [seg for seg in segs if seg]
 
 
-@pytest.mark.parametrize("name", ["lowered budget", "both routes",
-                                  "protein tail", "flush=False"])
+@pytest.mark.parametrize("name", ["lowered budget", "one block",
+                                  "both routes", "protein tail",
+                                  "flush=False"])
 def test_align_pairs_routes(cuda_device, launches, monkeypatch, name):
     """A lowered moves budget and segment capacity (three or more segments
-    and a blocked pair); a traceback call on both sides of 1024 columns
+    and a blocked pair, its replay blocks cut at the lowered capacity as
+    ``batch._block_budget`` gives it); the same moves budget under a
+    capacity that holds the blocked pair's codes whole (one replay block
+    behind its checkpoint pass); a traceback call on both sides of 1024 columns
     (both fill routes, one walk); a cost-only BLOSUM62 call of the protein
     mix's lengths, its pairs past 1024 columns in one gotoh_tile launch;
     ``flush=False`` (the render queued, nothing fetched before
     ``resolve()``).  Each == device="cpu" or the single-pair path."""
     rng = np.random.default_rng(len(name))
     dna = len(resolve_scheme("ACGT", "ACGT").costing.values)
-    if name == "lowered budget":
+    if name in ("lowered budget", "one block"):
         pairs = list(_chunk("ACGT", 12, 290, 300))
         s1 = _seq(rng, "ACGT", 1200)
         pairs.insert(5, (s1, _relative(rng, s1, "ACGT")[:1100]))
         want = align_pairs(pairs)
         budget = 400_000
+        capacity = budget if name == "lowered budget" else 2_000_000
         with monkeypatch.context() as patch:
             patch.setattr(batch_mod, "DEVICE_WALK_MOVES_BUDGET", budget)
-            patch.setattr(batch_mod, "_segment_budget", lambda device: budget)
+            patch.setattr(batch_mod, "_segment_budget", lambda device: capacity)
             launches()
             got = align_pairs(pairs)
             moved = launches()
-        segs = _segments_of(pairs, budget, budget)
+            blocks = _blocked_fills(
+                1200, 1100, batch_mod._block_budget(cuda_device, None))
+        segs = _segments_of(pairs, budget, capacity)
         routes = [fill_cuda.ragged_routes(*zip(*seg), dna, _sms(cuda_device))
                   for seg in segs]
-        assert len(segs) >= 3
+        if name == "lowered budget":
+            assert len(segs) >= 3 and len(blocks) >= 2
+        else:
+            assert len(blocks) == 1
         assert moved == _design(
-            cuda_device, *_blocked_fills(1200, 1100), gotoh_tile=1, walk_block=1,
+            cuda_device, *blocks, gotoh_tile=1, walk_block=len(blocks),
             batch_moves_warp=sum(len(w) for w, _, _ in routes),
             batch_moves_ragged=sum(len(c) for _, c, _ in routes),
             walk_ragged=len(segs), render_ragged=len(segs), **LETTERS_DESIGN)
@@ -2391,17 +2401,19 @@ def test_align_pairs_mpox_genomes_match_the_reference(cuda_device, launches):
     """One call of the mpox cell (``mpox.batch_tb``: 2 genomes of 197 209 nt
     from its traffic, BLAST+'s blastn): each genome's codes (38.9 GB) pass
     the moves budget, so each takes the blocked route, one cost-only
-    gotoh_tile checkpoint pass and 386 replay blocks, each one gotoh_fill
-    launch (short and wide: ``fill_tile.route`` keeps it there) and one
-    walk_block launch; no traceback segment, no upload, no fetch of a
+    gotoh_tile checkpoint pass and 2 replay blocks at a quarter of the card
+    (``batch._block_budget``), each one gotoh_tile launch with codes and
+    one walk_block launch; no traceback segment, no upload, no fetch of a
     segment.  Costs, scores and the three lines equal the benchmark's
     plain reference on the card, a genome at a time (its codes in diagonal
     order: 72.4 GiB).  Slow: the reference takes minutes a genome."""
     from benchmark.reference import gotoh, scheme as ref_scheme
 
     pairs, scheme = _cell_call("mpox.batch_tb")
-    fills = [f for a, b in pairs for f in _blocked_fills(len(a), len(b))]
-    assert len(fills) == 2 * 386
+    budget = batch_mod._block_budget(cuda_device, None)
+    fills = [f for a, b in pairs for f in _blocked_fills(len(a), len(b), budget)]
+    assert len(fills) == 2 * 2
+    assert _design(cuda_device, *fills) == {"gotoh_tile": len(fills)}
     before = (batch_mod.align_pairs.blocked_pairs, linear_tb.align_blocked.blocks,
               batch_mod.align_pairs.segments)
     launches()
@@ -2420,6 +2432,39 @@ def test_align_pairs_mpox_genomes_match_the_reference(cuda_device, launches):
                               budget_bytes=8 << 30)
         assert _fields(result) == want
         torch.cuda.empty_cache()
+
+
+def test_card_sized_blocks_past_byte_2_31_equal_the_strips(cuda_device,
+                                                           launches,
+                                                           monkeypatch):
+    """A ~70 000^2 pair through ``align_pairs`` with ``_card_memory`` patched
+    to 10 GB: its 4.9 GB of codes pass the 1536 MiB moves budget, so it goes
+    blocked, in 2 blocks at a quarter of that card (2.5 GB), each past byte
+    2^31 of codes and each one gotoh_tile launch with codes, after one
+    checkpoint launch, and a walk a block.  Cost, score and lines equal the
+    same pair's blocked route at 64 MiB (``GotohAligner.align``: ~74 strips
+    of ~958 rows, each short and wide, so each a gotoh_fill launch), bit
+    for bit."""
+    s1, s2 = _long_pair(70_000, "ACGT")
+    m, n = len(s1), len(s2)
+    scheme = resolve_scheme(s1, s2)
+    monkeypatch.setattr(batch_mod, "_card_memory", lambda index: 10_000_000_000)
+    budget = batch_mod._block_budget(cuda_device, None)
+    fills = _blocked_fills(m, n, budget)
+    assert budget == 2_500_000_000 and len(fills) == 2
+    assert all((k + 1) * (n + 1) > 2**31 for _, k, _, _, _ in fills)
+    assert _design(cuda_device, *fills) == {"gotoh_tile": 2}
+    launches()
+    (got,) = align_pairs([(s1, s2)], scheme=scheme)
+    assert launches() == {"gotoh_tile": 3, "walk_block": 2}
+    strips = _blocked_fills(m, n)
+    assert len(strips) > 60
+    assert _design(cuda_device, *strips) == {"batch_moves": len(strips)}
+    want = GotohAligner(scheme, device="cuda").align(s1, s2)
+    assert launches() == _design(cuda_device, *strips, gotoh_tile=1,
+                                 walk_block=len(strips))
+    assert _fields(got) == (want.cost, want.score, want.seq_1_aligned,
+                            want.middle_part, want.seq_2_aligned)
 
 
 def _pack_of(dev, pairs, scheme):
@@ -2982,10 +3027,11 @@ def _pair_cell(dev, pairs, scheme):
 def _blocked_cell(dev, pairs, scheme):
     """mpox.batch_tb's call: ``align_pairs`` sends each genome down the
     blocked route (``linear_tb.align_blocked``), a checkpoint pass on
-    gotoh_tile, then each block's replay on gotoh_fill (short and wide)
-    and its walk.  The plain versions run on the first genome: its fills
-    over PLAIN_ROWS rows scaled to every cell of the call, its top block's
-    walk on the host times the call's blocks."""
+    gotoh_tile, then each block's replay (blocks at ``batch._block_budget``:
+    2 a genome, each on gotoh_tile) and its walk.  The plain versions run on
+    the first genome: its fills over PLAIN_ROWS rows scaled to every cell of
+    the call, the walk of its top 512 rows on the host scaled to the call's
+    steps."""
     out = {}
 
     def run():
@@ -2994,44 +3040,45 @@ def _blocked_cell(dev, pairs, scheme):
     run()
     sms, want = _sms(dev), {}
     ta, tb, cost, gid, go, (m0,), (n0,) = _on(dev, _args(scheme, pairs[:1]))
-    cells = [len(a) * len(b) for a, b in pairs]
     rate = {codes: functools.cache(lambda fill=fill: _plain_fill_ms(
         fill, [ta], [tb], cost, gid, go, [[m0]], [[n0]]) / (m0 * n0))
         for codes, fill in ((False, fill_batch.batch_final3_ragged),
                             (True, fill_cuda.batch_moves_ragged))}
     h, w = fill_tile.plan([(m0, n0)], False, sms)
-    blocks = []
-    for (a, b), c in zip(pairs, cells):
-        assert fill_tile.plan([(len(a), len(b))], False, sms) == (h, w)
+    budget = batch_mod._block_budget(dev, None)
+    for a, b in pairs:
+        m, n = len(a), len(b)
+        assert fill_tile.plan([(m, n)], False, sms) == (h, w)
         _row(want, f"gotoh_tile_kernel<{h},{w},false,true>",
-             f"{len(a)} x {len(b)} cost only, checkpoint rows",
-             lambda c=c: rate[False]() * c, cells=c)
-        bounds = linear_tb.block_bounds(len(a), len(b))
-        blocks += [(i1 - i0, len(b)) for i0, i1 in zip(bounds, bounds[1:])]
-    width = fill_cuda.plan(1, max(n for _, n in blocks), True, sms).width
-    for k, n in blocks:
-        assert not fill_tile.route(1, k, n, True, sms)
-        assert fill_cuda.plan(1, n, True, sms).width == width
-    replay = f"gotoh_fill_kernel<{width},true,true,false>"
-    _row(want, replay, f"{len(blocks)} replay blocks of up to "
-         f"{max(k for k, _ in blocks)} x {max(n for _, n in blocks)} with codes",
-         lambda: rate[True]() * sum(cells), cells=sum(cells),
-         bytes=sum((k + 1) * (n + 1) for k, n in blocks))
-    top = linear_tb.block_bounds(m0, n0)[1]
+             f"{m} x {n} cost only, checkpoint rows",
+             lambda c=m * n: rate[False]() * c, cells=m * n)
+        bounds = linear_tb.block_bounds(m, n, block_moves_bytes=budget)
+        for k in (i1 - i0 for i0, i1 in zip(bounds, bounds[1:])):
+            assert fill_tile.route(1, k, n, True, sms)
+            rh, rw = fill_tile.plan([(k, n)], True, sms)
+            _row(want, f"gotoh_tile_kernel<{rh},{rw},true,true>",
+                 f"replay block {k} x {n} with codes",
+                 lambda c=k * n: rate[True]() * c, cells=k * n,
+                 bytes=(k + 1) * (n + 1))
+    top = linear_tb.DEFAULT_BLOCK_ROWS
     final3, moves = fill_cuda.batch_moves(ta[:, : top + 1].contiguous(), tb, cost,
                                           gid, go, [top], [n0])
     moves, level = moves.cpu(), final3[0].argmin().to(torch.int32).reshape(1).cpu()
     start = torch.tensor([n0], dtype=torch.int32)
+    top_steps = int(linear_tb.walk_block(moves, [top], start, level)[1])
     # a walk stops at row 0: the leading gaps of seq_1's line are not its
     steps = sum(len(r.seq_1_aligned.lstrip("-")) for r in out["results"])
-    _row(want, "walk_block_kernel", f"{len(blocks)} walks, {steps} steps",
-         lambda: len(blocks) * _host_ms(
+    _row(want, "walk_block_kernel", f"{steps} steps",
+         lambda: steps / top_steps * _host_ms(
              lambda: linear_tb.walk_block(moves, [top], start, level)),
          steps=steps)
     want["walk_block_kernel"]["plain_note"] = (
-        "the first genome's top block walked on the host, times the blocks")
-    for name in (replay, f"gotoh_tile_kernel<{h},{w},false,true>"):
-        want[name]["plain_note"] = "the host's row scan on the first genome, by cells"
+        "the first genome's top 512 rows walked on the host, scaled to the "
+        "call's steps")
+    for name in want:
+        if name.startswith("gotoh_tile"):
+            want[name]["plain_note"] = (
+                "the host's row scan on the first genome, by cells")
     return run, want
 
 
@@ -3148,8 +3195,7 @@ def _cell_kernels(cell: str) -> dict:
                                 with_traceback=cell == "sars2.batch_tb")
     card = peaks.card()
     ceiling = peaks.ceiling_cells_per_s(**card)
-    # an mpox call (~24 s on an H100) already averages over 772 launches
-    traced, recorded = _traced_ms(run, reps=1 if cell == "mpox.batch_tb" else 2)
+    traced, recorded = _traced_ms(run, reps=2)
     rows = []
     for name, (ms, launches) in sorted(traced.items()):
         rule = next((prefix for prefix in want if name.startswith(prefix)), None)

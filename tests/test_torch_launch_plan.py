@@ -267,31 +267,53 @@ def test_mpox_genomes_go_blocked(monkeypatch):
 
 @pytest.mark.parametrize("part,instance", [
     ("checkpoints", "gotoh_tile_kernel<128,4,false,true>"),
-    ("replays", "gotoh_fill_kernel<16,true,true,false>"),
+    ("replays", "gotoh_tile_kernel<128,4,true,true>"),
+    ("single-pair replays", "gotoh_fill_kernel<16,true,true,false>"),
 ])
-def test_mpox_genome_blocks_and_kernels(part, instance):
-    """A genome (m = 197 209) replays in 386 blocks of 512 rows, the last
-    one of 89 (``block_bounds``: 64 MiB holds 340 rows of 197 210 bytes,
-    under ``DEFAULT_BLOCK_ROWS``).  The checkpoint pass is one cost-only
-    gotoh_tile launch at ``fill_tile.plan``'s (128, 4); each replay is short
-    and wide (n > 8 m), so ``fill_tile.route`` keeps it on gotoh_fill, at
-    ``fill_cuda.plan``'s W 16, 8 warps, 8 bands (one cluster) and 7
-    passes, its table in shared memory, without the ragged mode."""
+def test_mpox_genome_blocks_and_kernels(monkeypatch, part, instance):
+    """At the batch route's block budget (``batch._block_budget``: a quarter
+    of the card, 21.25 GB) a genome (m = 197 209) replays in 2 blocks of
+    ~107 750 and ~89 460 rows (``block_bounds``), each within ``route``'s
+    aspect rule (n <= 8 m), so each replay is one gotoh_tile launch with
+    codes at ``fill_tile.plan``'s (128, 4), its table in shared memory.  The
+    checkpoint pass is one cost-only gotoh_tile launch at (128, 4).  The
+    budget is the path's, not the genome's: at the single-pair path's 64
+    MiB (``DEFAULT_MOVES_BUDGET_BYTES``: 340 rows of 197 210 bytes, under
+    ``DEFAULT_BLOCK_ROWS``) the same genome is 386 blocks of 512 rows, the
+    last one of 89, each short and wide, so ``route`` keeps it on gotoh_fill
+    at ``fill_cuda.plan``'s W 16, 8 warps, 8 bands (one cluster) and 7
+    passes, without the ragged mode."""
+    monkeypatch.setattr(batch, "_card_memory", lambda index: CARD_MEMORY)
+    if part == "single-pair replays":
+        budget = DEFAULT_MOVES_BUDGET_BYTES
+    else:
+        budget = batch._block_budget(torch.device("cuda", 0), None)
+        assert budget == CARD_MEMORY // 4
     for a, b in _mpox_genomes():
         m, n = len(a), len(b)
-        bounds = linear_tb.block_bounds(m, n)
+        bounds = linear_tb.block_bounds(m, n, block_moves_bytes=budget)
         sizes = [i1 - i0 for i0, i1 in zip(bounds, bounds[1:])]
-        assert len(sizes) == 386 and set(sizes[:-1]) == {512} and sizes[-1] == 89
         if part == "checkpoints":
             height, width, moves, tsmem = _instance(instance)
             assert not moves
             assert fill_tile.plan([(m, n)], False, SMS) == (height, width)
             assert tsmem is _tile_table_in_smem(height, width, False, DNA_TABLE)
-            continue
-        width, moves, tsmem, ragged = _instance(instance)
-        assert moves and not ragged
-        for rows in set(sizes):
-            assert not fill_tile.route(1, rows, n, True, SMS)
-        lp = fill_cuda.plan(1, n, True, SMS)
-        assert tuple(lp) == (width, 8, 8, 7)
-        assert tsmem is _fill_table_in_smem(width, lp.warps, True, DNA_TABLE)
+        elif part == "replays":
+            assert len(sizes) == 2 and all(n <= 8 * rows for rows in sizes)
+            assert abs(sizes[0] - 107_750) < 100 and abs(sizes[1] - 89_460) < 100
+            height, width, moves, tsmem = _instance(instance)
+            assert moves and tsmem is _tile_table_in_smem(height, width, True,
+                                                          DNA_TABLE)
+            for rows in sizes:
+                assert fill_tile.route(1, rows, n, True, SMS)
+                assert fill_tile.plan([(rows, n)], True, SMS) == (height, width)
+        else:
+            assert (len(sizes) == 386 and set(sizes[:-1]) == {512}
+                    and sizes[-1] == 89)
+            width, moves, tsmem, ragged = _instance(instance)
+            assert moves and not ragged
+            for rows in set(sizes):
+                assert not fill_tile.route(1, rows, n, True, SMS)
+            lp = fill_cuda.plan(1, n, True, SMS)
+            assert tuple(lp) == (width, 8, 8, 7)
+            assert tsmem is _fill_table_in_smem(width, lp.warps, True, DNA_TABLE)

@@ -12,10 +12,12 @@ several blocks through the same code.  This file imports no JAX.
 """
 
 import json
+import weakref
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile
 
 from benchmark.harness import traffic
@@ -26,6 +28,7 @@ from globalign_tpu_torch.ops import fill_cuda, linear_tb
 BENCH = Path(__file__).resolve().parents[1] / "benchmark"
 CONFIG = json.loads((BENCH / "configs" / "mpox_blastn.json").read_text())
 MIX = json.loads((BENCH / "traffic" / "mpox_genomes_tb.json").read_text())
+CARD_MEMORY = 85_000_000_000  # an H100 80GB HBM3's total memory, bytes
 
 
 def _pairs(seed: int, length: int, count: int = 3):
@@ -125,3 +128,54 @@ def test_a_genome_passes_the_card_budget_and_capacity():
     assert fill_cuda.ragged_bytes(*key) > batch.DEVICE_WALK_MOVES_BUDGET
     assert fill_cuda.ragged_bytes(m, m) > 85_000_000_000 // 4
     assert np.isclose(fill_cuda.ragged_bytes(m, m), 3.89e10, rtol=1e-3)
+
+
+@pytest.mark.parametrize("where", ["card", "cpu", "mesh"])
+def test_the_block_budget_by_device(monkeypatch, where):
+    """The blocked branch's block budget (``batch._block_budget``): on a card
+    a quarter of its memory (``_card_memory``, patched to an H100's), the
+    segments' capacity; on the CPU and with a mesh the 64 MiB default
+    (``linear_tb.DEFAULT_BLOCK_MOVES_BYTES``).  On the CPU ``align_pairs``
+    passes it to every blocked pair."""
+    monkeypatch.setattr(batch, "_card_memory", lambda index: CARD_MEMORY)
+    device = torch.device("cpu") if where == "cpu" else torch.device("cuda", 0)
+    mesh = object() if where == "mesh" else None
+    want = (CARD_MEMORY // 4 if where == "card"
+            else linear_tb.DEFAULT_BLOCK_MOVES_BYTES)
+    assert batch._block_budget(device, mesh) == want
+    if where == "card":
+        assert want == batch._segment_budget(device)
+    if where != "cpu":
+        return
+    pairs = _pairs(2 ** 31 + 10, 200, count=2)
+    monkeypatch.setattr(batch, "DEFAULT_BATCH_MOVES_BUDGET", 4096)
+    real, seen = linear_tb.align_blocked, []
+
+    def spy(*args, **kw):
+        seen.append(kw["block_moves_bytes"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(linear_tb, "align_blocked", spy)
+    align_pairs(pairs, device="cpu", **CONFIG["scheme"])
+    assert seen == [want] * len(pairs)
+
+
+def test_one_block_of_codes_at_a_time(monkeypatch):
+    """``align_blocked`` holds at most one block's codes: when it asks
+    ``batch_moves`` for the next block's, the codes of the block before
+    (held by a weak reference) are gone."""
+    pairs = _pairs(2 ** 31 + 11, 300, count=2)
+    _blocked(monkeypatch, 40)
+    real, held, alive = linear_tb.batch_moves, [], []
+
+    def spy(*args, **kw):
+        alive.extend(ref() is not None for ref in held)
+        held.clear()
+        final3, moves = real(*args, **kw)
+        held.append(weakref.ref(moves))
+        return final3, moves
+
+    monkeypatch.setattr(linear_tb, "batch_moves", spy)
+    align_pairs(pairs, device="cpu", **CONFIG["scheme"])
+    blocks = sum(-(-len(a) // 40) for a, _ in pairs)
+    assert len(alive) == blocks - 1 and not any(alive)
